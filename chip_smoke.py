@@ -5,15 +5,30 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
-     ``cosyvoice2_eu_torch/csrc`` and print the build time;
-  2. kernel check: every kernel of the main path against its plain PyTorch
-     version on the card, at the estimator's shapes, with timings;
-  3. reference check on a small input: the pipeline on the card (kernels
-     included) against the plain CPU path, with the same weights and draws;
-  4. main path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
+     ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
+     print the build time and ptxas's register and spill lines;
+  2. kernel checks: K1 (flash-attention forward, O and LSE) and K3/K4 (its
+     backward) against their plain PyTorch versions on the card, every row,
+     at B=2 ragged shapes and the training path's two batches; K1 -> K3/K4
+     also against the fully plain forward and backward;
+  3. reference checks on a small config: the TTS pipeline and one flow
+     train step on the card (kernels included) against the plain CPU path,
+     with the same weights and draws;
+  4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
      published widths (random weights) answers 3 requests; checks the audio
-     and that each flow call launched K1 560 times; per-stage times.
-The line before the last is the kernels JSON; the last line is
+     and that each flow call launched K1 560 times; per-stage times;
+  5. training path: 8 flow-matching steps at the published widths through
+     ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
+     then CV and an end-of-epoch checkpoint; checks finite losses, the
+     MultiSteps update at step 4, 56 launches of K1 (with LSE), K3 and K4
+     per step, and a bit-exact checkpoint round trip; per-step times;
+  6. kernel timings at the shapes of both paths.
+The line before the last is the kernels JSON: K1's times are means per
+launch over both paths (each path's under ``by_path``); K3's and K4's
+``plain_ms`` time the plain dQ and dK/dV alone, their ``library_ms`` is
+null (no library call computes one of them alone), and ``backward_*ms``
+time the whole backward as delta + K3 + K4, the plain version and SDPA's.
+The last line is
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
@@ -21,16 +36,42 @@ JAX package.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_FP32_FLOPS = 67e12   # fp32 outside the tensor cores (FMA), H100 SXM data sheet
 H100_BYTES = 3.35e12      # HBM3 bandwidth
+PEAKS = {"torch.float32": H100_FP32_FLOPS, "torch.bfloat16": H100_BF16_FLOPS}
+
+
+def _counters() -> tuple:
+    """The kernel wrappers whose ``launches`` counts show a path's launches."""
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    return fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv
+
+
+def _uncounted(fn):
+    """Launches made inside ``fn`` (comparisons, references, timing) do not count."""
+
+    @functools.wraps(fn)
+    def run(*args, **kwargs):
+        saved = [f.launches for f in _counters()]
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            for f, n in zip(_counters(), saved):
+                f.launches = n
+
+    return run
 
 
 def _cuda_ms(fn, iters: int) -> float:
@@ -47,8 +88,23 @@ def _cuda_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+# mel frames of the training path's two batches (longest x rows <= 3000) and
+# of its CV batch
+TRAIN_SHAPES = ([740, 690, 610, 520], [1480, 1210])
+CV_SHAPE = TRAIN_SHAPES[0]
+
+
+def _check_cases(ts) -> list:
+    """Lengths of each kernel check: B=2 ragged at each T in ``ts``, then the
+    training path's two batches exactly (T 740 and 1480, not multiples of 64)."""
+    return [[t, (3 * t) // 5 + 7] for t in ts] + [list(lens) for lens in TRAIN_SHAPES]
+
+
+@_uncounted
 def check_flash_attention() -> float:
-    """K1 against its plain version at the estimator's shapes; the worst error."""
+    """K1 against its plain version at the shapes of both paths, with and
+    without LSE; O and LSE compared on every row (pad rows included, which
+    K3 and K4 read).  Returns the worst O error."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
@@ -56,14 +112,15 @@ def check_flash_attention() -> float:
     # fp32: the kernel and the plain version both compute in fp32 and differ
     # only in summation order.  bf16: both round the same fp32 result to bf16,
     # so they may differ by one bf16 ulp, at most 2^-7 of the largest output.
-    lse_tol = 1e-3  # fp32 log-sum-exp of O(10) magnitude, either input type
-    b, h, d = 2, 8, 64
+    # The LSE is fp32 for either input type, |LSE| < 10 here: a few fp32 ulps.
+    lse_tol = 1e-5
+    h, d = 8, 64
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     worst = 0.0
-    saved = fa.flash_attention.launches
-    for t in (128, 384, 1280, 1536, 2048):
-        lengths = torch.tensor([t, (3 * t) // 5 + 7], dtype=torch.int32, device="cuda")
+    for lens in _check_cases((128, 384, 1280, 1536, 2048)):
+        b, t = len(lens), max(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
@@ -72,83 +129,157 @@ def check_flash_attention() -> float:
                     got = fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse)
                     want = fa.flash_attention_reference(q, k, v, lengths, chunk,
                                                         return_lse=with_lse)
-                    torch.cuda.synchronize()
                     if not with_lse:
                         got, want = (got, None), (want, None)
-                    err = lse_err = peak = 0.0
-                    for bi in range(b):
-                        n = int(lengths[bi])  # valid query rows only
-                        want_o = want[0][bi, :, :n].float()
-                        peak = max(peak, want_o.abs().max().item())
-                        err = max(err, (got[0][bi, :, :n].float() - want_o).abs().max().item())
-                        if with_lse:
-                            lse_err = max(lse_err, (got[1][bi, :, :n]
-                                                    - want[1][bi, :, :n]).abs().max().item())
+                    peak = want[0].float().abs().max().item()
+                    err = (got[0].float() - want[0].float()).abs().max().item()
+                    lse_err = (got[1] - want[1]).abs().max().item() if with_lse else 0.0
                     tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * peak
-                    ok = err <= tol and lse_err <= lse_tol and math.isfinite(err)
-                    print(f"K1 check T={t} {str(dtype)[6:]} chunk={chunk} lse={with_lse}: "
-                          f"max_abs_err={err:.3e} (tol {tol:.3e}) lse_err={lse_err:.3e} "
-                          f"(tol {lse_tol:g}) {'ok' if ok else 'FAIL'}")
+                    ok = (math.isfinite(err) and math.isfinite(lse_err) and err <= tol
+                          and lse_err <= lse_tol)
+                    print(f"K1 check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk} "
+                          f"lse={with_lse}, every row: max_abs_err={err:.3e} (tol {tol:.3e}) "
+                          f"lse_err={lse_err:.3e} (tol {lse_tol:g}) {'ok' if ok else 'FAIL'}")
                     if not ok:
-                        raise SystemExit(f"K1 disagrees with its plain version at T={t}")
+                        raise SystemExit(f"K1 disagrees with its plain version at lengths={lens}")
                     worst = max(worst, err)
-    fa.flash_attention.launches = saved  # comparison launches do not count
     return worst
 
 
-def time_flash_attention(shapes: list, card: str) -> tuple[dict, list]:
-    """K1, its plain version and SDPA at each flow call's shape of the main path.
+@_uncounted
+def check_flash_backward() -> tuple[float, float]:
+    """K3 and K4 against their plain version: B=2 ragged at T from 128 to
+    2048 and the training path's two batches exactly; fp32 and bf16, chunk 0
+    and 50.  dQ is compared on every query row (pad rows included), dK/dV on
+    every key, and dK/dV must be exactly 0 on keys at or past length[b].
+    Two comparisons per case: both sides take K1's O and LSE (K3 and K4
+    alone), and, in fp32, the port's chain (K1, delta, K3, K4) against the
+    fully plain chain (the plain forward's O and LSE into the plain
+    backward).  Returns the worst dQ and dK/dV errors of the first.  Also:
+    the forward under autograd equals the inference launch."""
+    import torch
 
-    ``shapes`` holds (T, valid mel frames) per flow call; both CFG halves
-    hold the same frames.  Each flow call launches K1 equally often, so the
-    mean over the calls is the mean per launch of the main path.  Returns
-    K1's row of the kernels line and the kernel's ms at each call's shape.
-    """
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    # fp32: the kernels and the plain version compute in fp32 and differ only
+    # in summation order, 1e-4 x max(1, max|want|).  bf16: both round the same
+    # fp32 result once, so one bf16 ulp, 2^-7 of the largest output.
+    h, d = 8, 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(2)
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for lens in _check_cases((128, 384, 740, 1480, 2048)):
+        b, t = len(lens), max(lens)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
+                           for _ in range(4))
+            for chunk in (0, 50):
+                o, lse = fa.flash_attention(q, k, v, lengths, chunk, return_lse=True)
+                got = fa.flash_attention_bwd(q, k, v, o, lse, do, lengths, chunk)
+                refs = {"K1's O/LSE": fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
+                                                                        lengths, chunk)}
+                if dtype == torch.float32:
+                    o_p, lse_p = fa.flash_attention_reference(q, k, v, lengths, chunk,
+                                                              return_lse=True)
+                    refs["plain chain"] = fa.flash_attention_bwd_reference(
+                        q, k, v, o_p, lse_p, do, lengths, chunk)
+                torch.cuda.synchronize()
+                ok, parts = True, []
+                for ref, want in refs.items():
+                    errs = []
+                    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                        peak = w.float().abs().max().item()
+                        err = (g.float() - w.float()).abs().max().item()
+                        tol = 1e-4 * max(1.0, peak) if dtype == torch.float32 else 2.0 ** -7 * peak
+                        ok = ok and math.isfinite(err) and err <= tol
+                        errs.append(f"{name} {err:.3e} (tol {tol:.3e})")
+                        if ref == "K1's O/LSE":
+                            key = "dq" if name == "dq" else "dkv"
+                            worst[key] = max(worst[key], err)
+                    parts.append(f"vs {ref}: {', '.join(errs)}")
+                zero_past = all(not got[1][i, :, n:].any().item() and not got[2][i, :, n:].any().item()
+                                for i, n in enumerate(lens))
+                ok = ok and zero_past
+                print(f"K3/K4 check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk}, every "
+                      f"row and key: max_abs_err {'; '.join(parts)}; dK=dV=0 past length: "
+                      f"{zero_past} {'ok' if ok else 'FAIL'}")
+                if not ok:
+                    raise SystemExit(f"K3/K4 disagree with their plain version at lengths={lens}")
+    # the differentiable forward (K1 with LSE) equals the inference launch
+    q, k, v = (torch.randn((2, h, 740, d), generator=gen, device="cuda") for _ in range(3))
+    lengths = torch.tensor([740, 451], dtype=torch.int32, device="cuda")
+    with torch.no_grad():
+        o_inf = fa.flash_attention(q, k, v, lengths, 50)
+    o_grad = fa.flash_attention(q.requires_grad_(), k, v, lengths, 50)
+    same = o_grad.grad_fn is not None and torch.equal(o_grad.detach(), o_inf)
+    print(f"K1 forward under autograd equals the inference launch: {same} "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        raise SystemExit("the differentiable forward differs from the inference launch")
+    return worst["dq"], worst["dkv"]
+
+
+def _time_k1(lens, t: int, chunk: int, dtype, with_lse: bool, gen) -> dict:
+    """K1, its plain version and SDPA's forward on random inputs of one shape,
+    with K1's bound from this run's visible pairs (ms each)."""
     import torch
     import torch.nn.functional as F
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
     from cosyvoice2_eu_torch.ops.masks import chunk_attention_mask
 
-    b, h, d = 2, 8, 64
+    h, d = 8, 64
+    b = len(lens)
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
+               for _ in range(3))
+    mask = chunk_attention_mask(lengths, t, chunk)[:, None]
+    ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse), 50)
+    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, lengths, chunk,
+                                                             return_lse=with_lse), 10)
+    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50)
+    flops = 4 * d * int(mask.sum().item()) * h  # visible (query, key) pairs of this run's data
+    # q, k, v read; o (and lse) written; lengths
+    nbytes = 4 * b * h * t * d * q.element_size() + (b * h * t * 4 if with_lse else 0) + b * 4
+    ops_ms = flops / PEAKS[str(dtype)] * 1e3
+    bytes_ms = nbytes / H100_BYTES * 1e3
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
+                ops_ms=ops_ms, bytes_ms=bytes_ms, gflop=flops / 1e9, mb=nbytes / 1e6)
+
+
+def _weighted(parts: list) -> dict:
+    """Launch-weighted means of the times of (launches, times) pairs, the
+    mean per launch over a path; a time that is None stays None."""
+    total = sum(n for n, _ in parts)
+    keys = [k for k in parts[0][1] if k.endswith("_ms") or k == "ms"]
+    out = {k: None if parts[0][1][k] is None else sum(n * p[k] for n, p in parts) / total
+           for k in keys}
+    out.update(launches=total, bound_by="operations" if out["ops_ms"] >= out["bytes_ms"]
+               else "bytes")
+    return out
+
+
+@_uncounted
+def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, list]:
+    """K1, its plain version and SDPA at each flow call's shape of the TTS path.
+
+    ``shapes`` holds (T, valid mel frames) per flow call; both CFG halves
+    hold the same frames, and each call launches K1 equally often.  Returns
+    the path's mean per launch and the kernel's ms at each call's shape.
+    """
+    import torch
+
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    saved = fa.flash_attention.launches
     rows = []
     for t, n in shapes:
-        lengths = torch.tensor([n, n], dtype=torch.int32, device="cuda")
-        q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(torch.bfloat16)
-                   for _ in range(3))
-        mask = chunk_attention_mask(lengths, t, 0)[:, None]
-        ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, lengths), 50)
-        plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, lengths), 10)
-        library_ms = _cuda_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50)
-        pairs = int(mask.sum().item()) * h  # visible (query, key) pairs of this run's data
-        flops = 4 * d * pairs
-        nbytes = 4 * b * h * t * d * 2 + b * 4  # q, k, v read; o written; lengths
-        t_ops, t_bytes = flops / H100_BF16_FLOPS * 1e3, nbytes / H100_BYTES * 1e3
-        print(f"K1 timing T={t} bf16 chunk=0 lengths={lengths.tolist()} [{card}]: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, "
-              f"bound {max(t_ops, t_bytes) * 1e3:.2f} us ({flops / 1e9:.2f} GFLOP, "
-              f"{nbytes / 1e6:.2f} MB)")
-        rows.append((ms, plain_ms, library_ms, max(t_ops, t_bytes), t_ops - t_bytes))
-    fa.flash_attention.launches = saved  # timing launches do not count
-    ms, plain_ms, library_ms, bound_ms, ops_over_bytes = (sum(c) / len(rows)
-                                                          for c in zip(*rows))
-    return {
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "cosyvoice2_eu_torch/csrc/flash_attention.cu",
-        "replaces": "cosyvoice2_eu_tpu/ops/pallas/flash_attention.py:71",
-        "launches": 0,
-        "max_abs_err": 0.0,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if ops_over_bytes >= 0 else "bytes",
-        "library_ms": library_ms,
-    }, [r[0] for r in rows]
+        r = _time_k1([n, n], t, 0, torch.bfloat16, False, gen)
+        print(f"K1 timing T={t} bf16 chunk=0 lengths={[n, n]} [{card}]: kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms'] * 1e3:.2f} us ({r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB)")
+        rows.append(r)
+    return _weighted([(launches // len(rows), r) for r in rows]), [r["ms"] for r in rows]
 
 
 def _prompt(cfg, seconds: float, seed: int = 0) -> dict:
@@ -244,7 +375,8 @@ def main_path(card: str) -> tuple[int, list, list]:
     ratio = cfg.token_mel_ratio
     shapes, flow_ms = [], []
     torch.cuda.reset_peak_memory_stats()
-    fa.flash_attention.launches = 0
+    for f in _counters():
+        f.launches = 0
     for i, text in enumerate(texts):
         before = fa.flash_attention.launches
         model._model.timer.reset()
@@ -278,6 +410,289 @@ def main_path(card: str) -> tuple[int, list, list]:
     return launches, shapes, flow_ms
 
 
+def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
+    """A flow batch in the dataset's dict form (tokens = frames / ratio),
+    from a seed."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    ratio = flow_cfg.token_mel_ratio
+    b, t_mel = len(feat_lens), max(feat_lens)
+    feat_len = np.asarray(feat_lens, np.int32)
+    batch = {
+        "speech_token": rng.integers(0, flow_cfg.vocab_size, (b, t_mel // ratio)).astype(np.int32),
+        "speech_token_len": feat_len // ratio,
+        "speech_feat": (rng.standard_normal((b, t_mel, flow_cfg.output_size)) * 0.5
+                        - 4.0).astype(np.float32),
+        "speech_feat_len": feat_len,
+        "embedding": rng.standard_normal((b, flow_cfg.spk_embed_dim)).astype(np.float32),
+    }
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+@_uncounted
+def check_small_train_reference() -> None:
+    """One flow train step on the card (K1 with LSE, K3, K4; fp32) against the
+    CPU plain path, with the same parameters, batch and draws, on the small
+    config of ``check_small_reference``; non-streaming and streaming.  The
+    gradient leaves are read from Adam's first moment after the step
+    (mu = 0.1 clip(g), accum_grad 1)."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TrainConfig, tiny_test_config
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.parallel.train_step import (
+        init_train_state,
+        make_flow_draws,
+        make_flow_train_step,
+    )
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves, tree_map
+
+    resolve_device("cuda")  # fp32 stays fp32: no TF32
+    cfg = tiny_test_config().flow
+    cfg = dataclasses.replace(cfg, estimator=dataclasses.replace(
+        cfg.estimator, attention_head_dim=64, num_heads=2))
+    tc = TrainConfig(lr=1e-3, accum_grad=1)
+    params = init_flow(torch.Generator(device="cpu").manual_seed(1), cfg)
+    batch = _flow_batch(cfg, [180, 140], 5, "cpu")
+    draws = make_flow_draws(torch.Generator(device="cpu").manual_seed(2), batch, cfg.output_size)
+    # the loss within 1e-5 relative; each leaf within 1e-4 of its largest
+    # entry (+1e-7 for leaves near zero): fp32, sums in another order
+    for streaming in (False, True):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tx = make_optimizer(tc)
+            step = make_flow_train_step(cfg, tc, tx)
+            state, metrics = step(init_train_state(tree_map(lambda x: x.to(dev), params), tx),
+                                  {k: v.to(dev) for k, v in batch.items()},
+                                  {k: v.to(dev) for k, v in draws.items()}, streaming=streaming)
+            out[dev] = (float(metrics["loss"]), [x.cpu() for x in tree_leaves(state.opt_state["mu"])])
+        (l_cpu, mu_cpu), (l_gpu, mu_gpu) = out["cpu"], out["cuda"]
+        loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(mu_gpu, mu_cpu)]
+        # the worst leaf's error as a share of its tolerance (<= 1 passes)
+        worst = max(err / (1e-4 * peak + 1e-7) for err, peak in errs)
+        ok = math.isfinite(l_gpu) and loss_err <= 1e-5 and worst <= 1.0
+        print(f"train reference check (small config, fp32, streaming={streaming}, card vs CPU "
+              f"plain path): loss {l_gpu:.6f} vs {l_cpu:.6f} (rel err {loss_err:.2e}, tol 1e-5); "
+              f"{len(errs)} gradient leaves, each within 1e-4 x max|g| + 1e-7: the worst at "
+              f"{worst:.3f} of its tolerance {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the card's train step disagrees with the plain CPU path")
+
+
+def train_path(card: str) -> tuple[list, list]:
+    """8 full-width flow training steps through ``Executor.train_epoch``.
+
+    Returns the per-step records and the launches of K1, K3 and K4 over the
+    epoch (CV included)."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import TrainConfig, TTSConfig
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.parallel.train_step import init_train_state, make_flow_train_step
+    from cosyvoice2_eu_torch.train.executor import (
+        Executor,
+        latest_checkpoint,
+        restore_train_state,
+    )
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.train.train import make_flow_cv_fn, make_flow_step_fn
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+    from cosyvoice2_eu_torch.utils.profiling import StageTimer
+
+    dev = resolve_device("cuda")
+    cfg = TTSConfig().flow
+    est = cfg.estimator
+    per_step = (2 + est.num_mid_blocks) * est.n_blocks
+    tc = TrainConfig()
+    t0 = time.perf_counter()
+    params = init_flow(torch.Generator(device=dev).manual_seed(0), cfg)
+    tx = make_optimizer(tc)
+    state = init_train_state(params, tx)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"training path: init_flow(TTSConfig().flow, seed 0) on {dev}, {n_params / 1e6:.2f} M "
+          f"parameters, fp32, {tc.optim} lr {tc.lr} accum_grad {tc.accum_grad}, "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    timer = StageTimer(sync=torch.cuda.synchronize)
+    raw = make_flow_train_step(cfg, tc, tx, timer=timer)
+    initial = [x.clone() for x in tree_leaves(params)]
+    counters = _counters()
+    steps = []
+
+    def traced(state, batch, draws, streaming):
+        before = [f.launches for f in counters]
+        timer.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        state, metrics = raw(state, batch, draws, streaming=streaming)
+        loss, grad_norm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stages = timer.summary()
+        rec = {
+            "step": state.step, "lens": batch["speech_feat_len"].tolist(),
+            "chunk": est.static_chunk_size if streaming else 0, "loss": loss,
+            "grad_norm": grad_norm, "ms": wall * 1e3,
+            **{k: stages[k]["total_s"] * 1e3 for k in ("forward", "backward", "optimizer")},
+            "frames": int(batch["speech_feat_len"].sum()),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "launched": [f.launches - n for f, n in zip(counters, before)],
+            "unchanged": all(torch.equal(a, b) for a, b in zip(tree_leaves(state.params), initial)),
+        }
+        steps.append(rec)
+        print(f"train step {rec['step']}: B={len(rec['lens'])} T_mel={max(rec['lens'])} "
+              f"chunk={rec['chunk']} loss {loss:.4f} grad_norm {grad_norm:.3f}; "
+              f"{rec['ms']:.1f} ms (forward {rec['forward']:.1f}, backward {rec['backward']:.1f}, "
+              f"optimizer {rec['optimizer']:.1f}), {rec['frames'] / wall:.0f} mel frames/s, "
+              f"peak {rec['peak_gib']:.2f} GiB; K1/K3/K4 launches {rec['launched']}; "
+              f"parameters {'unchanged' if rec['unchanged'] else 'updated'} [{card}]")
+        return state, metrics
+
+    step_fn = make_flow_step_fn(raw_step=traced, cfg=cfg,
+                                gen=torch.Generator(device=dev).manual_seed(1),
+                                rng=np.random.default_rng(0))
+    batches = [_flow_batch(cfg, TRAIN_SHAPES[i % 2], 100 + i, dev) for i in range(8)]
+    cv = [_flow_batch(cfg, CV_SHAPE, 200, dev)]
+    with tempfile.TemporaryDirectory() as model_dir:
+        ex = Executor(tc, step_fn, make_flow_cv_fn(cfg), model_dir=model_dir)
+        for f in counters:
+            f.launches = 0
+        t0 = time.perf_counter()
+        state = ex.train_epoch(state, batches, cv)
+        torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        launches = [f.launches for f in counters]
+        info = latest_checkpoint(model_dir)
+        template = init_train_state(init_flow(torch.Generator(device=dev).manual_seed(1), cfg), tx)
+        restored = restore_train_state(model_dir, info, template)
+        exact = restored.step == state.step and all(
+            torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
+            for a, b in zip(tree_leaves((restored.params, restored.opt_state)),
+                            tree_leaves((state.params, state.opt_state))))
+    losses_ok = all(math.isfinite(r["loss"]) for r in steps)
+    multisteps_ok = [r["unchanged"] for r in steps[:4]] == [True, True, True, False]
+    launches_ok = all(r["launched"] == [per_step] * 3 for r in steps)
+    chunks = {r["chunk"] for r in steps}
+    totals_ok = launches == [per_step * (len(steps) + len(cv)), per_step * len(steps),
+                             per_step * len(steps)]
+    print(f"training path: {len(steps)} steps + CV in {epoch_s:.2f} s, cv_loss "
+          f"{info.get('cv_loss', float('nan')):.4f}; losses finite: {losses_ok}; parameters "
+          f"unchanged after steps 1-3 and updated after step 4 (MultiSteps): {multisteps_ok}; "
+          f"{per_step} launches each of K1 (with LSE), K3, K4 per step: {launches_ok}; chunks "
+          f"{sorted(chunks)}; launches over the epoch K1/K3/K4 {launches} (CV: K1 without LSE); "
+          f"checkpoint {info['tag']} restores bit-exactly: {exact}; peak memory "
+          f"{max(r['peak_gib'] for r in steps):.2f} GiB [{card}]")
+    if not (losses_ok and multisteps_ok and launches_ok and totals_ok and exact
+            and chunks == {0, est.static_chunk_size}):
+        raise SystemExit("the training path failed its checks")
+    return steps, launches
+
+
+@_uncounted
+def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dict, dict, dict,
+                                                                             list]:
+    """K1 (with LSE), K3, K4, their plain versions and the library's forward
+    and backward at every (lengths, chunk) the training path ran, fp32, and
+    K1 without LSE at the CV batch; then bf16 at chunk 0 for comparison with
+    K1's serving times.  Returns K1's times on the training path (CV
+    included), K3's and K4's rows of the kernels line (means per launch of
+    the path) and each step's (K1 + K3 + K4) ms per layer."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+    from cosyvoice2_eu_torch.ops.masks import chunk_attention_mask
+
+    h, d = 8, 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    combos = [(tuple(lens), chunk, torch.float32)
+              for lens, chunk in sorted({(tuple(r["lens"]), r["chunk"]) for r in steps})]
+    combos += [(tuple(lens), 0, torch.bfloat16) for lens in TRAIN_SHAPES]
+    timed = {}
+    for lens, chunk, dtype in combos:
+        b, t = len(lens), max(lens)
+        k1 = _time_k1(lens, t, chunk, dtype, True, gen)
+        lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+        q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
+                       for _ in range(4))
+        o, lse = fa.flash_attention(q, k, v, lengths, chunk, return_lse=True)
+        delta = (do.float() * o.float()).sum(-1)
+        mask = chunk_attention_mask(lengths, t, chunk)[:, None]
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        og = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask)
+        # the whole backward three ways: delta + K3 + K4, the plain version, SDPA's
+        backward = dict(
+            backward_ms=_cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, lse, do, lengths,
+                                                                chunk), 20),
+            backward_plain_ms=_cuda_ms(lambda: fa.flash_attention_bwd_reference(
+                q, k, v, o, lse, do, lengths, chunk), 5),
+            backward_library_ms=_cuda_ms(lambda: torch.autograd.grad(
+                og, (qg, kg, vg), do, retain_graph=True), 20))
+        pairs = int(mask.sum().item()) * h  # visible (query, key) pairs of this run's data
+        esize = q.element_size()
+        io = 4 * b * h * t * d * esize + 2 * b * h * t * 4 + b * 4  # q, k, v, dO; lse, delta; lengths
+        kern = {}
+        for name, launch, grads, ops, out in (
+                ("K3", lambda: fa.flash_attention_dq(q, k, v, do, lse, delta, lengths, chunk), "q",
+                 6 * d * pairs, b * h * t * d * esize),
+                ("K4", lambda: fa.flash_attention_dkv(q, k, v, do, lse, delta, lengths, chunk),
+                 "kv", 8 * d * pairs, 2 * b * h * t * d * esize)):
+            ops_ms = ops / PEAKS[str(dtype)] * 1e3
+            bytes_ms = (io + out) / H100_BYTES * 1e3
+            # no library call computes dQ (or dK, dV) alone: SDPA's backward
+            # computes all three and stands beside the whole backward above
+            kern[name] = dict(
+                ms=_cuda_ms(launch, 20),
+                plain_ms=_cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                    q, k, v, do, lse, delta, lengths, chunk, grads=grads), 5),
+                library_ms=None, bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                bytes_ms=bytes_ms, gflop=ops / 1e9, **backward)
+        timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
+        k3, k4 = kern["K3"], kern["K4"]
+        print(f"K1/K3/K4 timing lengths={list(lens)} T={t} {str(dtype)[6:]} chunk={chunk} [{card}]: "
+              f"K1+LSE {k1['ms']:.4f} ms (plain {k1['plain_ms']:.4f}, sdpa forward "
+              f"{k1['library_ms']:.4f}, bound {k1['bound_ms'] * 1e3:.1f} us); K3 {k3['ms']:.4f} ms "
+              f"(plain dQ {k3['plain_ms']:.4f}, bound {k3['bound_ms'] * 1e3:.1f} us, "
+              f"{k3['gflop']:.2f} GFLOP); K4 {k4['ms']:.4f} ms (plain dK/dV {k4['plain_ms']:.4f}, "
+              f"bound {k4['bound_ms'] * 1e3:.1f} us, {k4['gflop']:.2f} GFLOP); whole backward: "
+              f"delta+K3+K4 {backward['backward_ms']:.4f} ms, plain "
+              f"{backward['backward_plain_ms']:.4f} ms, sdpa {backward['backward_library_ms']:.4f}"
+              f" ms; bounds at {'fp32 FMA' if dtype == torch.float32 else 'bf16 tensor-core'} "
+              f"{PEAKS[str(dtype)] / 1e12:.0f} TFLOP/s and HBM {H100_BYTES / 1e12:.2f} TB/s")
+    per_step = [timed[(tuple(r["lens"]), r["chunk"], torch.float32)] for r in steps]
+    n = k1_launches // (len(steps) + 1)  # launches of each kernel per step (and per CV batch)
+    cv = _time_k1(CV_SHAPE, max(CV_SHAPE), 0, torch.float32, False, gen)
+    print(f"K1 timing (CV batch, no LSE) lengths={CV_SHAPE} fp32 chunk=0 [{card}]: kernel "
+          f"{cv['ms']:.4f} ms, plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, "
+          f"bound {cv['bound_ms'] * 1e3:.1f} us")
+    k1_train = _weighted([(n, p["k1"]) for p in per_step] + [(k1_launches - n * len(steps), cv)])
+    rows = [_kernel_row(name, "flash_attention_bwd.cu", line,
+                        _weighted([(n, p[key]) for p in per_step]))
+            for key, name, line in (("K3", "flash_attention_dq", 125),
+                                    ("K4", "flash_attention_dkv", 172))]
+    step_kernel_ms = [p["k1"]["ms"] + p["K3"]["ms"] + p["K4"]["ms"] for p in per_step]
+    return k1_train, rows[0], rows[1], step_kernel_ms
+
+
+def _kernel_row(name: str, source: str, line: int, times: dict, **extra) -> dict:
+    """One entry of the kernels line; times from ``_weighted``."""
+    row = {"name": name, "route": "cuda", "source": f"cosyvoice2_eu_torch/csrc/{source}",
+           "replaces": f"cosyvoice2_eu_tpu/ops/pallas/flash_attention.py:{line}",
+           "launches": times["launches"], "max_abs_err": 0.0}
+    row.update({k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
+    row.update({k: v for k, v in times.items() if k.startswith("backward_")}, **extra)
+    return row
+
+
 def main() -> None:
     import torch
 
@@ -295,24 +710,48 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import flash_attention as fa
 
     t0 = time.perf_counter()
-    cuda_build.load_library(fa.SOURCE)
+    cuda_build.build([fa.SOURCE, fa.BWD_SOURCE])  # one nvcc per source, in parallel
+    for src in (fa.SOURCE, fa.BWD_SOURCE):
+        cuda_build.load_library(src)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for src, log in cuda_build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"  {src}: {line.strip()}")
 
     worst = check_flash_attention()
+    worst_dq, worst_dkv = check_flash_backward()
     check_small_reference()
-    launches, shapes, flow_ms = main_path(card)
-    k1, calls_ms = time_flash_attention(shapes, card)
-    k1.update(launches=launches, max_abs_err=worst)
-    per_call = launches // len(shapes)
+    check_small_train_reference()
+    tts_launches, shapes, flow_ms = main_path(card)
+    if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches:
+        raise SystemExit("the TTS path launched a backward kernel")
+    steps, train_launches = train_path(card)
+
+    k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
+    per_call = tts_launches // len(shapes)
     for i, ((t, n), f_ms) in enumerate(zip(shapes, flow_ms)):
         # K1's time at this call's shape, timed alone, times its launches per call
         print(f"request {i}: K1 at T={t}, {n} frames x {per_call} launches is an estimated "
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
-    print(json.dumps({"kernels": [k1]}))
+    k1_train, k3, k4, step_kernel_ms = time_training_kernels(steps, train_launches[0], card)
+    if [k3["launches"], k4["launches"]] != train_launches[1:]:
+        raise SystemExit("K3/K4 launches do not match the training path")
+    # K1's times are means per launch over both paths; each path's stand beside them
+    paths = {"tts": k1_tts, "train": k1_train}
+    k1 = _kernel_row("flash_attention_fwd", "flash_attention.cu", 71,
+                     _weighted([(p["launches"], p) for p in paths.values()]),
+                     by_path={name: {k: p[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
+                                                       "bound_by", "library_ms")}
+                              for name, p in paths.items()})
+    k1["max_abs_err"], k3["max_abs_err"], k4["max_abs_err"] = worst, worst_dq, worst_dkv
+    per_step = train_launches[1] // len(steps)
+    for r, kern_ms in zip(steps, step_kernel_ms):
+        # K1+K3+K4 at this step's shape and chunk, timed alone, times their launches per step
+        print(f"train step {r['step']}: K1+K3+K4 at lengths={r['lens']} chunk={r['chunk']} x "
+              f"{per_step} launches is an estimated {per_step * kern_ms:.1f} ms "
+              f"({100 * per_step * kern_ms / r['ms']:.0f}%) of {r['ms']:.1f} ms [{card}]")
+    print(json.dumps({"kernels": [k1, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

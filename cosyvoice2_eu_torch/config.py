@@ -247,6 +247,32 @@ class TTSConfig:
     frontend: FrontendConfig = dataclasses.field(default_factory=FrontendConfig)
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training hyper-parameters (reference: conf/cosyvoice2.yaml train_conf)."""
+
+    optim: str = "adamw"
+    lr: float = 1e-5
+    weight_decay: float = 0.0
+    scheduler: str = "constantlr"
+    warmup_steps: int = 2500
+    # NeMo annealing family knobs (reference utils/scheduler.py:74-718)
+    max_steps: int = 100_000
+    min_lr: float = 0.0
+    constant_steps: int = 0
+    sched_d_model: int = 896  # NoamAnnealing normalizer (Qwen2-0.5B hidden)
+    max_epoch: int = 30
+    grad_clip: float = 5.0
+    accum_grad: int = 4
+    log_interval: int = 100
+    save_per_step: int = 3000
+    # GAN training (train_conf_gan)
+    gan_lr: float = 2e-4
+    # parallelism
+    dp_size: int = -1  # -1: all devices data-parallel
+    fsdp_size: int = 1  # optimizer/parameter sharding axis (ZeRO-equivalent)
+
+
 def tiny_test_config() -> TTSConfig:
     """A miniature config for fast unit tests (same topology, tiny dims)."""
 

@@ -4,9 +4,11 @@ Counterpart of ``cosyvoice2_eu_tpu/models/estimator.py``: channel concat
 [x, mu, spks, cond]; one down stage (causal ResNet block + n_blocks
 transformer blocks + causal conv), the mid stages, one up stage with a skip
 connection, a causal final block and a 1x1 projection.  Every attention of a
-transformer block on a CUDA tensor runs kernel K1
-(``ops/flash_attention.py``); on a CPU tensor it runs the plain masked
-softmax of the JAX package's non-Pallas branch.
+transformer block on a CUDA tensor runs the differentiable flash attention
+(``ops/flash_attention.py``): kernel K1 alone at inference, K1 with LSE and
+then K3 and K4 in the backward under autograd.  On a CPU tensor it runs the
+plain masked softmax of the JAX package's non-Pallas branch, differentiated
+by autograd.
 """
 
 from __future__ import annotations

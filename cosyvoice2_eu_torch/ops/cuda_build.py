@@ -4,7 +4,8 @@ Each ``csrc/*.cu`` file has a plain C interface.  At first use it is compiled
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 under ``cosyvoice2_eu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of its source and the compiler flags, and loaded with ``ctypes``.
-Nothing here runs at import time.
+``build`` starts one nvcc per missing source, all at once, and waits for
+them.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -35,21 +36,40 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _library_path(source: str) -> Path:
+    key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{Path(source).stem}_{key.hexdigest()[:16]}.so"
+
+
+def build(sources) -> None:
+    """Compile every source whose library is missing, one nvcc each, in parallel."""
+    jobs = []
+    for source in sources:
+        out = _library_path(source)
+        if out.exists():
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        jobs.append((source, out, tmp, proc))
+    failed = []
+    for source, out, tmp, proc in jobs:
+        stdout, stderr = proc.communicate()
+        build_logs[source] = stderr
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed on {source}:\n{stdout}{stderr}")
+        else:
+            os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of one ``csrc`` source, compiled first if needed."""
     lib = _libs.get(source)
     if lib is not None:
         return lib
-    key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
-    out = BUILD_DIR / f"{Path(source).stem}_{key.hexdigest()[:16]}.so"
-    if not out.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)],
-                              capture_output=True, text=True)
-        build_logs[source] = proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {source}:\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    lib = _libs[source] = ctypes.CDLL(str(out))
+    build([source])
+    lib = _libs[source] = ctypes.CDLL(str(_library_path(source)))
     return lib

@@ -1,0 +1,1 @@
+"""training of the PyTorch port (see the module docstrings)."""

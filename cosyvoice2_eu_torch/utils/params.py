@@ -28,13 +28,21 @@ import torch.nn.functional as F
 # parameter trees
 # ---------------------------------------------------------------------------
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a dict/list/tuple tree."""
+def tree_map(fn, tree, *rest):
+    """Apply ``fn`` to every leaf of a dict/list/tuple tree (and the matching
+    leaves of the trees in ``rest``, which share its structure)."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a dict/list/tuple tree, in ``tree_map``'s order."""
+    out = []
+    tree_map(out.append, tree)
+    return out
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = torch.float32):

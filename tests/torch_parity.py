@@ -78,6 +78,41 @@ def hift_draws_from_key(rng):
     return draws
 
 
+def flow_draws_from_key(rng, batch: int, n_mels: int, t_mel: int) -> dict:
+    """The draws JAX's ``flow_loss_fn`` makes from ``rng``, as the port's draws dict.
+
+    Chain: train_step.py ``flow_loss_fn`` splits rng into (k_cond, k_frac,
+    k_cfm); losses.py ``cfm_loss`` splits k_cfm into (k_t, k_z, k_cfg).
+    """
+    k_cond, k_frac, k_cfm = jax.random.split(rng, 3)
+    k_t, k_z, k_cfg = jax.random.split(k_cfm, 3)
+    draws = {
+        "u_cond": jax.random.uniform(k_cond, (batch,)),
+        "u_frac": jax.random.uniform(k_frac, (batch,)),
+        "u_t": jax.random.uniform(k_t, (batch, 1, 1), jnp.float32),
+        "z": jax.random.normal(k_z, (batch, n_mels, t_mel), jnp.float32),
+        "u_cfg": jax.random.uniform(k_cfg, (batch,)),
+    }
+    return {k: torch.tensor(np.asarray(v)) for k, v in draws.items()}
+
+
+def assert_trees_close(got, want, rel: float, abs_: float, path: str = ""):
+    """Per leaf: max|got - want| <= rel * max|want| + abs_ (torch tree vs numpy tree)."""
+    if isinstance(want, dict):
+        assert set(got) == set(want), path
+        for k in want:
+            assert_trees_close(got[k], want[k], rel, abs_, f"{path}/{k}")
+    elif isinstance(want, (list, tuple)):
+        assert len(got) == len(want), path
+        for i, w in enumerate(want):
+            assert_trees_close(got[i], w, rel, abs_, f"{path}/{i}")
+    else:
+        g, w = got.detach().cpu().numpy(), np.asarray(want)
+        assert g.shape == w.shape, (path, g.shape, w.shape)
+        err, peak = float(np.abs(g - w).max(initial=0.0)), float(np.abs(w).max(initial=0.0))
+        assert err <= rel * peak + abs_, (path, err, peak)
+
+
 @pytest.fixture
 def cuda_device():
     """The GPU for tests marked ``cuda``; they skip on a machine without one."""
