@@ -7,28 +7,40 @@ Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
      print the build time and ptxas's register and spill lines;
-  2. kernel checks: K1 (flash-attention forward, O and LSE) and K3/K4 (its
-     backward) against their plain PyTorch versions on the card, every row,
-     at B=2 ragged shapes and the training path's two batches; K1 -> K3/K4
-     also against the fully plain forward and backward;
-  3. reference checks on a small config: the TTS pipeline and one flow
-     train step on the card (kernels included) against the plain CPU path,
-     with the same weights and draws;
+  2. kernel checks against the plain PyTorch versions on the card: K1
+     (flash-attention forward, O and LSE) and K3/K4 (its backward), every
+     row, at B=2 ragged shapes and the training path's two batches, K1 ->
+     K3/K4 also against the fully plain forward and backward; K2 (the int8
+     matmul) at every (N, K) of the int8 LM, M 1 to 512, bf16 and fp32 x,
+     plus a ragged K;
+  3. reference checks on a small config, on the card (kernels included)
+     against the plain CPU path with the same weights and draws: the TTS
+     pipeline in fp32, unquantized and with ``lm_quant="int8"`` (then also
+     equal int8 codes, K2's launch count and the int8-vs-fp32 logits
+     band), and one flow train step;
   4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
      published widths (random weights) answers 3 requests; checks the audio
      and that each flow call launched K1 560 times; per-stage times;
-  5. training path: 8 flow-matching steps at the published widths through
+  5. int8 path: the same with ``lm_quant="int8"``: 2 requests, then one
+     ``tts_batch`` of 4 prompts; checks the audio, 168 + 169 x steps K2
+     launches per LM decode and 560 K1 launches per flow call; per-stage
+     times, RTF, and the int8-vs-bf16 logits on one packed prompt;
+  6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
      MultiSteps update at step 4, 56 launches of K1 (with LSE), K3 and K4
      per step, and a bit-exact checkpoint round trip; per-step times;
-  6. kernel timings at the shapes of both paths.
-The line before the last is the kernels JSON: K1's times are means per
-launch over both paths (each path's under ``by_path``); K3's and K4's
-``plain_ms`` time the plain dQ and dK/dV alone, their ``library_ms`` is
-null (no library call computes one of them alone), and ``backward_*ms``
-time the whole backward as delta + K3 + K4, the plain version and SDPA's.
-The last line is
+  7. kernel timings at the shapes of the paths: K1 on all three, K2 at
+     every (M, N, K) of the int8 path with its weights cold in L2 (beside
+     its plain version, ``torch._weight_int8pack_mm`` where the card's
+     PyTorch runs it, and ``F.linear`` on the bf16 weights).
+The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
+are means per launch over the paths (each path's under ``by_path``), K2's
+over the int8 path's shapes (each under ``by_shape``, with
+``bf16_linear_ms``); K3's and K4's ``plain_ms`` time the plain dQ and dK/dV
+alone, their ``library_ms`` is null (no library call computes one of them
+alone), and ``backward_*ms`` time the whole backward as delta + K3 + K4,
+the plain version and SDPA's.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
@@ -53,10 +65,12 @@ PEAKS = {"torch.float32": H100_FP32_FLOPS, "torch.bfloat16": H100_BF16_FLOPS}
 
 
 def _counters() -> tuple:
-    """The kernel wrappers whose ``launches`` counts show a path's launches."""
+    """The kernel wrappers whose ``launches`` counts show a path's launches:
+    K1, K3, K4, K2."""
     from cosyvoice2_eu_torch.ops import flash_attention as fa
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
-    return fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv
+    return fa.flash_attention, fa.flash_attention_dq, fa.flash_attention_dkv, i8.int8_matmul
 
 
 def _uncounted(fn):
@@ -220,6 +234,61 @@ def check_flash_backward() -> tuple[float, float]:
     return worst["dq"], worst["dkv"]
 
 
+def _k2_shapes(cfg) -> list:
+    """(N, K, launches per layer) of the int8 LM's projections: q, k/v, o,
+    gate/up, down; then the speech head (N, K, 0), launched once per step."""
+    bb = cfg.llm.backbone
+    h, q, kv = bb.hidden_size, bb.num_heads * bb.head_dim, bb.num_kv_heads * bb.head_dim
+    return [(q, h, 1), (kv, h, 2), (h, q, 1), (bb.intermediate_size, h, 2),
+            (h, bb.intermediate_size, 1), (cfg.llm.full_vocab, h, 0)]
+
+
+@_uncounted
+def check_int8_matmul() -> float:
+    """K2 against its plain version at every (N, K) of the full-width int8 LM
+    and M 1, 3, 4, 17, 128, 512 (decode of 1 and 4 rows, ragged tiles,
+    prefill of 1 and 4 prompts), x in bf16 and fp32; then a ragged K (100)
+    on weights that start off a 16-byte boundary.  Returns the worst error."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+
+    resolve_device("cuda")  # the plain version's fp32 matmul without TF32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    nk = dict.fromkeys((n, k) for n, k, _ in _k2_shapes(TTSConfig()))  # q and o share a shape
+    cases = [(n, k, m) for n, k in nk for m in (1, 3, 4, 17, 128, 512)]
+    cases += [(33, 100, 1), (33, 100, 5)]
+    worst = 0.0
+    for n, k, m in cases:
+        w_q = torch.randint(-127, 128, (n * k + 1,), generator=gen, device="cuda",
+                            dtype=torch.int8)
+        # a ragged K also starts its weights one byte off a 16-byte boundary:
+        # the kernel's byte-load path
+        w_q = w_q[1:].view(n, k) if k % 16 else w_q[:-1].view(n, k)
+        x32 = torch.randn((m, k), generator=gen, device="cuda")
+        for dtype in (torch.bfloat16, torch.float32):
+            x = x32.to(dtype)
+            got = i8.int8_matmul(x, w_q)
+            want = i8.int8_matmul_reference(x, w_q)
+            torch.cuda.synchronize()
+            # int8 x bf16 (or fp32) products are exact in fp32: the two differ
+            # only in the order of the fp32 sums over K
+            peak = want.abs().max().item()
+            err = (got - want).abs().max().item()
+            tol = 3e-5 * peak
+            ok = got.shape == (m, n) and math.isfinite(err) and err <= tol
+            print(f"K2 check M={m} N={n} K={k} x {str(dtype)[6:]}"
+                  f"{'' if w_q.data_ptr() % 16 == 0 else ' (weights off 16 B)'}: max_abs_err="
+                  f"{err:.3e} (tol {tol:.3e} = 3e-5 x max|want|) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"K2 disagrees with its plain version at M={m} N={n} K={k}")
+            worst = max(worst, err)
+    return worst
+
+
 def _time_k1(lens, t: int, chunk: int, dtype, with_lse: bool, gen) -> dict:
     """K1, its plain version and SDPA's forward on random inputs of one shape,
     with K1's bound from this run's visible pairs (ms each)."""
@@ -262,20 +331,21 @@ def _weighted(parts: list) -> dict:
 
 @_uncounted
 def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, list]:
-    """K1, its plain version and SDPA at each flow call's shape of the TTS path.
+    """K1, its plain version and SDPA at each flow call's shape of a TTS path.
 
-    ``shapes`` holds (T, valid mel frames) per flow call; both CFG halves
-    hold the same frames, and each call launches K1 equally often.  Returns
-    the path's mean per launch and the kernel's ms at each call's shape.
+    ``shapes`` holds (T, valid mel frames of each of K1's batch rows) per
+    flow call (the CFG halves double the rows), and each call launches K1
+    equally often.  Returns the path's mean per launch and the kernel's ms
+    at each call's shape.
     """
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     rows = []
-    for t, n in shapes:
-        r = _time_k1([n, n], t, 0, torch.bfloat16, False, gen)
-        print(f"K1 timing T={t} bf16 chunk=0 lengths={[n, n]} [{card}]: kernel {r['ms']:.4f} ms, "
+    for t, lens in shapes:
+        r = _time_k1(lens, t, 0, torch.bfloat16, False, gen)
+        print(f"K1 timing T={t} bf16 chunk=0 lengths={lens} [{card}]: kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms'] * 1e3:.2f} us ({r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB)")
         rows.append(r)
@@ -296,18 +366,25 @@ def _prompt(cfg, seconds: float, seed: int = 0) -> dict:
     }
 
 
-def check_small_reference(devices=("cpu", "cuda")) -> None:
-    """The pipeline on the card (K1 included, fp32) against the plain CPU path."""
+def check_small_reference(lm_quant=None) -> None:
+    """The pipeline on the card (K1 included, fp32) against the plain CPU path.
+
+    With ``lm_quant="int8"`` also: the card's int8 codes and scales equal the
+    CPU's bit for bit, K2 launched 7 L + (7 L + 1) x steps times in the
+    card's LM decode, and on the card the int8 logits of ``lm_training_hidden``
+    stay within the JAX package's band of the fp32 ones."""
     import numpy as np
     import torch
 
     import cosyvoice2_eu_torch as cosy
     from cosyvoice2_eu_torch.config import tiny_test_config
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
-    from cosyvoice2_eu_torch.models.llm import init_lm
     from cosyvoice2_eu_torch.models.flow import init_flow
     from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
     from cosyvoice2_eu_torch.ops.sampling import gumbel
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
 
     cfg = tiny_test_config()
     # K1 takes the estimator's head dim of 64: a small estimator with 64-wide heads
@@ -334,24 +411,73 @@ def check_small_reference(devices=("cpu", "cuda")) -> None:
 
     prompt = Frontend(cfg).frontend_zero_shot("Bonjour tout le monde.", _prompt(cfg, 0.24, 4))
     out = {}
-    for dev in devices:
-        model = cosy.load(config=cfg, params=params, device=dev, compute_dtype="float32")._model
+    for dev in ("cpu", "cuda"):
+        model = cosy.load(config=cfg, params=params, device=dev, compute_dtype="float32",
+                          lm_quant=lm_quant)._model
         lm_draws = lambda step: tuple(x.to(dev) for x in lm_noise[step])
+        before = i8.int8_matmul.launches
         wav = next(model.tts(prompt, lm_draws=lm_draws,
                              hift_draws=lambda *s: tuple(x.to(dev) for x in hift_draws(*s))))
-        out[dev] = (model.last_n_tokens, wav)
-    (n_cpu, wav_cpu), (n_gpu, wav_gpu) = out[devices[0]], out[devices[1]]
+        out[dev] = (model.last_n_tokens, wav, model.last_decode_steps,
+                    i8.int8_matmul.launches - before, model.params["llm"])
+    (n_cpu, wav_cpu, _, _, llm_cpu), (n_gpu, wav_gpu, steps, k2, llm_gpu) = out["cpu"], out["cuda"]
     err = float(np.abs(wav_cpu - wav_gpu).max()) if n_cpu == n_gpu else float("inf")
     tol = 1e-3  # fp32 through ~40 layers, different summation orders
-    print(f"reference check (small config, fp32, card vs CPU plain path): tokens "
-          f"{n_gpu} vs {n_cpu}, audio max_abs_err={err:.3e} (tol {tol:g})")
-    if n_cpu != n_gpu or not np.isfinite(wav_gpu).all() or err > tol:
-        raise SystemExit("the card's pipeline disagrees with the plain CPU path")
+    ok = n_cpu == n_gpu and np.isfinite(wav_gpu).all() and err <= tol
+    what = "unquantized" if lm_quant is None else lm_quant
+    print(f"reference check (small config, fp32, {what} LM, card vs CPU plain path): tokens "
+          f"{n_gpu} vs {n_cpu}, audio max_abs_err={err:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"the card's pipeline ({what} LM) disagrees with the plain CPU path")
+    if lm_quant is None:
+        return
+    n_layers = cfg.llm.backbone.num_layers
+    want_k2 = 7 * n_layers + (7 * n_layers + 1) * steps
+    differ = [i for i, (a, b) in enumerate(zip(tree_leaves(llm_gpu), tree_leaves(llm_cpu)))
+              if not torch.equal(a.cpu(), b)]
+    codes_equal = not differ
+    band = _int8_logits_band(cfg, params["llm"], "cuda")
+    ok = k2 == want_k2 and codes_equal and band[0] < 0.05 and band[1] > 0.9
+    print(f"int8 reference check (small config, card): K2 launches {k2} (expected 7 x {n_layers} "
+          f"+ (7 x {n_layers} + 1) x {steps} steps = {want_k2}); int8 codes and scales equal the "
+          f"CPU's bit for bit: {codes_equal} ({len(differ)} of {len(tree_leaves(llm_cpu))} LM "
+          f"leaves differ); lm_training_hidden int8 vs fp32: max|dlogit| / "
+          f"max|logit| {band[0]:.4f} (< 0.05), argmax agreement {band[1]:.3f} (> 0.9) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the int8 small-config checks failed")
 
 
-def main_path(card: str) -> tuple[int, list, list]:
+@_uncounted
+def _int8_logits_band(cfg, llm, device, ids=None, src=None, valid=None) -> tuple:
+    """(max|int8 logit - logit| / max|logit|, argmax agreement) of
+    ``lm_training_hidden`` on ``llm`` and its int8 quantization, over the
+    valid positions; by default on the JAX package's test input (2 x 24
+    random ids, sources and all valid, seed 1)."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.models.llm import lm_training_hidden
+    from cosyvoice2_eu_torch.utils.params import quantize_lm_params, tree_map
+
+    if ids is None:
+        rng = np.random.default_rng(1)
+        ids = torch.as_tensor(rng.integers(2, 100, (2, 24)))
+        src = torch.as_tensor(rng.integers(0, 3, (2, 24)))
+        valid = torch.ones((2, 24), dtype=torch.bool)
+    ids, src, valid = (x.to(device) for x in (ids, src, valid))
+    llm = tree_map(lambda x: x.to(device), llm)
+    logits = lm_training_hidden(llm, cfg.llm, ids, src, valid)[valid].float()
+    logits_q = lm_training_hidden(quantize_lm_params(llm), cfg.llm, ids, src, valid)[valid].float()
+    rel = ((logits_q - logits).abs().max() / logits.abs().max()).item()
+    agree = (logits_q.argmax(-1) == logits.argmax(-1)).float().mean().item()
+    return rel, agree
+
+
+def main_path(card: str) -> tuple[int, list, list, dict]:
     """Three full-width requests.  Returns K1's launches, each flow call's
-    (mel bucket, valid mel frames) as K1 sees them, and each flow time in ms."""
+    (mel bucket, valid mel frames per K1 row) and flow time in ms, and the
+    bf16 LM's parameters."""
     import numpy as np
     import torch
 
@@ -400,14 +526,105 @@ def main_path(card: str) -> tuple[int, list, list]:
         if not ok:
             raise SystemExit(f"request {i} failed its checks")
         total = n_prompt + n_tok
-        shapes.append((bucket_for(total, FLOW_TOKEN_BUCKETS) * ratio, total * ratio))
+        shapes.append((bucket_for(total, FLOW_TOKEN_BUCKETS) * ratio, [total * ratio] * 2))
         flow_ms.append(stages["flow"]["total_s"] * 1e3)
     launches = fa.flash_attention.launches
     print(f"main path: K1 launches {launches} over {len(texts)} flow calls; peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if launches != k1_per_flow * len(texts):
         raise SystemExit("K1 launch count does not match the flow calls")
-    return launches, shapes, flow_ms
+    return launches, shapes, flow_ms, model._model.params["llm"]
+
+
+def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
+    """The int8 LM at full width: 2 zero-shot requests through ``Cosy2EU.tts``,
+    then one ``tts_batch`` of 4 prompts with their own speakers.  Returns
+    each LM decode's (batch, prompt bucket, steps), each flow call's (mel
+    bucket, valid mel frames per K1 row) and the launches of K1, K3, K4
+    and K2 over the path."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
+    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, bucket_for
+
+    cfg = TTSConfig()
+    est = cfg.flow.estimator
+    k1_per_flow = (2 + est.num_mid_blocks) * est.n_blocks * cfg.flow.cfm.n_timesteps
+    n_layers = cfg.llm.backbone.num_layers
+    per_prefill, per_step = 7 * n_layers, 7 * n_layers + 1  # 168, 169 at full width
+    ratio, sr = cfg.token_mel_ratio, cfg.sample_rate
+    t0 = time.perf_counter()
+    model = cosy.load(config=cfg, seed=0, device="cuda", lm_quant="int8")
+    torch.cuda.synchronize()
+    tm = model._model
+    print(f"int8 path: load(TTSConfig(), seed=0, device='cuda', lm_quant='int8') "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    prompt = _prompt(cfg, 3.0)
+    texts = ["Bonjour, comment allez-vous ?", "Guten Morgen, wie geht es dir?"]
+    batch_texts = ["Il fait beau aujourd'hui.", "Das Wetter ist heute schön.",
+                   "Je voudrais un café, merci.", "Wo ist der Bahnhof, bitte?"]
+    decodes, shapes = [], []
+    torch.cuda.reset_peak_memory_stats()
+    for f in _counters():
+        f.launches = 0
+
+    def run(what, call, inputs):
+        """One call; checks K1 and K2 launches and prints per-stage times."""
+        before = (fa.flash_attention.launches, i8.int8_matmul.launches)
+        tm.timer.reset()
+        t0 = time.perf_counter()
+        wavs, n_toks = call()
+        wall = time.perf_counter() - t0
+        stages = tm.timer.summary()
+        k1, k2 = (fa.flash_attention.launches - before[0], i8.int8_matmul.launches - before[1])
+        steps = tm.last_decode_steps
+        p_bucket = max(tm._pack_lm_prompt(p)[3] for p in inputs)
+        audio_s = sum(w.size for w in wavs) / sr
+        ok = (k1 == k1_per_flow and k2 == per_prefill + per_step * steps
+              and all(w.size == n * 2 * 480 and np.isfinite(w).all()
+                      and float(np.abs(w).max()) > 1e-3 for w, n in zip(wavs, n_toks)))
+        lm_ms = stages["lm_decode"]["total_s"] * 1e3
+        print(f"{what}: B={len(inputs)}, prompt bucket {p_bucket} -> tokens {n_toks} in {steps} "
+              f"decode steps, {audio_s:.2f} s audio; K2 launches {k2} (expected {per_prefill} + "
+              f"{per_step} x {steps} = {per_prefill + per_step * steps}), K1 launches {k1} "
+              f"(expected {k1_per_flow}); LM {lm_ms / steps:.2f} ms/step, "
+              f"{lm_ms / sum(n_toks):.2f} ms/token, flow {stages['flow']['total_s'] * 1e3:.1f} "
+              f"ms, HiFT {stages['hift']['total_s'] * 1e3:.1f} ms, wall {wall:.2f} s, RTF "
+              f"{wall / audio_s:.3f} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"int8 path: {what} failed its checks")
+        decodes.append((len(inputs), p_bucket, steps))
+        totals = [len(p.flow_prompt_speech_tokens) + n for p, n in zip(inputs, n_toks)]
+        t_mel = bucket_for(max(totals), FLOW_TOKEN_BUCKETS) * ratio
+        shapes.append((t_mel, [n * ratio for n in totals] * 2))
+
+    # zero-shot: the LM's prompt holds the 75 prompt speech tokens (bucket 128)
+    for i, text in enumerate(texts):
+        inputs = [model._frontend.frontend_zero_shot(text, prompt)]
+        run(f"int8 request {i}", lambda: (list(model.tts(text, prompt, mode="zero_shot")[0]),
+                                          [tm.last_n_tokens]), inputs)
+    prompts = [model._frontend.frontend_zero_shot(text, _prompt(cfg, 3.0, seed))
+               for seed, text in enumerate(batch_texts)]
+    run("int8 tts_batch", lambda: (tm.tts_batch(prompts), tm.last_batch_tokens), prompts)
+    launches = [f.launches for f in _counters()]
+    print(f"int8 path: K1/K3/K4/K2 launches {launches} over {len(decodes)} LM decodes and flow "
+          f"calls; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    if launches[:3] != [k1_per_flow * len(decodes), 0, 0]:
+        raise SystemExit("int8 path: K1/K3/K4 launches do not match its flow calls")
+    # reported, not gating: the JAX package pins the band only on the tiny config
+    ids, src, total, p_bucket, _, _ = tm._pack_lm_prompt(prompts[0])
+    valid = torch.arange(p_bucket)[None] < total
+    rel, agree = _int8_logits_band(cfg, bf16_llm, "cuda", torch.as_tensor(ids).long(),
+                                   torch.as_tensor(src).long(), valid)
+    print(f"int8 path: full-width lm_training_hidden on the packed prompt of batch row 0 "
+          f"({total} positions), int8 vs bf16 weights: max|dlogit| / max|logit| {rel:.4f}, "
+          f"argmax agreement {agree:.3f} (reported; the band is pinned on the small config) "
+          f"[{card}]")
+    return decodes, shapes, launches
 
 
 def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
@@ -487,7 +704,7 @@ def check_small_train_reference() -> None:
 def train_path(card: str) -> tuple[list, list]:
     """8 full-width flow training steps through ``Executor.train_epoch``.
 
-    Returns the per-step records and the launches of K1, K3 and K4 over the
+    Returns the per-step records and the launches of K1, K3, K4 and K2 over the
     epoch (CV included)."""
     import numpy as np
     import torch
@@ -552,7 +769,7 @@ def train_path(card: str) -> tuple[list, list]:
               f"chunk={rec['chunk']} loss {loss:.4f} grad_norm {grad_norm:.3f}; "
               f"{rec['ms']:.1f} ms (forward {rec['forward']:.1f}, backward {rec['backward']:.1f}, "
               f"optimizer {rec['optimizer']:.1f}), {rec['frames'] / wall:.0f} mel frames/s, "
-              f"peak {rec['peak_gib']:.2f} GiB; K1/K3/K4 launches {rec['launched']}; "
+              f"peak {rec['peak_gib']:.2f} GiB; K1/K3/K4/K2 launches {rec['launched']}; "
               f"parameters {'unchanged' if rec['unchanged'] else 'updated'} [{card}]")
         return state, metrics
 
@@ -579,15 +796,16 @@ def train_path(card: str) -> tuple[list, list]:
                             tree_leaves((state.params, state.opt_state))))
     losses_ok = all(math.isfinite(r["loss"]) for r in steps)
     multisteps_ok = [r["unchanged"] for r in steps[:4]] == [True, True, True, False]
-    launches_ok = all(r["launched"] == [per_step] * 3 for r in steps)
+    launches_ok = all(r["launched"] == [per_step] * 3 + [0] for r in steps)
     chunks = {r["chunk"] for r in steps}
     totals_ok = launches == [per_step * (len(steps) + len(cv)), per_step * len(steps),
-                             per_step * len(steps)]
+                             per_step * len(steps), 0]
     print(f"training path: {len(steps)} steps + CV in {epoch_s:.2f} s, cv_loss "
           f"{info.get('cv_loss', float('nan')):.4f}; losses finite: {losses_ok}; parameters "
           f"unchanged after steps 1-3 and updated after step 4 (MultiSteps): {multisteps_ok}; "
           f"{per_step} launches each of K1 (with LSE), K3, K4 per step: {launches_ok}; chunks "
-          f"{sorted(chunks)}; launches over the epoch K1/K3/K4 {launches} (CV: K1 without LSE); "
+          f"{sorted(chunks)}; launches over the epoch K1/K3/K4/K2 {launches} (CV: K1 without "
+          f"LSE); "
           f"checkpoint {info['tag']} restores bit-exactly: {exact}; peak memory "
           f"{max(r['peak_gib'] for r in steps):.2f} GiB [{card}]")
     if not (losses_ok and multisteps_ok and launches_ok and totals_ok and exact
@@ -675,7 +893,7 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
           f"{cv['ms']:.4f} ms, plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, "
           f"bound {cv['bound_ms'] * 1e3:.1f} us")
     k1_train = _weighted([(n, p["k1"]) for p in per_step] + [(k1_launches - n * len(steps), cv)])
-    rows = [_kernel_row(name, "flash_attention_bwd.cu", line,
+    rows = [_kernel_row(name, "flash_attention_bwd.cu", f"flash_attention.py:{line}",
                         _weighted([(n, p[key]) for p in per_step]))
             for key, name, line in (("K3", "flash_attention_dq", 125),
                                     ("K4", "flash_attention_dkv", 172))]
@@ -683,10 +901,128 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
     return k1_train, rows[0], rows[1], step_kernel_ms
 
 
-def _kernel_row(name: str, source: str, line: int, times: dict, **extra) -> dict:
-    """One entry of the kernels line; times from ``_weighted``."""
+def _time_k2(m: int, n: int, k: int, gen) -> dict:
+    """K2, its plain version, ``torch._weight_int8pack_mm`` and ``F.linear``
+    on bf16 weights at one (M, N, K), x in bf16 (device ms per call).  Each
+    call takes the next of enough weight copies to fill 100 MB, twice the
+    L2, so the weights come from device memory as in the decode loop, where
+    a token reads 363.7 MB of them.  The calls are captured in one CUDA
+    graph and timed as its replay: at a few microseconds a launch, eager
+    launches from Python would time the host, not the card."""
+    import torch
+    import torch.nn.functional as F
+
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
+
+    copies = max(2, math.ceil(100e6 / (n * k)))
+    w_q = torch.randint(-127, 128, (copies, n, k), generator=gen, device="cuda",
+                        dtype=torch.int8)
+    x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+    scale = torch.rand((n,), generator=gen, device="cuda").to(torch.bfloat16)
+
+    def rotating(fn):
+        side = torch.cuda.Stream()  # warm-up off the capture stream (library handles)
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn(0)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for i in range(copies):
+                fn(i)
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / copies
+
+    out = dict(ms=rotating(lambda i: i8.int8_matmul(x, w_q[i])),
+               plain_ms=rotating(lambda i: i8.int8_matmul_reference(x, w_q[i])))
+    try:  # the library's int8 weight-only matmul (scaled), where this PyTorch runs it on CUDA
+        torch._weight_int8pack_mm(x, w_q[0], scale)
+        torch.cuda.synchronize()
+        out["library_ms"] = rotating(lambda i: torch._weight_int8pack_mm(x, w_q[i], scale))
+        out["library_note"] = None
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        out["library_ms"], out["library_note"] = None, f"{type(e).__name__}: {str(e)[:160]}"
+    w_bf16 = w_q.to(torch.bfloat16)  # F.linear on the same values as bf16 weights
+    del w_q
+    out["bf16_linear_ms"] = rotating(lambda i: F.linear(x, w_bf16[i]))
+    del w_bf16
+    ops = 2 * m * n * k
+    nbytes = m * k * 2 + n * k + m * n * 4  # x bf16 and w int8 read once, y fp32 written once
+    out.update(ops_ms=ops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_BYTES * 1e3,
+               gflop=ops / 1e9, mb=nbytes / 1e6)
+    out["bound_ms"] = max(out["ops_ms"], out["bytes_ms"])
+    return out
+
+
+@_uncounted
+def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
+    """K2 at every (M, N, K) the int8 path ran, weighted by its launches there.
+
+    ``decodes`` holds each LM decode's (batch, prompt bucket, steps): the
+    prefill runs the 7 projections of each layer at M = batch x bucket, each
+    decode step runs them and the speech head at M = batch.  Returns the
+    kernels line's mean per launch, with each shape's times under by_shape."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    n_layers = cfg.llm.backbone.num_layers
+    counts: dict = {}
+
+    def add(shape, c):
+        counts[shape] = counts.get(shape, 0) + c
+
+    for b, p_bucket, steps in decodes:
+        for n, k, per_layer in _k2_shapes(cfg):
+            if per_layer:  # a projection of every layer: at prefill and at each step
+                add((b * p_bucket, n, k), n_layers * per_layer)
+                add((b, n, k), n_layers * per_layer * steps)
+            else:  # the speech head, once per step
+                add((b, n, k), steps)
+    if sum(counts.values()) != launches:
+        raise SystemExit(f"K2's launches on the int8 path ({launches}) do not match its shapes "
+                         f"({sum(counts.values())})")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    parts, notes = [], set()
+    for (m, n, k), c in sorted(counts.items()):
+        r = _time_k2(m, n, k, gen)
+        notes.add(r.pop("library_note"))
+        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        print(f"K2 timing M={m} N={n} K={k} x bf16, weights cold, {c} launches on the int8 path "
+              f"[{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} GB/s), plain "
+              f"{r['plain_ms']:.4f} ms, _weight_int8pack_mm {lib}, bf16 F.linear "
+              f"{r['bf16_linear_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us by "
+              f"{'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'} ({r['gflop']:.3f} "
+              f"GFLOP, {r['mb']:.3f} MB)")
+        parts.append((c, dict(r, m=m, n=n, k=k)))
+    notes.discard(None)
+    if notes:  # the library call is not timed on every shape: no library time at all
+        print(f"K2 library_ms is null: torch._weight_int8pack_mm on CUDA failed here: "
+              f"{'; '.join(sorted(notes))}")
+        for _, r in parts:
+            r["library_ms"] = None
+    out = _weighted(parts)
+    out["by_shape"] = [{"m": r["m"], "n": r["n"], "k": r["k"], "launches": c,
+                        **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
+                                                   "bf16_linear_ms", "bound_ms")}}
+                       for c, r in parts]
+    return out
+
+
+def _kernel_row(name: str, source: str, replaces: str, times: dict, **extra) -> dict:
+    """One entry of the kernels line: ``source`` under ``cosyvoice2_eu_torch/csrc``
+    replaces the TPU kernel at ``replaces`` ("file:line" under
+    ``cosyvoice2_eu_tpu/ops/pallas``); times from ``_weighted``."""
     row = {"name": name, "route": "cuda", "source": f"cosyvoice2_eu_torch/csrc/{source}",
-           "replaces": f"cosyvoice2_eu_tpu/ops/pallas/flash_attention.py:{line}",
+           "replaces": f"cosyvoice2_eu_tpu/ops/pallas/{replaces}",
            "launches": times["launches"], "max_abs_err": 0.0}
     row.update({k: times[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")})
     row.update({k: v for k, v in times.items() if k.startswith("backward_")}, **extra)
@@ -708,10 +1044,12 @@ def main() -> None:
 
     from cosyvoice2_eu_torch.ops import cuda_build
     from cosyvoice2_eu_torch.ops import flash_attention as fa
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     t0 = time.perf_counter()
-    cuda_build.build([fa.SOURCE, fa.BWD_SOURCE])  # one nvcc per source, in parallel
-    for src in (fa.SOURCE, fa.BWD_SOURCE):
+    sources = (fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE)
+    cuda_build.build(sources)  # one nvcc per source, in parallel
+    for src in sources:
         cuda_build.load_library(src)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for src, log in cuda_build.build_logs.items():
@@ -721,25 +1059,34 @@ def main() -> None:
 
     worst = check_flash_attention()
     worst_dq, worst_dkv = check_flash_backward()
+    worst_k2 = check_int8_matmul()
     check_small_reference()
+    check_small_reference(lm_quant="int8")
     check_small_train_reference()
-    tts_launches, shapes, flow_ms = main_path(card)
-    if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches:
-        raise SystemExit("the TTS path launched a backward kernel")
+    tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
+    if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
+        raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
+    decodes, int8_shapes, int8_launches = int8_path(card, bf16_llm)
+    del bf16_llm
     steps, train_launches = train_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
-    for i, ((t, n), f_ms) in enumerate(zip(shapes, flow_ms)):
+    for i, ((t, lens), f_ms) in enumerate(zip(shapes, flow_ms)):
         # K1's time at this call's shape, timed alone, times its launches per call
-        print(f"request {i}: K1 at T={t}, {n} frames x {per_call} launches is an estimated "
+        print(f"request {i}: K1 at T={t}, {lens[0]} frames x {per_call} launches is an estimated "
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
+    k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
+    k2_times = time_int8_matmul(decodes, int8_launches[3], card)
+    k2 = _kernel_row("int8_matmul", "int8_matmul.cu", "int8_matmul.py:31", k2_times,
+                     bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"])
+    k2["max_abs_err"] = worst_k2
     k1_train, k3, k4, step_kernel_ms = time_training_kernels(steps, train_launches[0], card)
-    if [k3["launches"], k4["launches"]] != train_launches[1:]:
+    if [k3["launches"], k4["launches"]] != train_launches[1:3]:
         raise SystemExit("K3/K4 launches do not match the training path")
-    # K1's times are means per launch over both paths; each path's stand beside them
-    paths = {"tts": k1_tts, "train": k1_train}
-    k1 = _kernel_row("flash_attention_fwd", "flash_attention.cu", 71,
+    # K1's times are means per launch over the paths; each path's stand beside them
+    paths = {"tts": k1_tts, "int8": k1_int8, "train": k1_train}
+    k1 = _kernel_row("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:71",
                      _weighted([(p["launches"], p) for p in paths.values()]),
                      by_path={name: {k: p[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
                                                        "bound_by", "library_ms")}
@@ -751,7 +1098,7 @@ def main() -> None:
         print(f"train step {r['step']}: K1+K3+K4 at lengths={r['lens']} chunk={r['chunk']} x "
               f"{per_step} launches is an estimated {per_step * kern_ms:.1f} ms "
               f"({100 * per_step * kern_ms / r['ms']:.0f}%) of {r['ms']:.1f} ms [{card}]")
-    print(json.dumps({"kernels": [k1, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -7,6 +7,7 @@ caller asks for the CPU:
     import cosyvoice2_eu_torch as cosy
     model = cosy.load(seed=0)                     # random weights, on "cuda"
     wav, sr = model.tts("Bonjour !", prompt)      # prompt: dict of artifacts
+    int8 = cosy.load(seed=0, lm_quant="int8")     # int8 LM projections (kernel K2)
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False: HiFT's fp32 phase math
@@ -99,6 +100,10 @@ def load(
     ``torch.Generator`` seeded with ``seed`` on ``device``.  ``config``
     defaults to the published widths.  ``device`` defaults to "cuda" and
     raises when there is no GPU; pass "cpu" for the plain PyTorch path.
+    ``lm_quant="int8"`` stores the LM's projections as per-channel int8
+    (kernel K2 on the card); any value but None and "int8" raises.
+    Batched synthesis is ``load(...)._model.tts_batch(prompts)`` over the
+    frontend's ``PromptInputs``.
     """
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
     from cosyvoice2_eu_torch.frontend.tokenizer import get_tokenizer

@@ -261,16 +261,25 @@ def hift_inference(
     mel: torch.Tensor,
     generator: Optional[torch.Generator] = None,
     draws: Optional[tuple] = None,
+    cache_source: Optional[torch.Tensor] = None,
+    cache_len=None,
 ):
     """mel (B, 80, T) -> (waveform (B, T*480), source (B, 1, T*480)).
 
     draws: optional (rand_ini (B, H), noise (B, T*480, H)) for sine_source;
-    else they come from ``generator``.
+    else they come from ``generator``.  cache_source (B, 1, C) replaces the
+    first ``cache_len`` (default C) source samples, which keeps the phase
+    continuous across streaming chunks.
     """
     f0 = f0_predict(params["f0_predictor"], cfg, mel)  # (B, T)
     f0_up = f0.repeat_interleave(cfg.upsample_scale, dim=-1)[..., None]  # (B, L, 1)
     rand_ini, noise = draws if draws is not None else (None, None)
     s, _ = sine_source(params["m_source"], cfg, f0_up, rand_ini, noise, generator)
     s = s.transpose(1, 2)  # (B, 1, L)
+    if cache_source is not None:
+        c = cache_source.shape[2]
+        idx = torch.arange(s.shape[2], device=s.device)[None, None, :]
+        pad_cache = F.pad(cache_source.to(s.dtype), (0, s.shape[2] - c))
+        s = torch.where(idx < (c if cache_len is None else cache_len), pad_cache, s)
     audio = hift_decode(params, cfg, mel, s)
     return audio, s

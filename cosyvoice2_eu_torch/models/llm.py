@@ -23,6 +23,7 @@ from cosyvoice2_eu_torch.models.qwen2 import (
     KVCache,
     init_qwen2,
     qwen2_decode_step,
+    qwen2_forward,
     qwen2_prefill,
 )
 from cosyvoice2_eu_torch.ops.sampling import gumbel, ras_sample
@@ -117,7 +118,9 @@ def lm_decode(
       generator: source of the Gumbel draws when ``draws`` is None.
       draws: optional ``draws(step) -> (gumbel_nuc, gumbel_full)``.
 
-    Returns (tokens (B, max_gen), lengths (B,)).
+    Returns (tokens (B, max_gen), lengths (B,), steps): steps counts the
+    decode steps run, each of which samples once for the whole batch and
+    feeds the tokens back (the JAX function returns the first two).
     """
     b, p_bucket = ids.shape
     vocab = cfg.full_vocab
@@ -152,4 +155,12 @@ def lm_decode(
         state.last_hidden, state.kv = qwen2_decode_step(
             params["backbone"], cfg.backbone, embed, rope_pos, cache_index, visible, state.kv)
         state.step += 1
-    return state.tokens, state.lengths
+    return state.tokens, state.lengths, state.step
+
+
+def lm_training_hidden(params, cfg: LMConfig, ids, src, valid):
+    """Training-time forward over packed (ids, src) sequences: logits
+    (B, T, full_vocab).  valid: (B, T) bool."""
+    embeds = embed_mixed(params, ids, src)
+    hidden = qwen2_forward(params["backbone"], cfg.backbone, embeds, valid)
+    return dense(params["llm_decoder"], hidden)

@@ -139,6 +139,24 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
     return x + dense(lp["down_proj"], gated)
 
 
+def qwen2_forward(params, cfg: Qwen2Config, embeds: torch.Tensor,
+                  valid: torch.Tensor) -> torch.Tensor:
+    """Full (training / no-cache) forward.
+
+    embeds: (B, T, H); valid: (B, T) bool -> final hidden states (B, T, H).
+    Causal attention restricted to valid positions.
+    """
+    t = embeds.shape[1]
+    pos = torch.arange(t, device=embeds.device)
+    mask = (pos[None, None, :] <= pos[None, :, None]) & valid[:, None, :]
+    bias = torch.where(mask, 0.0, NEG_INF)[:, None]  # (B, 1, T, T)
+    cos, sin = rope_cos_sin(pos, cfg)
+    x = embeds
+    for lp in params["layers"]:
+        x = _layer_forward(lp, cfg, x, cos, sin, bias)
+    return rms_norm(params["norm"], x, cfg.rms_norm_eps)
+
+
 def qwen2_prefill(params, cfg: Qwen2Config, embeds, prompt_len, kv: KVCache):
     """Prefill the KV cache with a right-padded prompt.
 

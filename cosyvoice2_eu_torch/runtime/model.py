@@ -6,11 +6,16 @@ package, so the same inputs take the same shapes (and, with injected random
 draws, give the same tokens and waveform).  Dtype policy: bf16 for the LM and
 the flow, fp32 for HiFT and for the flow's fixed noise.
 
+``lm_quant="int8"`` quantizes the LM's projections per output channel
+after the cast to the compute dtype; on the card they run through kernel K2.
+``tts_batch`` synthesizes several prompts in one batched LM decode, flow and
+HiFT call.
+
 Not ported yet, and raising ``NotImplementedError``: streaming
 (``stream=True``, ROADMAP item 7), synthesis past the largest flow bucket
-(the JAX package's windowed fallback, item 7), int8 LM weights (item 10),
-bistream decode (item 11) and tensor-parallel decode (item 13).  Batching
-(``tts_batch``, ``vc``, item 9) has no counterpart yet.
+(the JAX package's windowed fallback, item 7), bistream decode (item 11)
+and tensor-parallel decode (item 13).  ``vc`` (item 9) has no counterpart
+yet.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ from cosyvoice2_eu_torch.models import llm as llm_mod
 from cosyvoice2_eu_torch.models.flow import flow_inference
 from cosyvoice2_eu_torch.models.hift import hift_inference
 from cosyvoice2_eu_torch.utils.device import resolve_device
-from cosyvoice2_eu_torch.utils.params import cast_floating, tree_map
+from cosyvoice2_eu_torch.utils.params import cast_floating, quantize_lm_params, tree_map
 from cosyvoice2_eu_torch.utils.profiling import StageTimer
 
 TOKEN_BUCKETS = (64, 128, 256, 512, 1024)
@@ -70,10 +75,11 @@ class TTSModel:
                  use_bistream: bool = False, tp: int = 0):
         """params: {"llm", "flow", "hift"} trees of tensors or numpy arrays.
         compute_dtype: dtype of the LM and flow (None keeps the parameters'
-        own); HiFT and the flow's fixed noise stay fp32."""
-        if lm_quant is not None:
-            raise NotImplementedError("int8 LM weights (kernel K2) are not ported yet: "
-                                      "ROADMAP item 10")
+        own); HiFT and the flow's fixed noise stay fp32.
+        lm_quant: None, or "int8" for per-channel int8 LM projections, taken
+        from the weights after the cast to compute_dtype (fp32 scales)."""
+        if lm_quant not in (None, "int8"):
+            raise ValueError(f"unknown lm_quant {lm_quant!r}: expected None or 'int8'")
         if use_bistream:
             raise NotImplementedError("bistream decode is not ported yet: ROADMAP item 11")
         if tp:
@@ -87,12 +93,16 @@ class TTSModel:
             flow["rand_noise"] = params["flow"]["rand_noise"].float()
             params = {"llm": cast_floating(params["llm"], compute_dtype), "flow": flow,
                       "hift": params["hift"]}
+        if lm_quant == "int8":
+            params = dict(params, llm=quantize_lm_params(params["llm"]))
         self.params = params
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
         self.timer = StageTimer(
             sync=torch.cuda.synchronize if self.device.type == "cuda" else None)
         self.last_n_tokens = 0  # speech tokens generated by the last tts call
+        self.last_batch_tokens: list = []  # per prompt, by the last tts_batch call
+        self.last_decode_steps = 0  # decode steps of the last tts or tts_batch call
         self.pre_lookahead_len = cfg.stream.pre_lookahead_len
 
     # ------------------------------------------------------------------
@@ -220,7 +230,7 @@ class TTSModel:
         session: dict = {"hift_cache": None}
 
         with self.timer.stage("lm_decode"):
-            tokens, lengths = llm_mod.lm_decode(
+            tokens, lengths, self.last_decode_steps = llm_mod.lm_decode(
                 self.params["llm"], self.cfg.llm, self._tensor(ids), self._tensor(src),
                 self._tensor([prompt_len]), self._tensor([min_len]), self._tensor([max_len]),
                 max_gen, generator=self.generator, draws=lm_draws,
@@ -229,6 +239,96 @@ class TTSModel:
             tokens = tokens[0, :n].cpu().numpy()
         self.last_n_tokens = n
         yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
+
+    def tts_batch(
+        self,
+        prompts: list,
+        speed: float = 1.0,
+        lm_draws: Optional[llm_mod.Draws] = None,
+        hift_draws: Optional[HiftDraws] = None,
+    ) -> list:
+        """Batched non-streaming synthesis: one float32 waveform per prompt.
+
+        The prompts pack into a shared LM bucket and decode together; the
+        flow runs once on a shared token bucket with per-row prompt and feat
+        lengths, HiFT on the shared mel bucket in sub-batches padded with
+        the last row.  As in the JAX package, ``speed`` reaches only the
+        per-row path taken when a row exceeds the largest flow bucket.
+        ``lm_draws`` serves the whole batch as in ``tts``; ``hift_draws`` is
+        called once per HiFT sub-batch, in order.
+        """
+        cfg = self.cfg
+        n = len(prompts)
+        packs = [self._pack_lm_prompt(p) for p in prompts]
+        p_bucket = max(pk[3] for pk in packs)
+        ids = np.zeros((n, p_bucket), np.int32)
+        src = np.zeros((n, p_bucket), np.int32)
+        prompt_len, min_len, max_len = (np.zeros((n,), np.int32) for _ in range(3))
+        for i, (pi, si, total, _, mn, mx) in enumerate(packs):
+            ids[i, : pi.shape[1]], src[i, : si.shape[1]] = pi[0], si[0]
+            prompt_len[i], min_len[i], max_len[i] = total, mn, mx
+        max_gen = min(((int(max_len.max()) + 63) // 64) * 64, cfg.llm.max_seq_len - p_bucket)
+        with self.timer.stage("lm_decode"):
+            tokens, lengths, self.last_decode_steps = llm_mod.lm_decode(
+                self.params["llm"], cfg.llm, self._tensor(ids), self._tensor(src),
+                self._tensor(prompt_len), self._tensor(min_len), self._tensor(max_len),
+                max_gen, generator=self.generator, draws=lm_draws,
+            )
+            tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
+        self.last_batch_tokens = [int(x) for x in lengths]
+
+        ratio = cfg.flow.token_mel_ratio
+        totals = [len(p.flow_prompt_speech_tokens) + int(lengths[i]) for i, p in enumerate(prompts)]
+        if max(totals) > FLOW_TOKEN_BUCKETS[-1]:
+            # per-row synthesis, which raises past the largest flow bucket
+            return [self._finalize_full(tokens[i, : lengths[i]], prompts[i], {"hift_cache": None},
+                                        speed, hift_draws) for i in range(n)]
+        tok_bucket = bucket_for(max(totals), buckets=FLOW_TOKEN_BUCKETS)
+        tok_arr = np.zeros((n, tok_bucket), np.int32)
+        feat = np.zeros((n, tok_bucket * ratio, cfg.flow.output_size), np.float32)
+        feat_len = np.zeros((n,), np.int32)
+        emb = np.stack([np.asarray(p.embedding, np.float32) for p in prompts])
+        for i, p in enumerate(prompts):
+            sp = p.flow_prompt_speech_tokens
+            tok_arr[i, : len(sp)] = sp
+            tok_arr[i, len(sp): totals[i]] = tokens[i, : lengths[i]]
+            feat[i, : p.prompt_feat.shape[0]] = p.prompt_feat
+            feat_len[i] = p.prompt_feat.shape[0]
+        with self.timer.stage("flow"):
+            mel = flow_inference(
+                self.params["flow"], cfg.flow, self._tensor(tok_arr), self._tensor(totals),
+                self._tensor(feat, torch.float32), self._tensor(feat_len),
+                self._tensor(emb, torch.float32), streaming=False, finalize=True,
+            )
+
+        # HiFT on the shared mel bucket, each row edge-replicated on the device
+        mel_lens = [totals[i] * ratio - int(feat_len[i]) for i in range(n)]
+        h_bucket = bucket_for(max(mel_lens), buckets=HIFT_MEL_BUCKETS)
+        rows = []
+        for i in range(n):
+            seg = mel[i, :, int(feat_len[i]): totals[i] * ratio]
+            rows.append(torch.cat([seg, seg[:, -1:].expand(-1, h_bucket - seg.shape[1])], dim=1))
+        mel_in = torch.stack(rows)
+        hcfg = cfg.hift
+        # the vocoder's activations grow with the bucket: sub-batches bound the memory
+        sub = max(1, min(n, int(4 * 2048 / h_bucket)))
+        cache = torch.zeros((sub, 1, cfg.stream.source_cache_len), device=self.device)
+        out = []
+        for lo in range(0, n, sub):
+            hi = min(lo + sub, n)
+            mel_g = mel_in[lo:hi]
+            if hi - lo < sub:
+                mel_g = torch.cat([mel_g, mel_g[-1:].expand(sub - (hi - lo), -1, -1)])
+            draws = None
+            if hift_draws is not None:
+                draws = hift_draws(sub, h_bucket * hcfg.upsample_scale, hcfg.nb_harmonics + 1)
+            with self.timer.stage("hift"):
+                audio, _ = hift_inference(self.params["hift"], hcfg, mel_g,
+                                          generator=self.generator, draws=draws,
+                                          cache_source=cache, cache_len=0)
+                out.extend(audio[i - lo, : mel_lens[i] * hcfg.upsample_scale].cpu().numpy()
+                           for i in range(lo, hi))
+        return out
 
 
 def _fade_in_out(fade_in: np.ndarray, fade_out: np.ndarray, window: np.ndarray) -> np.ndarray:

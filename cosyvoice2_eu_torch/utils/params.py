@@ -120,12 +120,58 @@ def init_uniform(gen, shape, low: float, high: float) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """y = x W^T + b in the dtype of x (float weights only)."""
-    if "weight_q" in p or "weight_q_xla" in p:
+    """y = x W^T + b in the dtype of x.
+
+    An int8 layer (``quantize_dense``) computes y32 = x @ w_q^T in fp32
+    through ``int8_matmul`` (kernel K2 on the card, at any K; its plain
+    version on the CPU), then ``(y32 * scale).to(x.dtype) + bias``: the
+    route the JAX package takes on the TPU.  On the CPU the JAX package
+    takes XLA's route instead, ``(x @ w_q^T.astype(x.dtype)) *
+    scale.astype(x.dtype)``.  In fp32 the two agree up to the order of the
+    sums; in bf16 they round at different places.
+    """
+    if "weight_q_xla" in p:
         raise NotImplementedError(
-            "int8 weight-only dense (kernel K2) is not ported yet: ROADMAP item 10")
+            "tensor-parallel int8 weights are not ported yet: ROADMAP item 13b")
+    if "weight_q" in p:
+        from cosyvoice2_eu_torch.ops.int8_matmul import int8_matmul
+
+        w_q = p["weight_q"]
+        y32 = int8_matmul(x.reshape(-1, x.shape[-1]).contiguous(), w_q)
+        y = (y32 * p["scale"]).to(x.dtype).reshape(*x.shape[:-1], w_q.shape[0])
+        return y + p["bias"].to(x.dtype) if "bias" in p else y
     return F.linear(x, p["weight"].to(x.dtype),
                     p["bias"].to(x.dtype) if "bias" in p else None)
+
+
+def quantize_dense(p: dict) -> dict:
+    """Per-output-channel symmetric int8 quantization of a dense layer.
+
+    scale = max(max|w_row|, 1e-8) / 127 in fp32, w_q = clip(round(w /
+    scale), -127, 127) with round half to even: the JAX package's numpy
+    arithmetic, in torch on the weight's device (bit for bit the same
+    codes and scales).  The bias is kept as it is.
+    """
+    w = p["weight"].float()
+    peak = w.abs().amax(dim=1).clamp_min(1e-8)
+    # a tensor divisor: PyTorch's CUDA division by a Python scalar multiplies
+    # by its reciprocal, which rounds differently from numpy's division
+    scale = peak / torch.full_like(peak, 127.0)
+    w_q = torch.round(w / scale[:, None]).clamp(-127, 127).to(torch.int8)
+    out = {"weight_q": w_q, "scale": scale}
+    if "bias" in p:
+        out["bias"] = p["bias"]
+    return out
+
+
+def quantize_lm_params(llm: dict) -> dict:
+    """Weight-only int8 on the decode-bound projections: every ``*_proj`` of
+    the backbone's layers and the speech head ``llm_decoder``; embeddings
+    and norms keep their type.  Used by ``load(lm_quant="int8")``."""
+    layers = [{k: quantize_dense(v) if k.endswith("_proj") else v for k, v in lp.items()}
+              for lp in llm["backbone"]["layers"]]
+    return dict(llm, backbone=dict(llm["backbone"], layers=layers),
+                llm_decoder=quantize_dense(llm["llm_decoder"]))
 
 
 def embedding(p: dict, ids: torch.Tensor) -> torch.Tensor:

@@ -74,10 +74,11 @@ def test_lm_decode_tokens_equal_jax_with_rebuilt_draws(params):
     toks_j, lens_j = fn(jp, CFG.llm, jnp.asarray(ids), jnp.asarray(src), jnp.asarray(prompt_len),
                         jnp.asarray(min_len), jnp.asarray(max_len), key, max_gen)
     draws = lm_draws_from_key(key, 2, max_gen, CFG.llm.top_k, CFG.llm.full_vocab)
-    toks_p, lens_p = port_llm.lm_decode(
+    toks_p, lens_p, steps = port_llm.lm_decode(
         pp, PCFG.llm, t(ids).long(), t(src).long(), t(prompt_len).long(), t(min_len).long(),
         t(max_len).long(), max_gen, draws=draws)
     np.testing.assert_array_equal(lens_p.numpy(), np.asarray(lens_j))
+    assert int(lens_p.max()) <= steps <= max_gen  # specials and EOS take steps, emit nothing
     for b in range(2):
         n = int(lens_j[b])
         assert n >= min_len[b]
@@ -93,6 +94,6 @@ def test_lm_decode_generator_draws_are_reproducible(params):
             t([3, 3]).long(), t([30, 30]).long(), 32)
     a = port_llm.lm_decode(*args, generator=torch.Generator().manual_seed(5))
     b = port_llm.lm_decode(*args, generator=torch.Generator().manual_seed(5))
-    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1]) and a[2] == b[2]
     with pytest.raises(ValueError):
         port_llm.lm_decode(*args)
