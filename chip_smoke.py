@@ -6,10 +6,15 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
-     print the build time and ptxas's register and spill lines;
+     print the build time, ptxas's register, spill and shared-memory lines,
+     and the count of ``HGMMA`` (wgmma) instructions in K1's bf16 library
+     (it fails at 0);
   2. kernel checks against the plain PyTorch versions on the card: K1
-     (flash-attention forward, O and LSE) and K3/K4 (its backward), every
-     row, at B=2 ragged shapes and the training path's two batches, K1 ->
+     (flash-attention forward, O and LSE; bf16 on the tensor cores, fp32 on
+     the FMA units) and K3/K4 (its backward), every row, at B=2 ragged
+     shapes and the training path's two batches, bf16 K1 also at the edges
+     of its 128-row tiles (T 1 to 200), with a row of length 0 and at the
+     int8 batch's B=8 (640 blocks, several waves), K1 ->
      K3/K4 also against the fully plain forward and backward; K2 (the int8
      matmul) at every (N, K) of the int8 LM, M 1 to 512, bf16 and fp32 x,
      plus a ragged K;
@@ -30,12 +35,16 @@ Phases (any failure ends the run with a non-zero exit code):
      then CV and an end-of-epoch checkpoint; checks finite losses, the
      MultiSteps update at step 4, 56 launches of K1 (with LSE), K3 and K4
      per step, and a bit-exact checkpoint round trip; per-step times;
-  7. kernel timings at the shapes of the paths: K1 on all three, K2 at
-     every (M, N, K) of the int8 path with its weights cold in L2 (beside
-     its plain version, ``torch._weight_int8pack_mm`` where the card's
-     PyTorch runs it, and ``F.linear`` on the bf16 weights).
+  7. kernel timings at the shapes of the paths: K1 on all three (with
+     TFLOP/s on the visible pairs and the share of the bound, and its
+     output at each timed shape held against the plain one), K2 at every
+     (M, N, K) of the int8 path with its weights cold in L2 (beside its
+     plain version, ``torch._weight_int8pack_mm`` where the card's PyTorch
+     runs it, and ``F.linear`` on the bf16 weights).
 The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
-are means per launch over the paths (each path's under ``by_path``), K2's
+are means per launch over the paths (each path's under ``by_path``, each
+design's under ``by_dtype``: bf16 on the TTS and int8 paths, fp32 on the
+training path), K2's
 over the int8 path's shapes (each under ``by_shape``, with
 ``bf16_linear_ms``); K3's and K4's ``plain_ms`` time the plain dQ and dK/dV
 alone, their ``library_ms`` is null (no library call computes one of them
@@ -52,6 +61,7 @@ import functools
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -88,6 +98,31 @@ def _uncounted(fn):
     return run
 
 
+def _graph_ms(fn, n: int) -> float:
+    """Device ms per call of ``fn(i)``, i = 0 .. n-1, captured in one CUDA
+    graph and timed as its replay.  At tens of microseconds a call, eager
+    launches from Python would time the host's launch rate, not the card."""
+    import torch
+
+    side = torch.cuda.Stream()  # warm-up off the capture stream (library handles)
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(0)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            fn(i)
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def _cuda_ms(fn, iters: int) -> float:
     import torch
 
@@ -114,46 +149,68 @@ def _check_cases(ts) -> list:
     return [[t, (3 * t) // 5 + 7] for t in ts] + [list(lens) for lens in TRAIN_SHAPES]
 
 
+# K1's tolerances.  fp32: the kernel and the plain version both compute in
+# fp32 and differ only in summation order, 1e-4.  bf16: both round the same
+# fp32 result to bf16, so they may differ by one bf16 ulp, at most 2^-7 of
+# the largest output; the kernel's one extra rounding (P to bf16 before P V,
+# about 2^-9 |v| / sqrt(n_eff) on O) stays well inside it.  The LSE is fp32
+# for either input type, |LSE| < 10 here: a few fp32 ulps, 1e-5.
+K1_LSE_TOL = 1e-5
+
+
+def _k1_errors(got, want, dtype, with_lse: bool) -> tuple:
+    """(O error, O tolerance, LSE error, ok) of K1's ``got`` against the plain
+    ``want`` (each o, or (o, lse) with LSE), on every row."""
+    if not with_lse:
+        got, want = (got, None), (want, None)
+    peak = want[0].float().abs().max().item()
+    err = (got[0].float() - want[0].float()).abs().max().item()
+    lse_err = (got[1] - want[1]).abs().max().item() if with_lse else 0.0
+    tol = 1e-4 if str(dtype) == "torch.float32" else 2.0 ** -7 * peak
+    ok = math.isfinite(err) and math.isfinite(lse_err) and err <= tol and lse_err <= K1_LSE_TOL
+    return err, tol, lse_err, ok
+
+
 @_uncounted
 def check_flash_attention() -> float:
     """K1 against its plain version at the shapes of both paths, with and
     without LSE; O and LSE compared on every row (pad rows included, which
-    K3 and K4 read).  Returns the worst O error."""
+    K3 and K4 read).  bf16 also at the edges of the sm90 kernel's 128-row
+    tiles (T 1 to 200), with a row of length 0 (at chunk 0 the mean of V
+    over all T keys on both sides), and at the int8 batch's shape (B=8 at
+    T 1280: 640 blocks, more than one wave of the card).  Returns the worst
+    O error."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
 
-    # fp32: the kernel and the plain version both compute in fp32 and differ
-    # only in summation order.  bf16: both round the same fp32 result to bf16,
-    # so they may differ by one bf16 ulp, at most 2^-7 of the largest output.
-    # The LSE is fp32 for either input type, |LSE| < 10 here: a few fp32 ulps.
-    lse_tol = 1e-5
     h, d = 8, 64
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
+    both = (torch.bfloat16, torch.float32)
+    cases = [(lens, max(lens), both, (0, 50), "")
+             for lens in _check_cases((128, 384, 1280, 1536, 2048))]
+    cases += [([t, max(1, (3 * t) // 5)], t, (torch.bfloat16,), (0, 50), " edge")
+              for t in (1, 64, 65, 127, 129, 200)]
+    cases.append(([200, 0], 200, (torch.bfloat16,), (0,), " edge"))
+    # the int8 path's tts_batch of 4 (CFG doubles the rows) in its mel bucket
+    cases.append(([1150, 1270, 730, 1190] * 2, 1280, (torch.bfloat16,), (0, 50), " int8 batch"))
     worst = 0.0
-    for lens in _check_cases((128, 384, 1280, 1536, 2048)):
-        b, t = len(lens), max(lens)
+    for lens, t, dtypes, chunks, what in cases:
+        b = len(lens)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
                        for _ in range(3))
-            for chunk in (0, 50):
+            for chunk in chunks:
                 for with_lse in (False, True):
                     got = fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse)
                     want = fa.flash_attention_reference(q, k, v, lengths, chunk,
                                                         return_lse=with_lse)
-                    if not with_lse:
-                        got, want = (got, None), (want, None)
-                    peak = want[0].float().abs().max().item()
-                    err = (got[0].float() - want[0].float()).abs().max().item()
-                    lse_err = (got[1] - want[1]).abs().max().item() if with_lse else 0.0
-                    tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * peak
-                    ok = (math.isfinite(err) and math.isfinite(lse_err) and err <= tol
-                          and lse_err <= lse_tol)
-                    print(f"K1 check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk} "
+                    err, tol, lse_err, ok = _k1_errors(got, want, dtype, with_lse)
+                    print(f"K1{what} check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk} "
                           f"lse={with_lse}, every row: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                          f"lse_err={lse_err:.3e} (tol {lse_tol:g}) {'ok' if ok else 'FAIL'}")
+                          f"lse_err={lse_err:.3e} (tol {K1_LSE_TOL:g}) {'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise SystemExit(f"K1 disagrees with its plain version at lengths={lens}")
                     worst = max(worst, err)
@@ -291,7 +348,9 @@ def check_int8_matmul() -> float:
 
 def _time_k1(lens, t: int, chunk: int, dtype, with_lse: bool, gen) -> dict:
     """K1, its plain version and SDPA's forward on random inputs of one shape,
-    with K1's bound from this run's visible pairs (ms each)."""
+    each as CUDA-graph replay, with K1's bound from this run's visible pairs
+    (ms each).  K1's output at this shape is held against the plain one
+    first (``err``), and a disagreement ends the run."""
     import torch
     import torch.nn.functional as F
 
@@ -304,17 +363,29 @@ def _time_k1(lens, t: int, chunk: int, dtype, with_lse: bool, gen) -> dict:
     q, k, v = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
                for _ in range(3))
     mask = chunk_attention_mask(lengths, t, chunk)[:, None]
-    ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse), 50)
-    plain_ms = _cuda_ms(lambda: fa.flash_attention_reference(q, k, v, lengths, chunk,
-                                                             return_lse=with_lse), 10)
-    library_ms = _cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50)
+    err, tol, lse_err, ok = _k1_errors(
+        fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse),
+        fa.flash_attention_reference(q, k, v, lengths, chunk, return_lse=with_lse), dtype, with_lse)
+    if not ok:
+        raise SystemExit(f"K1 disagrees with its plain version at the timed shape lengths={lens} "
+                         f"T={t} chunk={chunk}: max_abs_err={err:.3e} (tol {tol:.3e}), "
+                         f"lse_err={lse_err:.3e}")
+    ms = _graph_ms(lambda i: fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse), 50)
+    plain_ms = _graph_ms(lambda i: fa.flash_attention_reference(q, k, v, lengths, chunk,
+                                                               return_lse=with_lse), 10)
+    library_ms = _graph_ms(lambda i: F.scaled_dot_product_attention(q, k, v, attn_mask=mask), 50)
+    # the same launches made eagerly from Python: the rate the wrapper sets
+    eager_ms = _cuda_ms(lambda: fa.flash_attention(q, k, v, lengths, chunk,
+                                                   return_lse=with_lse), 50)
     flops = 4 * d * int(mask.sum().item()) * h  # visible (query, key) pairs of this run's data
     # q, k, v read; o (and lse) written; lengths
     nbytes = 4 * b * h * t * d * q.element_size() + (b * h * t * 4 if with_lse else 0) + b * 4
     ops_ms = flops / PEAKS[str(dtype)] * 1e3
     bytes_ms = nbytes / H100_BYTES * 1e3
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=max(ops_ms, bytes_ms),
-                ops_ms=ops_ms, bytes_ms=bytes_ms, gflop=flops / 1e9, mb=nbytes / 1e6)
+    bound_ms = max(ops_ms, bytes_ms)
+    return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, eager_ms=eager_ms,
+                bound_ms=bound_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, gflop=flops / 1e9,
+                mb=nbytes / 1e6, tflops=flops / ms * 1e-9, share=bound_ms / ms)
 
 
 def _weighted(parts: list) -> dict:
@@ -345,9 +416,12 @@ def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, 
     rows = []
     for t, lens in shapes:
         r = _time_k1(lens, t, 0, torch.bfloat16, False, gen)
-        print(f"K1 timing T={t} bf16 chunk=0 lengths={lens} [{card}]: kernel {r['ms']:.4f} ms, "
-              f"plain {r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms'] * 1e3:.2f} us ({r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB)")
+        print(f"K1 timing T={t} bf16 chunk=0 lengths={lens} [{card}]: kernel {r['ms']:.4f} ms "
+              f"({r['tflops']:.1f} TFLOP/s on the visible pairs, {100 * r['share']:.1f}% of the "
+              f"bound; eager from Python {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
+              f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
+              f"({r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB); output vs plain max_abs_err "
+              f"{r['err']:.3e} ok")
         rows.append(r)
     return _weighted([(launches // len(rows), r) for r in rows]), [r["ms"] for r in rows]
 
@@ -474,6 +548,36 @@ def _int8_logits_band(cfg, llm, device, ids=None, src=None, valid=None) -> tuple
     return rel, agree
 
 
+# (source, entry point) of each kernel the flash-attention wrappers called
+# since a path cleared it with the counts
+LAUNCHED: set = set()
+
+
+def _record_launches(fa) -> None:
+    """From now on, note in ``LAUNCHED`` the kernel each of ``fa``'s wrappers
+    calls, at the call."""
+    fn = fa._fn
+
+    def recorded(source, symbol, n_ptrs):
+        LAUNCHED.add((source, symbol))
+        return fn(source, symbol, n_ptrs)
+
+    fa._fn = recorded
+
+
+def _k1_design() -> str:
+    """The K1 design the path launched since ``LAUNCHED`` was cleared, as
+    seen at each launch.  Raises unless every launch was of the bf16 one."""
+    import torch
+
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    if LAUNCHED != {fa.fwd_kernel(torch.bfloat16)}:
+        raise SystemExit(f"the serving path launched {sorted(LAUNCHED)}, not only K1's bf16 "
+                         f"design {fa.fwd_kernel(torch.bfloat16)}")
+    return f"every launch called {fa.SM90_SOURCE}, as recorded at each launch"
+
+
 def main_path(card: str) -> tuple[int, list, list, dict]:
     """Three full-width requests.  Returns K1's launches, each flow call's
     (mel bucket, valid mel frames per K1 row) and flow time in ms, and the
@@ -503,6 +607,7 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     torch.cuda.reset_peak_memory_stats()
     for f in _counters():
         f.launches = 0
+    LAUNCHED.clear()
     for i, text in enumerate(texts):
         before = fa.flash_attention.launches
         model._model.timer.reset()
@@ -529,8 +634,9 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
         shapes.append((bucket_for(total, FLOW_TOKEN_BUCKETS) * ratio, [total * ratio] * 2))
         flow_ms.append(stages["flow"]["total_s"] * 1e3)
     launches = fa.flash_attention.launches
-    print(f"main path: K1 launches {launches} over {len(texts)} flow calls; peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+    design = _k1_design()
+    print(f"main path: K1 launches {launches} over {len(texts)} flow calls ({design}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if launches != k1_per_flow * len(texts):
         raise SystemExit("K1 launch count does not match the flow calls")
     return launches, shapes, flow_ms, model._model.params["llm"]
@@ -571,6 +677,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
     torch.cuda.reset_peak_memory_stats()
     for f in _counters():
         f.launches = 0
+    LAUNCHED.clear()
 
     def run(what, call, inputs):
         """One call; checks K1 and K2 launches and prints per-stage times."""
@@ -612,7 +719,8 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
     run("int8 tts_batch", lambda: (tm.tts_batch(prompts), tm.last_batch_tokens), prompts)
     launches = [f.launches for f in _counters()]
     print(f"int8 path: K1/K3/K4/K2 launches {launches} over {len(decodes)} LM decodes and flow "
-          f"calls; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+          f"calls (K1 {_k1_design()}); peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if launches[:3] != [k1_per_flow * len(decodes), 0, 0]:
         raise SystemExit("int8 path: K1/K3/K4 launches do not match its flow calls")
     # reported, not gating: the JAX package pins the band only on the tiny config
@@ -877,8 +985,9 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
         timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
         k3, k4 = kern["K3"], kern["K4"]
         print(f"K1/K3/K4 timing lengths={list(lens)} T={t} {str(dtype)[6:]} chunk={chunk} [{card}]: "
-              f"K1+LSE {k1['ms']:.4f} ms (plain {k1['plain_ms']:.4f}, sdpa forward "
-              f"{k1['library_ms']:.4f}, bound {k1['bound_ms'] * 1e3:.1f} us); K3 {k3['ms']:.4f} ms "
+              f"K1+LSE {k1['ms']:.4f} ms ({k1['tflops']:.1f} TFLOP/s, {100 * k1['share']:.1f}% of "
+              f"the bound; plain {k1['plain_ms']:.4f}, sdpa forward {k1['library_ms']:.4f}, bound "
+              f"{k1['bound_ms'] * 1e3:.1f} us); K3 {k3['ms']:.4f} ms "
               f"(plain dQ {k3['plain_ms']:.4f}, bound {k3['bound_ms'] * 1e3:.1f} us, "
               f"{k3['gflop']:.2f} GFLOP); K4 {k4['ms']:.4f} ms (plain dK/dV {k4['plain_ms']:.4f}, "
               f"bound {k4['bound_ms'] * 1e3:.1f} us, {k4['gflop']:.2f} GFLOP); whole backward: "
@@ -890,8 +999,9 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
     n = k1_launches // (len(steps) + 1)  # launches of each kernel per step (and per CV batch)
     cv = _time_k1(CV_SHAPE, max(CV_SHAPE), 0, torch.float32, False, gen)
     print(f"K1 timing (CV batch, no LSE) lengths={CV_SHAPE} fp32 chunk=0 [{card}]: kernel "
-          f"{cv['ms']:.4f} ms, plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, "
-          f"bound {cv['bound_ms'] * 1e3:.1f} us")
+          f"{cv['ms']:.4f} ms ({cv['tflops']:.1f} TFLOP/s, {100 * cv['share']:.1f}% of the "
+          f"bound), plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, bound "
+          f"{cv['bound_ms'] * 1e3:.1f} us")
     k1_train = _weighted([(n, p["k1"]) for p in per_step] + [(k1_launches - n * len(steps), cv)])
     rows = [_kernel_row(name, "flash_attention_bwd.cu", f"flash_attention.py:{line}",
                         _weighted([(n, p[key]) for p in per_step]))
@@ -920,37 +1030,19 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
     x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     scale = torch.rand((n,), generator=gen, device="cuda").to(torch.bfloat16)
 
-    def rotating(fn):
-        side = torch.cuda.Stream()  # warm-up off the capture stream (library handles)
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(0)
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for i in range(copies):
-                fn(i)
-        graph.replay()
-        torch.cuda.synchronize()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / copies
-
-    out = dict(ms=rotating(lambda i: i8.int8_matmul(x, w_q[i])),
-               plain_ms=rotating(lambda i: i8.int8_matmul_reference(x, w_q[i])))
+    out = dict(ms=_graph_ms(lambda i: i8.int8_matmul(x, w_q[i]), copies),
+               plain_ms=_graph_ms(lambda i: i8.int8_matmul_reference(x, w_q[i]), copies))
     try:  # the library's int8 weight-only matmul (scaled), where this PyTorch runs it on CUDA
         torch._weight_int8pack_mm(x, w_q[0], scale)
         torch.cuda.synchronize()
-        out["library_ms"] = rotating(lambda i: torch._weight_int8pack_mm(x, w_q[i], scale))
+        out["library_ms"] = _graph_ms(lambda i: torch._weight_int8pack_mm(x, w_q[i], scale),
+                                      copies)
         out["library_note"] = None
     except (RuntimeError, NotImplementedError, AttributeError) as e:
         out["library_ms"], out["library_note"] = None, f"{type(e).__name__}: {str(e)[:160]}"
     w_bf16 = w_q.to(torch.bfloat16)  # F.linear on the same values as bf16 weights
     del w_q
-    out["bf16_linear_ms"] = rotating(lambda i: F.linear(x, w_bf16[i]))
+    out["bf16_linear_ms"] = _graph_ms(lambda i: F.linear(x, w_bf16[i]), copies)
     del w_bf16
     ops = 2 * m * n * k
     nbytes = m * k * 2 + n * k + m * n * 4  # x bf16 and w int8 read once, y fp32 written once
@@ -1029,6 +1121,17 @@ def _kernel_row(name: str, source: str, replaces: str, times: dict, **extra) -> 
     return row
 
 
+def _sass_count(library, opcode: str) -> int:
+    """How many SASS instructions of ``library`` start with ``opcode``
+    (``cuobjdump -sass`` from the CUDA toolkit)."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=120).stdout
+    return sum(1 for line in sass.splitlines()
+               if "*/" in line and line.split("*/", 1)[1].strip().startswith(opcode))
+
+
 def main() -> None:
     import torch
 
@@ -1047,15 +1150,21 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     t0 = time.perf_counter()
-    sources = (fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE)
+    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE)
     cuda_build.build(sources)  # one nvcc per source, in parallel
     for src in sources:
         cuda_build.load_library(src)
     print(f"kernels built in {time.perf_counter() - t0:.2f} s")
     for src, log in cuda_build.build_logs.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {src}: {line.strip()}")
+    hgmma = _sass_count(cuda_build.library_path(fa.SM90_SOURCE), "HGMMA")
+    print(f"  {fa.SM90_SOURCE}: {hgmma} HGMMA (wgmma) instructions in its SASS "
+          f"{'ok' if hgmma else 'FAIL'}")
+    if not hgmma:
+        raise SystemExit(f"{fa.SM90_SOURCE} holds no wgmma instruction")
+    _record_launches(fa)
 
     worst = check_flash_attention()
     worst_dq, worst_dkv = check_flash_backward()
@@ -1086,11 +1195,17 @@ def main() -> None:
         raise SystemExit("K3/K4 launches do not match the training path")
     # K1's times are means per launch over the paths; each path's stand beside them
     paths = {"tts": k1_tts, "int8": k1_int8, "train": k1_train}
-    k1 = _kernel_row("flash_attention_fwd", "flash_attention.cu", "flash_attention.py:71",
+    # eager_ms: the same launches made eagerly from Python, beside the replayed ms
+    keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (FMA) in training
+    serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8)])
+    designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}
+    k1 = _kernel_row("flash_attention_fwd", fa.SM90_SOURCE, "flash_attention.py:71",
                      _weighted([(p["launches"], p) for p in paths.values()]),
-                     by_path={name: {k: p[k] for k in ("launches", "ms", "plain_ms", "bound_ms",
-                                                       "bound_by", "library_ms")}
-                              for name, p in paths.items()})
+                     by_path={name: {k: p[k] for k in keys} for name, p in paths.items()},
+                     by_dtype={name: {"source": f"cosyvoice2_eu_torch/csrc/{src}",
+                                      **{k: p[k] for k in keys}}
+                               for name, (src, p) in designs.items()})
     k1["max_abs_err"], k3["max_abs_err"], k4["max_abs_err"] = worst, worst_dq, worst_dkv
     per_step = train_launches[1] // len(steps)
     for r, kern_ms in zip(steps, step_kernel_ms):

@@ -1,36 +1,34 @@
-// Flash-attention forward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention forward in float32 for Hopper (sm_90a), plain C interface
+// for ctypes.
 //
 // Replaces the TPU kernel cosyvoice2_eu_tpu/ops/pallas/flash_attention.py::
-// _attn_kernel (launched by _flash_call / flash_attention).  It computes
-// softmax(Q K^T * scale) V per (batch*head) with an online fp32 softmax and
-// builds the mask per tile from the scalars length[b] and chunk:
+// _attn_kernel (launched by _flash_call / flash_attention) for float32
+// inputs, the training path's forward with LSE; bfloat16 inputs go to
+// flash_attention_sm90.cu.  It computes softmax(Q K^T * scale) V per
+// (batch*head) with an online fp32 softmax and builds the mask per tile from
+// the scalars length[b] and chunk:
 //   key j is visible to query i iff j < length[b] and, when chunk > 0,
 //   j < (i / chunk + 1) * chunk.
 // Masked scores take the same finite NEG_INF = -1e30 as the TPU kernel and l
 // is clamped at 1e-30, so a row with no visible key (length[b] == 0) gives
 // the mean of V over the visited keys, as the TPU kernel does, not NaN (with
 // chunk > 0 the visited keys end at this kernel's 64-key tile boundary, not
-// at the TPU kernel's wider block).  Keys past T are excluded outright.  Key tiles past the chunk bound are skipped, and so are
-// tiles past length[b] when length[b] > 0 (their weights are exactly 0).
+// at the TPU kernel's wider block).  Keys past T are excluded outright.  Key
+// tiles past the chunk bound are skipped, and so are tiles past length[b]
+// when length[b] > 0 (their weights are exactly 0).
 //
-// Inputs q, k, v: (B*H, T, D) contiguous, float32 or bfloat16; scores,
-// softmax and accumulator in fp32; output in the input type; optional fp32
-// log-sum-exp (B*H, T).
+// Inputs q, k, v: (B*H, T, D) contiguous float32; scores, softmax,
+// accumulator and output in fp32; optional fp32 log-sum-exp (B*H, T).
 //
-// What bounds it on the H100: at the estimator's shapes (B*H = 16, D = 64,
-// T = 1280) one launch does 4*BH*T^2*D = 6.7 GFLOP on 10.5 MB, far above the
-// card's ~295 FLOP/byte ridge, so the bound is the bf16 tensor-core rate
-// (989 TFLOP/s dense): ~6.8 us.  This first design is simple and right, not
-// fast: one 256-thread block per (64-query tile, batch*head), K/V tiles of 64
-// keys staged in shared memory as fp32, and both products on the fp32 FMA
-// units (67 TFLOP/s peak, no tensor cores), each thread owning a 4x4 score
-// block and a 4x(D/16) output block.  Its gap to the bound is therefore at
-// least the 15x between the FMA and tensor-core peaks, plus the block's
-// shared-memory traffic (about 2.5 FMAs per shared load); wgmma and TMA are
-// the way to close it.
+// What bounds it on the H100: fp32 has no dense tensor-core path other than
+// TF32, which would break the train step's gradient parity, so the bound is
+// the fp32 FMA rate (67 TFLOP/s).  The design is simple and right: one
+// 256-thread block per (64-query tile, batch*head), K/V tiles of 64 keys
+// staged in shared memory, each thread owning a 4x4 score block and a
+// 4x(D/16) output block.  Its gap to that bound is the block's shared-memory
+// traffic (about 2.5 FMAs per shared load) and loads that overlap no math.
 
 #include <cuda_runtime.h>
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -42,14 +40,6 @@ constexpr float NEG_INF = -1.0e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
 template <int D>
 struct Smem {
   static constexpr int QS = D + 4;   // Q row stride (float4-aligned, bank offset)
@@ -58,10 +48,11 @@ struct Smem {
   static constexpr int BYTES = (BQ * QS + D * KS + BK * D + BQ * PS) * 4;
 };
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 const int* __restrict__ lengths, T* __restrict__ o, float* __restrict__ lse,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const int* __restrict__ lengths,
+                 float* __restrict__ o, float* __restrict__ lse,
                  int heads, int t, int chunk, float scale_log2) {
   constexpr int NC = D / 16;  // output columns per thread
   using S = Smem<D>;
@@ -82,7 +73,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   for (int e = tid; e < BQ * D; e += THREADS) {
     int r = e / D, c = e % D;
     int row = q0 + r;
-    Qs[r * S::QS + c] = row < t ? to_float(q[base + (size_t)row * D + c]) * scale_log2 : 0.f;
+    Qs[r * S::QS + c] = row < t ? q[base + (size_t)row * D + c] * scale_log2 : 0.f;
   }
 
   // number of key tiles any row of this block can see
@@ -117,8 +108,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       int key = k0 + r;
       float kval = 0.f, vval = 0.f;
       if (key < t) {
-        kval = to_float(k[base + (size_t)key * D + c]);
-        vval = to_float(v[base + (size_t)key * D + c]);
+        kval = k[base + (size_t)key * D + c];
+        vval = v[base + (size_t)key * D + c];
       }
       Kt[c * S::KS + r] = kval;
       Vs[r * D + c] = vval;
@@ -212,7 +203,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NC; ++j)
-      o[base + (size_t)row * D + tx + 16 * j] = from_float<T>(acc[i][j] * inv_l);
+      o[base + (size_t)row * D + tx + 16 * j] = acc[i][j] * inv_l;
     if (lse != nullptr && tx == 0) {
       // natural-log lse; a row with no visible key keeps the TPU kernel's -1e30
       const float m_nat = m[i] == NEG_INF ? NEG_INF : m[i] * LN2;
@@ -221,11 +212,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const int* lengths, void* o,
+template <int D>
+int launch(const float* q, const float* k, const float* v, const int* lengths, float* o,
            float* lse, int bh, int heads, int t, int chunk, float sm_scale,
            cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<D>;
   const int smem = Smem<D>::BYTES;
   static bool smem_set = false;  // the attribute is per kernel and idempotent
   if (!smem_set) {
@@ -234,26 +225,23 @@ int launch(const void* q, const void* k, const void* v, const int* lengths, void
     smem_set = true;
   }
   dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      static_cast<T*>(o), lse, heads, t, chunk, sm_scale * LOG2E);
+  kern<<<grid, THREADS, smem, stream>>>(q, k, v, lengths, o, lse, heads, t, chunk,
+                                        sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  lse may be null.  Returns a cudaError_t.
+// dtype must be 0 (float32); bfloat16 is flash_attention_sm90.cu's.  lse may
+// be null.  Returns a cudaError_t.
 extern "C" int cosy_flash_attention_fwd(const void* q, const void* k, const void* v,
                                         const int* lengths, void* o, float* lse, int bh,
                                         int heads, int t, int d, int chunk, float sm_scale,
                                         int dtype, void* stream) {
   // the estimator's head dim is 64 (8 heads x 64 = 512 wide at every width)
-  if (bh <= 0 || t <= 0 || heads <= 0 || bh % heads != 0 || chunk < 0 || d != 64)
+  if (bh <= 0 || t <= 0 || heads <= 0 || bh % heads != 0 || chunk < 0 || d != 64 || dtype != 0)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float, 64>(q, k, v, lengths, o, lse, bh, heads, t, chunk, sm_scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16, 64>(q, k, v, lengths, o, lse, bh, heads, t, chunk, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return launch<64>(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), lengths, static_cast<float*>(o), lse, bh, heads,
+                    t, chunk, sm_scale, static_cast<cudaStream_t>(stream));
 }

@@ -5,7 +5,12 @@ with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 under ``cosyvoice2_eu_torch/_build/`` (listed in ``.gitignore``), named by a
 hash of its source and the compiler flags, and loaded with ``ctypes``.
 ``build`` starts one nvcc per missing source, all at once, and waits for
-them.  Nothing here runs at import time.
+them.  nvcc's report (ptxas's registers, spills and shared memory per
+kernel) is kept beside each library as ``<library>.log``, so ``build_logs``
+holds it whether this process compiled the source or found it built.  No
+library links against libcuda: a kernel that encodes TMA descriptors gets
+``cuTensorMapEncodeTiled`` through the CUDA runtime's entry-point lookup.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,7 +41,9 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _library_path(source: str) -> Path:
+def library_path(source: str) -> Path:
+    """The shared library of one ``csrc`` source, named by the hash of the
+    source and the flags."""
     key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{key.hexdigest()[:16]}.so"
 
@@ -45,8 +52,10 @@ def build(sources) -> None:
     """Compile every source whose library is missing, one nvcc each, in parallel."""
     jobs = []
     for source in sources:
-        out = _library_path(source)
+        out = library_path(source)
         if out.exists():
+            log = out.with_suffix(".log")
+            build_logs.setdefault(source, log.read_text() if log.exists() else "")
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
@@ -60,6 +69,7 @@ def build(sources) -> None:
         if proc.returncode != 0:
             failed.append(f"nvcc failed on {source}:\n{stdout}{stderr}")
         else:
+            out.with_suffix(".log").write_text(stderr)
             os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     if failed:
         raise RuntimeError("\n".join(failed))
@@ -71,5 +81,5 @@ def load_library(source: str) -> ctypes.CDLL:
     if lib is not None:
         return lib
     build([source])
-    lib = _libs[source] = ctypes.CDLL(str(_library_path(source)))
+    lib = _libs[source] = ctypes.CDLL(str(library_path(source)))
     return lib

@@ -3,10 +3,11 @@ and backward (kernels K3 and K4).
 
 Counterpart of ``cosyvoice2_eu_tpu/ops/pallas/flash_attention.py::
 flash_attention`` and its custom VJP.  On a CUDA tensor each wrapper
-launches its hand-written Hopper kernel (``csrc/flash_attention.cu`` for K1,
-``csrc/flash_attention_bwd.cu`` for K3 and K4); on a CPU tensor it runs its
-plain PyTorch version, and on no other device.  There is no fallback from
-the card to the plain versions.
+launches its hand-written Hopper kernel (K1: ``csrc/flash_attention_sm90.cu``
+for bfloat16, on the tensor cores, and ``csrc/flash_attention.cu`` for
+float32; ``csrc/flash_attention_bwd.cu`` for K3 and K4); on a CPU tensor it
+runs its plain PyTorch version, and on no other device.  There is no
+fallback from the card to the plain versions, nor between K1's two designs.
 
 Mask semantics == ``ops.masks.chunk_attention_mask``: key j is visible to
 query i iff j < length[b] and, when chunk_size > 0,
@@ -30,7 +31,8 @@ import torch
 from cosyvoice2_eu_torch.ops.masks import chunk_attention_mask
 
 NEG_INF = -1.0e30
-SOURCE = "flash_attention.cu"
+SOURCE = "flash_attention.cu"            # K1, float32 (fp32 FMA)
+SM90_SOURCE = "flash_attention_sm90.cu"  # K1, bfloat16 (wgmma and TMA)
 BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIM = 64  # the kernels are built for the estimator's head dim
@@ -142,16 +144,26 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def fwd_kernel(dtype) -> tuple[str, str]:
+    """(source, C entry point) of K1's design for ``dtype``."""
+    if dtype == torch.bfloat16:
+        return SM90_SOURCE, "cosy_flash_attention_sm90_fwd"
+    return SOURCE, "cosy_flash_attention_fwd"
+
+
 def _launch_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse):
     """K1 (or its plain version on a CPU tensor)."""
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths, chunk_size, sm_scale, return_lse)
     _check("flash_attention", q, {"k": k, "v": v}, lengths, chunk_size)
+    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
+        raise ValueError("flash_attention: bfloat16 q, k, v must start on 16-byte boundaries "
+                         "(the kernel reads them by TMA)")
     b, h, t, d = q.shape
     lengths = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), device=q.device, dtype=torch.float32) if return_lse else None
-    err = _fn(SOURCE, "cosy_flash_attention_fwd", 6)(
+    err = _fn(*fwd_kernel(q.dtype), 6)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(), o.data_ptr(),
         lse.data_ptr() if lse is not None else None,
         b * h, h, t, d, chunk_size, sm_scale, _DTYPES[q.dtype], _stream(q))

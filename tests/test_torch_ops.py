@@ -140,19 +140,27 @@ def test_flash_cpu_tensor_takes_plain_version_without_counting():
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card(cuda_device):
-    """K1 on the card against its plain version on valid rows; skipped
-    without a GPU.  fp32 1e-4 (summation order); bf16 one output rounding,
-    2^-7 of the largest output (both round the same fp32 result)."""
+    """K1 on the card (bf16: the wgmma/TMA design; fp32: the FMA design)
+    against its plain version on valid rows, O and LSE, at T 300 and at
+    T 65 (a partial tile); skipped without a GPU.  fp32 1e-4 (summation
+    order); bf16 one output rounding, 2^-7 of the largest output (both
+    round nearly the same fp32 result); the fp32 LSE 1e-5."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    for dtype in (torch.float32, torch.bfloat16):
-        for chunk in (0, 50):
-            q, k, v = (torch.randn((2, 8, 300, 64), generator=gen, device=cuda_device)
-                       .to(dtype) for _ in range(3))
-            lengths = torch.tensor([300, 123], dtype=torch.int32, device=cuda_device)
-            got = port_fa.flash_attention(q, k, v, lengths, chunk)
-            want = port_fa.flash_attention_reference(q, k, v, lengths, chunk)
-            for b, n in enumerate((300, 123)):
-                want_b = want[b, :, :n].float()
-                err = (got[b, :, :n].float() - want_b).abs().max().item()
-                tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7 * want_b.abs().max().item()
-                assert err <= tol, (dtype, chunk, err, tol)
+    for t_len, lens in ((300, (300, 123)), (65, (65, 40))):
+        for dtype in (torch.float32, torch.bfloat16):
+            for chunk in (0, 50):
+                q, k, v = (torch.randn((2, 8, t_len, 64), generator=gen, device=cuda_device)
+                           .to(dtype) for _ in range(3))
+                lengths = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+                got, got_lse = port_fa.flash_attention(q, k, v, lengths, chunk, return_lse=True)
+                want, want_lse = port_fa.flash_attention_reference(q, k, v, lengths, chunk,
+                                                                   return_lse=True)
+                assert torch.equal(port_fa.flash_attention(q, k, v, lengths, chunk), got)
+                for b, n in enumerate(lens):
+                    want_b = want[b, :, :n].float()
+                    err = (got[b, :, :n].float() - want_b).abs().max().item()
+                    tol = 1e-4 if dtype == torch.float32 else \
+                        2.0 ** -7 * want_b.abs().max().item()
+                    assert err <= tol, (t_len, dtype, chunk, err, tol)
+                    lse_err = (got_lse[b, :, :n] - want_lse[b, :, :n]).abs().max().item()
+                    assert lse_err <= 1e-5, (t_len, dtype, chunk, lse_err)
