@@ -7,8 +7,8 @@ Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
      print the build time, ptxas's register, spill and shared-memory lines,
-     and the count of ``HGMMA`` (wgmma) instructions in K1's bf16 library
-     (it fails at 0);
+     and the count of ``HGMMA`` (wgmma) instructions in the libraries of
+     K1's bf16 design and K2's prefill design (it fails at 0 in either);
   2. kernel checks against the plain PyTorch versions on the card: K1
      (flash-attention forward, O and LSE; bf16 on the tensor cores, fp32 on
      the FMA units) and K3/K4 (its backward), every row, at B=2 ragged
@@ -17,7 +17,9 @@ Phases (any failure ends the run with a non-zero exit code):
      int8 batch's B=8 (640 blocks, several waves), K1 ->
      K3/K4 also against the fully plain forward and backward; K2 (the int8
      matmul) at every (N, K) of the int8 LM, M 1 to 512, bf16 and fp32 x,
-     plus a ragged K;
+     plus a ragged K, and in bf16 at the edges of its wgmma design (M 9 to
+     512, N 128 and 6564, K 896 and 4864), each case with the design it
+     took (every bf16 case above 8 rows must take the wgmma one);
   3. reference checks on a small config, on the card (kernels included)
      against the plain CPU path with the same weights and draws: the TTS
      pipeline in fp32, unquantized and with ``lm_quant="int8"`` (then also
@@ -28,8 +30,11 @@ Phases (any failure ends the run with a non-zero exit code):
      and that each flow call launched K1 560 times; per-stage times;
   5. int8 path: the same with ``lm_quant="int8"``: 2 requests, then one
      ``tts_batch`` of 4 prompts; checks the audio, 168 + 169 x steps K2
-     launches per LM decode and 560 K1 launches per flow call; per-stage
-     times, RTF, and the int8-vs-bf16 logits on one packed prompt;
+     launches per LM decode and 560 K1 launches per flow call, and from
+     the record of each K2 launch that every prefill launch took the wgmma
+     design and every decode launch the FMA one; per-stage times, RTF, the
+     int8-vs-bf16 logits on one packed prompt, and ``lm_prefill`` alone at
+     one request's and the batch's prompt;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -38,18 +43,20 @@ Phases (any failure ends the run with a non-zero exit code):
   7. kernel timings at the shapes of the paths: K1 on all three (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one), K2 at every
-     (M, N, K) of the int8 path with its weights cold in L2 (beside its
-     plain version, ``torch._weight_int8pack_mm`` where the card's PyTorch
-     runs it, and ``F.linear`` on the bf16 weights).
+     (M, N, K) of the int8 path with its weights cold in L2 (its output
+     held against the plain one, with TFLOP/s and the share of the bound,
+     beside its plain version, ``torch._weight_int8pack_mm`` where the
+     card's PyTorch runs it, and ``F.linear`` on the bf16 weights), and
+     K2's time summed over one prefill beside ``lm_prefill``'s.
 The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
 are means per launch over the paths (each path's under ``by_path``, each
 design's under ``by_dtype``: bf16 on the TTS and int8 paths, fp32 on the
-training path), K2's
-over the int8 path's shapes (each under ``by_shape``, with
-``bf16_linear_ms``); K3's and K4's ``plain_ms`` time the plain dQ and dK/dV
-alone, their ``library_ms`` is null (no library call computes one of them
-alone), and ``backward_*ms`` time the whole backward as delta + K3 + K4,
-the plain version and SDPA's.  The last line is
+training path), K2's over the int8 path's shapes (each under ``by_shape``,
+with ``bf16_linear_ms``; each design's under ``by_design``: the wgmma one
+at prefill, the FMA one at decode); K3's and K4's ``plain_ms`` time the
+plain dQ and dK/dV alone, their ``library_ms`` is null (no library call
+computes one of them alone), and ``backward_*ms`` time the whole backward
+as delta + K3 + K4, the plain version and SDPA's.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
@@ -300,12 +307,50 @@ def _k2_shapes(cfg) -> list:
             (h, bb.intermediate_size, 1), (cfg.llm.full_vocab, h, 0)]
 
 
+# K2's tolerance: int8 x bf16 (or fp32) products are exact in fp32, so the
+# kernel and the plain version differ only in the order of the fp32 sums
+# over K (per k-step and K split in the wgmma design): 3e-5 x max|want|.
+K2_TOL = 3e-5
+
+# launches of K2 by (source, M) since a path cleared it, as seen at each launch
+K2_LAUNCHED: dict = {}
+
+
+def _record_k2_launches(i8) -> None:
+    """From now on, count in ``K2_LAUNCHED`` the source and M of each of
+    K2's launches, at the launch."""
+    launch = i8._launch
+
+    def recorded(source, x, w_q, y):
+        key = (source, x.shape[0])
+        K2_LAUNCHED[key] = K2_LAUNCHED.get(key, 0) + 1
+        return launch(source, x, w_q, y)
+
+    i8._launch = recorded
+
+
+def _k2_took(x, w_q):
+    """K2 on (x, w_q) and the source its one launch called, from the record."""
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
+
+    K2_LAUNCHED.clear()
+    y = i8.int8_matmul(x, w_q)
+    (source, _), = K2_LAUNCHED
+    return y, source
+
+
 @_uncounted
 def check_int8_matmul() -> float:
     """K2 against its plain version at every (N, K) of the full-width int8 LM
     and M 1, 3, 4, 17, 128, 512 (decode of 1 and 4 rows, ragged tiles,
-    prefill of 1 and 4 prompts), x in bf16 and fp32; then a ragged K (100)
-    on weights that start off a 16-byte boundary.  Returns the worst error."""
+    prefill of 1 and 4 prompts), x in bf16 and fp32; a ragged K (100) on
+    weights that start off a 16-byte boundary; and in bf16 the edges of the
+    wgmma design: M 9 (one past the decode tile), 64 (its 64-row tile), 130
+    and 257 (a few rows into the next 128-row tile), 512, at N 128 and 6564
+    (a ragged last channel tile) and K 896 and 4864 (1 to 19 K splits).
+    Each case prints the design it took; every bf16 case with M > 8 must
+    take the wgmma design, every other case the FMA one.  Returns the worst
+    error."""
     import torch
 
     from cosyvoice2_eu_torch.config import TTSConfig
@@ -315,33 +360,38 @@ def check_int8_matmul() -> float:
     resolve_device("cuda")  # the plain version's fp32 matmul without TF32
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
+    both = (torch.bfloat16, torch.float32)
     nk = dict.fromkeys((n, k) for n, k, _ in _k2_shapes(TTSConfig()))  # q and o share a shape
-    cases = [(n, k, m) for n, k in nk for m in (1, 3, 4, 17, 128, 512)]
-    cases += [(33, 100, 1), (33, 100, 5)]
+    cases = [(n, k, m, both) for n, k in nk for m in (1, 3, 4, 17, 128, 512)]
+    cases += [(33, 100, 1, both), (33, 100, 5, both)]
+    cases += [(n, k, m, (torch.bfloat16,)) for n in (128, 6564) for k in (896, 4864)
+              for m in (9, 64, 130, 257, 512)]
     worst = 0.0
-    for n, k, m in cases:
+    for n, k, m, dtypes in cases:
         w_q = torch.randint(-127, 128, (n * k + 1,), generator=gen, device="cuda",
                             dtype=torch.int8)
         # a ragged K also starts its weights one byte off a 16-byte boundary:
-        # the kernel's byte-load path
+        # the FMA design's byte-load path
         w_q = w_q[1:].view(n, k) if k % 16 else w_q[:-1].view(n, k)
         x32 = torch.randn((m, k), generator=gen, device="cuda")
-        for dtype in (torch.bfloat16, torch.float32):
+        for dtype in dtypes:
             x = x32.to(dtype)
-            got = i8.int8_matmul(x, w_q)
+            got, took = _k2_took(x, w_q)
             want = i8.int8_matmul_reference(x, w_q)
             torch.cuda.synchronize()
-            # int8 x bf16 (or fp32) products are exact in fp32: the two differ
-            # only in the order of the fp32 sums over K
             peak = want.abs().max().item()
             err = (got - want).abs().max().item()
-            tol = 3e-5 * peak
-            ok = got.shape == (m, n) and math.isfinite(err) and err <= tol
+            tol = K2_TOL * peak
+            expect = i8.SM90_SOURCE if dtype == torch.bfloat16 and m > i8.DECODE_ROWS \
+                and k % 16 == 0 else i8.SOURCE
+            ok = got.shape == (m, n) and math.isfinite(err) and err <= tol and took == expect
             print(f"K2 check M={m} N={n} K={k} x {str(dtype)[6:]}"
-                  f"{'' if w_q.data_ptr() % 16 == 0 else ' (weights off 16 B)'}: max_abs_err="
-                  f"{err:.3e} (tol {tol:.3e} = 3e-5 x max|want|) {'ok' if ok else 'FAIL'}")
+                  f"{'' if w_q.data_ptr() % 16 == 0 else ' (weights off 16 B)'} took {took}: "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e} = {K2_TOL:g} x max|want|) "
+                  f"{'ok' if ok else 'FAIL'}")
             if not ok:
-                raise SystemExit(f"K2 disagrees with its plain version at M={m} N={n} K={k}")
+                raise SystemExit(f"K2 failed its check at M={m} N={n} K={k} {dtype}: error "
+                                 f"{err:.3e} (tol {tol:.3e}), took {took}, expected {expect}")
             worst = max(worst, err)
     return worst
 
@@ -642,12 +692,69 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     return launches, shapes, flow_ms, model._model.params["llm"]
 
 
-def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
+def _k2_designs(prefill_rows: set, launches: int) -> str:
+    """The K2 designs the int8 path launched since ``K2_LAUNCHED`` was
+    cleared, as seen at each launch.  Raises unless every launch at a
+    prefill M took the wgmma design, every decode launch (M <= 8) the FMA
+    one, and the record holds all ``launches``."""
+    from cosyvoice2_eu_torch.ops import int8_matmul as i8
+
+    def expected(m):
+        if m in prefill_rows:
+            return i8.SM90_SOURCE
+        return i8.SOURCE if m <= i8.DECODE_ROWS else None
+
+    bad = {key: c for key, c in K2_LAUNCHED.items() if key[0] != expected(key[1])}
+    if bad or sum(K2_LAUNCHED.values()) != launches:
+        raise SystemExit(f"int8 path: K2 launches {dict(K2_LAUNCHED)} (of {launches}) took the "
+                         f"wrong design: {bad}")
+    return "; ".join(f"M={m}: {c} of {src}"
+                     for (src, m), c in sorted(K2_LAUNCHED.items(), key=lambda kv: kv[0][1]))
+
+
+@_uncounted
+def time_lm_prefill(tm, prompts: list, card: str) -> dict:
+    """The full-width int8 ``lm_prefill`` alone, synchronised on the host
+    clock, at one request's prompt (B=1) and the batch's (B=4), packed as
+    ``tts_batch`` packs them: the mean of 5 after one warm-up.  Returns ms
+    by M = B x prompt bucket."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.models.llm import lm_prefill
+
+    cfg = tm.cfg.llm
+    out = {}
+    for batch in (prompts[:1], prompts):
+        packs = [tm._pack_lm_prompt(p) for p in batch]
+        b, p_bucket = len(batch), max(pk[3] for pk in packs)
+        ids = np.zeros((b, p_bucket), np.int32)
+        src = np.zeros((b, p_bucket), np.int32)
+        for i, (pi, si, *_rest) in enumerate(packs):
+            ids[i, : pi.shape[1]], src[i, : si.shape[1]] = pi[0], si[0]
+        max_len = max(pk[5] for pk in packs)
+        max_gen = min(((max_len + 63) // 64) * 64, cfg.max_seq_len - p_bucket)
+        args = (tm._tensor(ids), tm._tensor(src), tm._tensor([pk[2] for pk in packs]))
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lm_prefill(tm.params["llm"], cfg, *args, max_gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out[b * p_bucket] = sum(times[1:]) / len(times[1:])
+        print(f"int8 lm_prefill alone B={b} P={p_bucket} (M={b * p_bucket}), max_gen {max_gen}: "
+              f"{out[b * p_bucket]:.3f} ms (mean of 5, synchronised; runs "
+              f"{', '.join(f'{x:.3f}' for x in times[1:])}) [{card}]")
+    return out
+
+
+def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
     """The int8 LM at full width: 2 zero-shot requests through ``Cosy2EU.tts``,
     then one ``tts_batch`` of 4 prompts with their own speakers.  Returns
     each LM decode's (batch, prompt bucket, steps), each flow call's (mel
-    bucket, valid mel frames per K1 row) and the launches of K1, K3, K4
-    and K2 over the path."""
+    bucket, valid mel frames per K1 row), the launches of K1, K3, K4 and K2
+    over the path, and ``lm_prefill``'s ms alone by M."""
     import numpy as np
     import torch
 
@@ -678,6 +785,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
     for f in _counters():
         f.launches = 0
     LAUNCHED.clear()
+    K2_LAUNCHED.clear()
 
     def run(what, call, inputs):
         """One call; checks K1 and K2 launches and prints per-stage times."""
@@ -718,11 +826,13 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
                for seed, text in enumerate(batch_texts)]
     run("int8 tts_batch", lambda: (tm.tts_batch(prompts), tm.last_batch_tokens), prompts)
     launches = [f.launches for f in _counters()]
+    k2_designs = _k2_designs({b * p for b, p, _ in decodes}, launches[3])
     print(f"int8 path: K1/K3/K4/K2 launches {launches} over {len(decodes)} LM decodes and flow "
-          f"calls (K1 {_k1_design()}); peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
+          f"calls (K1 {_k1_design()}; K2 by M, as recorded at each launch: {k2_designs}); peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}]")
     if launches[:3] != [k1_per_flow * len(decodes), 0, 0]:
         raise SystemExit("int8 path: K1/K3/K4 launches do not match its flow calls")
+    prefill_ms = time_lm_prefill(tm, prompts, card)
     # reported, not gating: the JAX package pins the band only on the tiny config
     ids, src, total, p_bucket, _, _ = tm._pack_lm_prompt(prompts[0])
     valid = torch.arange(p_bucket)[None] < total
@@ -732,7 +842,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list]:
           f"({total} positions), int8 vs bf16 weights: max|dlogit| / max|logit| {rel:.4f}, "
           f"argmax agreement {agree:.3f} (reported; the band is pinned on the small config) "
           f"[{card}]")
-    return decodes, shapes, launches
+    return decodes, shapes, launches, prefill_ms
 
 
 def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
@@ -1013,7 +1123,9 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
 
 def _time_k2(m: int, n: int, k: int, gen) -> dict:
     """K2, its plain version, ``torch._weight_int8pack_mm`` and ``F.linear``
-    on bf16 weights at one (M, N, K), x in bf16 (device ms per call).  Each
+    on bf16 weights at one (M, N, K), x in bf16 (device ms per call), after
+    K2's output at this shape is held against the plain one (``err``; a
+    disagreement ends the run) and the design it took noted.  Each
     call takes the next of enough weight copies to fill 100 MB, twice the
     L2, so the weights come from device memory as in the decode loop, where
     a token reads 363.7 MB of them.  The calls are captured in one CUDA
@@ -1030,7 +1142,15 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
     x = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
     scale = torch.rand((n,), generator=gen, device="cuda").to(torch.bfloat16)
 
-    out = dict(ms=_graph_ms(lambda i: i8.int8_matmul(x, w_q[i]), copies),
+    got, took = _k2_took(x, w_q[0])
+    want = i8.int8_matmul_reference(x, w_q[0])
+    err = (got - want).abs().max().item()
+    tol = K2_TOL * want.abs().max().item()
+    if not (math.isfinite(err) and err <= tol):
+        raise SystemExit(f"K2 disagrees with its plain version at the timed shape M={m} N={n} "
+                         f"K={k}: max_abs_err={err:.3e} (tol {tol:.3e})")
+    out = dict(err=err, source=took,
+               ms=_graph_ms(lambda i: i8.int8_matmul(x, w_q[i]), copies),
                plain_ms=_graph_ms(lambda i: i8.int8_matmul_reference(x, w_q[i]), copies))
     try:  # the library's int8 weight-only matmul (scaled), where this PyTorch runs it on CUDA
         torch._weight_int8pack_mm(x, w_q[0], scale)
@@ -1049,6 +1169,7 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
     out.update(ops_ms=ops / H100_BF16_FLOPS * 1e3, bytes_ms=nbytes / H100_BYTES * 1e3,
                gflop=ops / 1e9, mb=nbytes / 1e6)
     out["bound_ms"] = max(out["ops_ms"], out["bytes_ms"])
+    out.update(tflops=ops / out["ms"] * 1e-9, share=out["bound_ms"] / out["ms"])
     return out
 
 
@@ -1059,7 +1180,8 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
     ``decodes`` holds each LM decode's (batch, prompt bucket, steps): the
     prefill runs the 7 projections of each layer at M = batch x bucket, each
     decode step runs them and the speech head at M = batch.  Returns the
-    kernels line's mean per launch, with each shape's times under by_shape."""
+    kernels line's mean per launch, with each shape's times under by_shape
+    and each design's means per launch under by_design."""
     import torch
 
     from cosyvoice2_eu_torch.config import TTSConfig
@@ -1088,12 +1210,15 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
         r = _time_k2(m, n, k, gen)
         notes.add(r.pop("library_note"))
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
-        print(f"K2 timing M={m} N={n} K={k} x bf16, weights cold, {c} launches on the int8 path "
-              f"[{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} GB/s), plain "
+        vs = r["ms"] / r["bf16_linear_ms"]
+        print(f"K2 timing M={m} N={n} K={k} x bf16 ({r['source']}), weights cold, {c} launches "
+              f"on the int8 path [{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} "
+              f"GB/s, {r['tflops']:.1f} TFLOP/s, {100 * r['share']:.1f}% of the bound), plain "
               f"{r['plain_ms']:.4f} ms, _weight_int8pack_mm {lib}, bf16 F.linear "
-              f"{r['bf16_linear_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.3f} us by "
+              f"{r['bf16_linear_ms']:.4f} ms (K2 {'beats it' if vs < 1 else 'loses'}, "
+              f"{vs:.2f}x its time), bound {r['bound_ms'] * 1e3:.3f} us by "
               f"{'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'} ({r['gflop']:.3f} "
-              f"GFLOP, {r['mb']:.3f} MB)")
+              f"GFLOP, {r['mb']:.3f} MB); output vs plain max_abs_err {r['err']:.3e} ok")
         parts.append((c, dict(r, m=m, n=n, k=k)))
     notes.discard(None)
     if notes:  # the library call is not timed on every shape: no library time at all
@@ -1102,11 +1227,35 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
         for _, r in parts:
             r["library_ms"] = None
     out = _weighted(parts)
-    out["by_shape"] = [{"m": r["m"], "n": r["n"], "k": r["k"], "launches": c,
-                        **{key: r[key] for key in ("ms", "plain_ms", "library_ms",
-                                                   "bf16_linear_ms", "bound_ms")}}
-                       for c, r in parts]
+    keys = ("ms", "plain_ms", "library_ms", "bf16_linear_ms", "bound_ms")
+    out["by_shape"] = [{"m": r["m"], "n": r["n"], "k": r["k"], "source": r["source"],
+                        "launches": c, **{key: r[key] for key in keys}} for c, r in parts]
+    out["by_design"] = {}
+    for source in sorted({r["source"] for _, r in parts}):
+        mean = _weighted([(c, r) for c, r in parts if r["source"] == source])
+        out["by_design"][source] = {"source": f"cosyvoice2_eu_torch/csrc/{source}",
+                                    "launches": mean["launches"], "bound_by": mean["bound_by"],
+                                    **{key: mean[key] for key in keys}}
     return out
+
+
+def _print_prefill(by_shape: list, prefill_ms: dict, card: str) -> None:
+    """K2's time summed over the launches of one prefill (7 projections x
+    layers at M = B x prompt bucket), beside bf16 ``F.linear``'s and the
+    bound's on the same shapes and ``lm_prefill``'s time alone."""
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    n_layers = cfg.llm.backbone.num_layers
+    for m, lm_ms in sorted(prefill_ms.items()):
+        rows = {(r["n"], r["k"]): r for r in by_shape if r["m"] == m}
+        per = [(n_layers * c, rows[(n, k)]) for n, k, c in _k2_shapes(cfg) if c]
+        total = {key: sum(c * r[key] for c, r in per) for key in ("ms", "bf16_linear_ms",
+                                                                 "bound_ms")}
+        print(f"int8 prefill M={m}: K2 summed over its {sum(c for c, _ in per)} launches "
+              f"{total['ms']:.3f} ms (bf16 F.linear on the same shapes "
+              f"{total['bf16_linear_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms); lm_prefill "
+              f"alone {lm_ms:.3f} ms [{card}]")
 
 
 def _kernel_row(name: str, source: str, replaces: str, times: dict, **extra) -> dict:
@@ -1150,7 +1299,7 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     t0 = time.perf_counter()
-    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SOURCE)
+    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SM90_SOURCE, i8.SOURCE)
     cuda_build.build(sources)  # one nvcc per source, in parallel
     for src in sources:
         cuda_build.load_library(src)
@@ -1159,12 +1308,14 @@ def main() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {src}: {line.strip()}")
-    hgmma = _sass_count(cuda_build.library_path(fa.SM90_SOURCE), "HGMMA")
-    print(f"  {fa.SM90_SOURCE}: {hgmma} HGMMA (wgmma) instructions in its SASS "
-          f"{'ok' if hgmma else 'FAIL'}")
-    if not hgmma:
-        raise SystemExit(f"{fa.SM90_SOURCE} holds no wgmma instruction")
+    for src in (fa.SM90_SOURCE, i8.SM90_SOURCE):
+        hgmma = _sass_count(cuda_build.library_path(src), "HGMMA")
+        print(f"  {src}: {hgmma} HGMMA (wgmma) instructions in its SASS "
+              f"{'ok' if hgmma else 'FAIL'}")
+        if not hgmma:
+            raise SystemExit(f"{src} holds no wgmma instruction")
     _record_launches(fa)
+    _record_k2_launches(i8)
 
     worst = check_flash_attention()
     worst_dq, worst_dkv = check_flash_backward()
@@ -1175,7 +1326,7 @@ def main() -> None:
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
-    decodes, int8_shapes, int8_launches = int8_path(card, bf16_llm)
+    decodes, int8_shapes, int8_launches, prefill_ms = int8_path(card, bf16_llm)
     del bf16_llm
     steps, train_launches = train_path(card)
 
@@ -1187,9 +1338,11 @@ def main() -> None:
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
     k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
     k2_times = time_int8_matmul(decodes, int8_launches[3], card)
-    k2 = _kernel_row("int8_matmul", "int8_matmul.cu", "int8_matmul.py:31", k2_times,
-                     bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"])
+    k2 = _kernel_row("int8_matmul", i8.SOURCE, "int8_matmul.py:31", k2_times,
+                     bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
+                     by_design=k2_times["by_design"])
     k2["max_abs_err"] = worst_k2
+    _print_prefill(k2_times["by_shape"], prefill_ms, card)
     k1_train, k3, k4, step_kernel_ms = time_training_kernels(steps, train_launches[0], card)
     if [k3["launches"], k4["launches"]] != train_launches[1:3]:
         raise SystemExit("K3/K4 launches do not match the training path")

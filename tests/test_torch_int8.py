@@ -139,12 +139,18 @@ def test_int8_matmul_wrapper_checks_device():
 
 
 @pytest.mark.cuda
-def test_int8_matmul_kernel_matches_plain_on_card(cuda_device):
+def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, monkeypatch):
     """K2 against its plain version on the card, bf16 and fp32 x, ragged M,
-    N and K: fp32 sums of exact products in another order, 3e-5 x max|want|."""
+    N and K, both designs (bf16 above 8 rows on the wgmma one, with 4 and 19
+    K splits at (130, 896, 896) and (512, 128, 4864)): fp32 sums of exact
+    products in another order, 3e-5 x max|want|."""
+    took = []
+    launch = port_i8._launch
+    monkeypatch.setattr(port_i8, "_launch",
+                        lambda source, *args: took.append(source) or launch(source, *args))
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for m, n, k in [(1, 896, 896), (4, 128, 896), (17, 6564, 896), (3, 896, 4864),
-                    (5, 33, 100)]:
+                    (5, 33, 100), (130, 896, 896), (512, 128, 4864)]:
         w_q = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
                             dtype=torch.int8)
         for dtype in (torch.bfloat16, torch.float32):
@@ -154,6 +160,9 @@ def test_int8_matmul_kernel_matches_plain_on_card(cuda_device):
             want = port_i8.int8_matmul_reference(x, w_q)
             torch.cuda.synchronize()
             assert port_i8.int8_matmul.launches == before + 1
+            assert took[-1] == port_i8.design(dtype, m, k, True)
+            assert (took[-1] == port_i8.SM90_SOURCE) == (dtype == torch.bfloat16 and m > 8
+                                                         and k % 16 == 0)
             assert (got - want).abs().max().item() <= 3e-5 * want.abs().max().item()
 
 
