@@ -6,9 +6,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
-     print the build time, ptxas's register, spill and shared-memory lines,
-     and the count of ``HGMMA`` (wgmma) instructions in the libraries of
-     K1's bf16 design and K2's prefill design (it fails at 0 in either);
+     print the build time, ptxas's register, spill and shared-memory lines
+     (it fails on a spill in K2's decode design), and the count of
+     ``HGMMA`` (wgmma) instructions in the libraries of K1's bf16 design and
+     K2's prefill design (it fails at 0 in either);
   2. kernel checks against the plain PyTorch versions on the card: K1
      (flash-attention forward, O and LSE; bf16 on the tensor cores, fp32 on
      the FMA units) and K3/K4 (its backward), every row, at B=2 ragged
@@ -17,14 +18,17 @@ Phases (any failure ends the run with a non-zero exit code):
      int8 batch's B=8 (640 blocks, several waves), K1 ->
      K3/K4 also against the fully plain forward and backward; K2 (the int8
      matmul) at every (N, K) of the int8 LM, M 1 to 512, bf16 and fp32 x,
-     plus a ragged K, and in bf16 at the edges of its wgmma design (M 9 to
-     512, N 128 and 6564, K 896 and 4864), each case with the design it
-     took (every bf16 case above 8 rows must take the wgmma one);
+     plus a ragged K, in bf16 at the edges of its wgmma design (M 9 to 512,
+     N 128 and 6564, K 896 and 4864), and in bf16 and fp32 at the edges of
+     its decode design (M 1 to 8, N 33, 128 and 6564, K 16 to 8192: every
+     cluster size 1 to 8), each case with the design it took, which must
+     be the one ``design`` names; two launches of the decode design on the
+     same inputs must be bit-equal;
   3. reference checks on a small config, on the card (kernels included)
      against the plain CPU path with the same weights and draws: the TTS
-     pipeline in fp32, unquantized and with ``lm_quant="int8"`` (then also
-     equal int8 codes, K2's launch count and the int8-vs-fp32 logits
-     band), and one flow train step;
+     pipeline in fp32, unquantized and with ``lm_quant="int8"`` (its decode
+     on K2's decode design in fp32; then also equal int8 codes, K2's launch
+     count and the int8-vs-fp32 logits band), and one flow train step;
   4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
      published widths (random weights) answers 3 requests; checks the audio
      and that each flow call launched K1 560 times; per-stage times;
@@ -32,7 +36,7 @@ Phases (any failure ends the run with a non-zero exit code):
      ``tts_batch`` of 4 prompts; checks the audio, 168 + 169 x steps K2
      launches per LM decode and 560 K1 launches per flow call, and from
      the record of each K2 launch that every prefill launch took the wgmma
-     design and every decode launch the FMA one; per-stage times, RTF, the
+     design and every decode launch the decode one; per-stage times, RTF, the
      int8-vs-bf16 logits on one packed prompt, and ``lm_prefill`` alone at
      one request's and the batch's prompt;
   6. training path: 8 flow-matching steps at the published widths through
@@ -46,17 +50,21 @@ Phases (any failure ends the run with a non-zero exit code):
      (M, N, K) of the int8 path with its weights cold in L2 (its output
      held against the plain one, with TFLOP/s and the share of the bound,
      beside its plain version, ``torch._weight_int8pack_mm`` where the
-     card's PyTorch runs it, and ``F.linear`` on the bf16 weights), and
-     K2's time summed over one prefill beside ``lm_prefill``'s.
+     card's PyTorch runs it, ``F.linear`` on the bf16 weights and, at the
+     decode shapes, the FMA design ``int8_matmul.cu`` that served them
+     before), K2's time summed over one prefill beside ``lm_prefill``'s,
+     and summed over one decode step at M = 1 and 4 beside the FMA
+     design's, ``F.linear``'s and the bound.
 The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
 are means per launch over the paths (each path's under ``by_path``, each
 design's under ``by_dtype``: bf16 on the TTS and int8 paths, fp32 on the
 training path), K2's over the int8 path's shapes (each under ``by_shape``,
-with ``bf16_linear_ms``; each design's under ``by_design``: the wgmma one
-at prefill, the FMA one at decode); K3's and K4's ``plain_ms`` time the
-plain dQ and dK/dV alone, their ``library_ms`` is null (no library call
-computes one of them alone), and ``backward_*ms`` time the whole backward
-as delta + K3 + K4, the plain version and SDPA's.  The last line is
+with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
+``by_design``: the wgmma one at prefill, the decode one at decode); K3's
+and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
+``library_ms`` is null (no library call computes one of them alone), and
+``backward_*ms`` time the whole backward as delta + K3 + K4, the plain
+version and SDPA's.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
@@ -68,6 +76,7 @@ import functools
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -344,13 +353,18 @@ def check_int8_matmul() -> float:
     """K2 against its plain version at every (N, K) of the full-width int8 LM
     and M 1, 3, 4, 17, 128, 512 (decode of 1 and 4 rows, ragged tiles,
     prefill of 1 and 4 prompts), x in bf16 and fp32; a ragged K (100) on
-    weights that start off a 16-byte boundary; and in bf16 the edges of the
+    weights that start off a 16-byte boundary; in bf16 the edges of the
     wgmma design: M 9 (one past the decode tile), 64 (its 64-row tile), 130
     and 257 (a few rows into the next 128-row tile), 512, at N 128 and 6564
-    (a ragged last channel tile) and K 896 and 4864 (1 to 19 K splits).
-    Each case prints the design it took; every bf16 case with M > 8 must
-    take the wgmma design, every other case the FMA one.  Returns the worst
-    error."""
+    (a ragged last channel tile) and K 896 and 4864 (1 to 19 K splits); and
+    in bf16 and fp32 the edges of the decode design: M 1 to 8 (every row
+    tile), N 33, 128 and 6564 (ragged channel groups of 8 and 16), K 16, 64,
+    896, 2048, 4864 and 8192 (clusters of 1, 2, 4 and 8 blocks, runs of one
+    group to 4096 K, rings of 1 to 4 stages refilled).
+    Each case prints the design it took, which must be the one ``design``
+    names: M <= 8 the decode design, bf16 above 8 rows the wgmma one, the
+    rest the FMA one.  Every decode case launches twice and the two outputs
+    must be bit-equal (no atomics).  Returns the worst error."""
     import torch
 
     from cosyvoice2_eu_torch.config import TTSConfig
@@ -366,6 +380,11 @@ def check_int8_matmul() -> float:
     cases += [(33, 100, 1, both), (33, 100, 5, both)]
     cases += [(n, k, m, (torch.bfloat16,)) for n in (128, 6564) for k in (896, 4864)
               for m in (9, 64, 130, 257, 512)]
+    cases += [(n, k, m, both) for n in (33, 128, 6564) for k in (16, 64, 896, 2048, 4864, 8192)
+              for m in range(1, i8.DECODE_ROWS + 1)]
+    clusters = {i8.decode_config(m, n, k)[1] for n, k, m, _ in cases if m <= i8.DECODE_ROWS}
+    if clusters != {1, 2, 4, 8}:
+        raise SystemExit(f"the K2 checks reach clusters {sorted(clusters)}, not 1, 2, 4 and 8")
     worst = 0.0
     for n, k, m, dtypes in cases:
         w_q = torch.randint(-127, 128, (n * k + 1,), generator=gen, device="cuda",
@@ -382,16 +401,21 @@ def check_int8_matmul() -> float:
             peak = want.abs().max().item()
             err = (got - want).abs().max().item()
             tol = K2_TOL * peak
-            expect = i8.SM90_SOURCE if dtype == torch.bfloat16 and m > i8.DECODE_ROWS \
-                and k % 16 == 0 else i8.SOURCE
-            ok = got.shape == (m, n) and math.isfinite(err) and err <= tol and took == expect
+            expect = i8.design(dtype, m, k, x.data_ptr() % 16 == 0 and w_q.data_ptr() % 16 == 0)
+            same, again = "", True
+            if took == i8.DECODE_SOURCE:  # a second launch: the same bits
+                again = torch.equal(_k2_took(x, w_q)[0], got)
+                same = f", C={i8.decode_config(m, n, k)[1]}, a second launch bit-equal: {again}"
+            ok = (got.shape == (m, n) and math.isfinite(err) and err <= tol and took == expect
+                  and again)
             print(f"K2 check M={m} N={n} K={k} x {str(dtype)[6:]}"
                   f"{'' if w_q.data_ptr() % 16 == 0 else ' (weights off 16 B)'} took {took}: "
-                  f"max_abs_err={err:.3e} (tol {tol:.3e} = {K2_TOL:g} x max|want|) "
+                  f"max_abs_err={err:.3e} (tol {tol:.3e} = {K2_TOL:g} x max|want|){same} "
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 raise SystemExit(f"K2 failed its check at M={m} N={n} K={k} {dtype}: error "
-                                 f"{err:.3e} (tol {tol:.3e}), took {took}, expected {expect}")
+                                 f"{err:.3e} (tol {tol:.3e}), took {took}, expected {expect}"
+                                 f"{same}")
             worst = max(worst, err)
     return worst
 
@@ -695,14 +719,14 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
 def _k2_designs(prefill_rows: set, launches: int) -> str:
     """The K2 designs the int8 path launched since ``K2_LAUNCHED`` was
     cleared, as seen at each launch.  Raises unless every launch at a
-    prefill M took the wgmma design, every decode launch (M <= 8) the FMA
+    prefill M took the wgmma design, every decode launch (M <= 8) the decode
     one, and the record holds all ``launches``."""
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     def expected(m):
         if m in prefill_rows:
             return i8.SM90_SOURCE
-        return i8.SOURCE if m <= i8.DECODE_ROWS else None
+        return i8.DECODE_SOURCE if m <= i8.DECODE_ROWS else None
 
     bad = {key: c for key, c in K2_LAUNCHED.items() if key[0] != expected(key[1])}
     if bad or sum(K2_LAUNCHED.values()) != launches:
@@ -1125,7 +1149,10 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
     """K2, its plain version, ``torch._weight_int8pack_mm`` and ``F.linear``
     on bf16 weights at one (M, N, K), x in bf16 (device ms per call), after
     K2's output at this shape is held against the plain one (``err``; a
-    disagreement ends the run) and the design it took noted.  Each
+    disagreement ends the run) and the design it took noted.  At a decode
+    shape (M <= 8) also the FMA design ``int8_matmul.cu``, which served
+    decode before the decode design, launched directly (``fma_ms``; None
+    elsewhere), after its output is held to the same tolerance.  Each
     call takes the next of enough weight copies to fill 100 MB, twice the
     L2, so the weights come from device memory as in the decode loop, where
     a token reads 363.7 MB of them.  The calls are captured in one CUDA
@@ -1151,7 +1178,14 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
                          f"K={k}: max_abs_err={err:.3e} (tol {tol:.3e})")
     out = dict(err=err, source=took,
                ms=_graph_ms(lambda i: i8.int8_matmul(x, w_q[i]), copies),
-               plain_ms=_graph_ms(lambda i: i8.int8_matmul_reference(x, w_q[i]), copies))
+               plain_ms=_graph_ms(lambda i: i8.int8_matmul_reference(x, w_q[i]), copies),
+               fma_ms=None)
+    if m <= i8.DECODE_ROWS:  # the design decode took before, on the same inputs
+        y = torch.empty((m, n), dtype=torch.float32, device="cuda")
+        fma_err = (i8._launch(i8.SOURCE, x, w_q[0], y), (y - want).abs().max().item())
+        if fma_err[0] != 0 or not fma_err[1] <= tol:
+            raise SystemExit(f"K2's FMA design fails at M={m} N={n} K={k}: {fma_err}")
+        out["fma_ms"] = _graph_ms(lambda i: i8._launch(i8.SOURCE, x, w_q[i], y), copies)
     try:  # the library's int8 weight-only matmul (scaled), where this PyTorch runs it on CUDA
         torch._weight_int8pack_mm(x, w_q[0], scale)
         torch.cuda.synchronize()
@@ -1210,11 +1244,13 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
         r = _time_k2(m, n, k, gen)
         notes.add(r.pop("library_note"))
         lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
+        fma = "" if r["fma_ms"] is None else (
+            f"FMA design {r['fma_ms']:.4f} ms (K2 {r['fma_ms'] / r['ms']:.2f}x faster), ")
         vs = r["ms"] / r["bf16_linear_ms"]
         print(f"K2 timing M={m} N={n} K={k} x bf16 ({r['source']}), weights cold, {c} launches "
               f"on the int8 path [{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} "
               f"GB/s, {r['tflops']:.1f} TFLOP/s, {100 * r['share']:.1f}% of the bound), plain "
-              f"{r['plain_ms']:.4f} ms, _weight_int8pack_mm {lib}, bf16 F.linear "
+              f"{r['plain_ms']:.4f} ms, {fma}_weight_int8pack_mm {lib}, bf16 F.linear "
               f"{r['bf16_linear_ms']:.4f} ms (K2 {'beats it' if vs < 1 else 'loses'}, "
               f"{vs:.2f}x its time), bound {r['bound_ms'] * 1e3:.3f} us by "
               f"{'operations' if r['ops_ms'] >= r['bytes_ms'] else 'bytes'} ({r['gflop']:.3f} "
@@ -1226,13 +1262,15 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
               f"{'; '.join(sorted(notes))}")
         for _, r in parts:
             r["library_ms"] = None
-    out = _weighted(parts)
+    out = _weighted([(c, {key: v for key, v in r.items() if key != "fma_ms"}) for c, r in parts])
     keys = ("ms", "plain_ms", "library_ms", "bf16_linear_ms", "bound_ms")
     out["by_shape"] = [{"m": r["m"], "n": r["n"], "k": r["k"], "source": r["source"],
-                        "launches": c, **{key: r[key] for key in keys}} for c, r in parts]
+                        "launches": c, **{key: r[key] for key in keys + ("fma_ms",)}}
+                       for c, r in parts]
     out["by_design"] = {}
     for source in sorted({r["source"] for _, r in parts}):
-        mean = _weighted([(c, r) for c, r in parts if r["source"] == source])
+        mean = _weighted([(c, {key: v for key, v in r.items() if key != "fma_ms"})
+                          for c, r in parts if r["source"] == source])
         out["by_design"][source] = {"source": f"cosyvoice2_eu_torch/csrc/{source}",
                                     "launches": mean["launches"], "bound_by": mean["bound_by"],
                                     **{key: mean[key] for key in keys}}
@@ -1256,6 +1294,25 @@ def _print_prefill(by_shape: list, prefill_ms: dict, card: str) -> None:
               f"{total['ms']:.3f} ms (bf16 F.linear on the same shapes "
               f"{total['bf16_linear_ms']:.3f} ms, bound {total['bound_ms']:.4f} ms); lm_prefill "
               f"alone {lm_ms:.3f} ms [{card}]")
+
+
+def _print_decode_step(by_shape: list, card: str) -> None:
+    """K2's time summed over the launches of one decode step (7 projections
+    x layers and the speech head at M = 1 and 4), beside the FMA design's,
+    bf16 ``F.linear``'s and the bound's on the same shapes."""
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    n_layers = cfg.llm.backbone.num_layers
+    for m in sorted({r["m"] for r in by_shape if r["fma_ms"] is not None}):
+        rows = {(r["n"], r["k"]): r for r in by_shape if r["m"] == m}
+        per = [(n_layers * c if c else 1, rows[(n, k)]) for n, k, c in _k2_shapes(cfg)]
+        total = {key: sum(c * r[key] for c, r in per)
+                 for key in ("ms", "fma_ms", "bf16_linear_ms", "bound_ms")}
+        print(f"int8 decode step M={m}: K2 summed over its {sum(c for c, _ in per)} launches "
+              f"{total['ms']:.4f} ms (FMA design {total['fma_ms']:.4f} ms, bf16 F.linear on the "
+              f"same shapes {total['bf16_linear_ms']:.4f} ms, bound {total['bound_ms']:.4f} ms) "
+              f"[{card}]")
 
 
 def _kernel_row(name: str, source: str, replaces: str, times: dict, **extra) -> dict:
@@ -1299,7 +1356,8 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     t0 = time.perf_counter()
-    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SM90_SOURCE, i8.SOURCE)
+    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SM90_SOURCE, i8.DECODE_SOURCE,
+               i8.SOURCE)
     cuda_build.build(sources)  # one nvcc per source, in parallel
     for src in sources:
         cuda_build.load_library(src)
@@ -1308,6 +1366,12 @@ def main() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {src}: {line.strip()}")
+    spills = [line.strip() for line in cuda_build.build_logs[i8.DECODE_SOURCE].splitlines()
+              if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
+    print(f"  {i8.DECODE_SOURCE}: no spills in any of its kernels: {not spills} "
+          f"{'ok' if not spills else 'FAIL'}")
+    if spills:
+        raise SystemExit(f"{i8.DECODE_SOURCE} spills: {spills}")
     for src in (fa.SM90_SOURCE, i8.SM90_SOURCE):
         hgmma = _sass_count(cuda_build.library_path(src), "HGMMA")
         print(f"  {src}: {hgmma} HGMMA (wgmma) instructions in its SASS "
@@ -1338,11 +1402,12 @@ def main() -> None:
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
     k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
     k2_times = time_int8_matmul(decodes, int8_launches[3], card)
-    k2 = _kernel_row("int8_matmul", i8.SOURCE, "int8_matmul.py:31", k2_times,
+    k2 = _kernel_row("int8_matmul", i8.DECODE_SOURCE, "int8_matmul.py:31", k2_times,
                      bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
                      by_design=k2_times["by_design"])
     k2["max_abs_err"] = worst_k2
     _print_prefill(k2_times["by_shape"], prefill_ms, card)
+    _print_decode_step(k2_times["by_shape"], card)
     k1_train, k3, k4, step_kernel_ms = time_training_kernels(steps, train_launches[0], card)
     if [k3["launches"], k4["launches"]] != train_launches[1:3]:
         raise SystemExit("K3/K4 launches do not match the training path")

@@ -12,25 +12,30 @@
 // TPU kernel it takes any K: a ragged K tail (like ragged M and N) is masked
 // inside.
 //
-// What bounds it on the H100: the LM's decode runs it at M = 1 (one request)
-// or M = 4 (a batch of four).  It reads N*K int8 bytes and does 2*M*N*K
-// operations, far below the ~295 operations per byte where the tensor cores
-// would become the limit, so the bytes bound it: the 363.7 MB of int8
-// projections of one decode token at 3.35 TB/s take 0.109 ms, 0.03-1.8 us per
-// launch.  Only at prefill M (128-512) do the operations come near the bytes.
+// What it serves: ops/int8_matmul.py::design sends it what the other two
+// designs cannot take: K not a multiple of 16 (no bulk copy or TMA of such
+// rows), x or w_q off a 16-byte boundary, float32 x above 8 rows (the wgmma
+// design takes bf16 only: TF32 would round x), and decode K past what 8
+// cluster ranks hold in shared memory (32768).  The LM's decode (M <= 8) goes
+// to int8_matmul_decode_sm90.cu (bulk copies into a shared-memory ring,
+// split-K across a thread-block cluster), its bf16 prefill to
+// int8_matmul_sm90.cu (wgmma).  chip_smoke.py still times this design at
+// the decode shapes beside the decode one.
 //
-// What the design does about it: it streams the weights at 16 bytes a lane.
-// One 128-thread block owns BN = 8 output channels (4 warps x 2 channels) and
-// a tile of BM rows (1 at M = 1, 4 at M <= 4, else 8); the grid is
-// (cdiv(N, 8), cdiv(M, BM)), so N = 896 already spreads over 112 blocks.  Per
-// K-chunk of 1024 each lane first starts its weight loads (2 channels x 2
-// groups of 16 int8, neighbouring lanes on neighbouring addresses), then the
-// block stages x as fp32 in shared memory, laid out so that the warp's
-// 16-byte reads of it are conflict-free.  Each lane converts its int8 with a
-// byte permute and one fp32 subtraction, FMAs them against the staged rows,
-// and the warp reduces its sums with shuffles.  At prefill M every row tile
-// reads the weights again, from L2.  Tensor cores, TMA, split-K for the
-// narrow N = 128 projections and a fused scale and bias are not used yet.
+// What bounds it: at M <= 8 the bytes (N*K int8 read once, far below the
+// ~295 operations a byte where the tensor cores would be the limit); at
+// larger M every 8-row tile reads the weights again, from L2.
+//
+// The design: it streams the weights at 16 bytes a lane.  One 128-thread
+// block owns BN = 8 output channels (4 warps x 2 channels) and a tile of BM
+// rows (1 at M = 1, 4 at M <= 4, else 8); the grid is (cdiv(N, 8),
+// cdiv(M, BM)).  Per K-chunk of 1024 each lane first starts its weight loads
+// (2 channels x 2 groups of 16 int8, neighbouring lanes on neighbouring
+// addresses), then the block stages x as fp32 in shared memory, laid out so
+// that the warp's 16-byte reads of it are conflict-free.  Each lane converts
+// its int8 with a byte permute and one fp32 subtraction, FMAs them against
+// the staged rows, and the warp reduces its sums with shuffles.  A ragged K
+// tail and unaligned weights go through byte loads.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>

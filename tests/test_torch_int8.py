@@ -141,16 +141,22 @@ def test_int8_matmul_wrapper_checks_device():
 @pytest.mark.cuda
 def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, monkeypatch):
     """K2 against its plain version on the card, bf16 and fp32 x, ragged M,
-    N and K, both designs (bf16 above 8 rows on the wgmma one, with 4 and 19
-    K splits at (130, 896, 896) and (512, 128, 4864)): fp32 sums of exact
-    products in another order, 3e-5 x max|want|."""
+    N and K, all three designs as ``design`` routes them (M <= 8 on the
+    decode one: 16 channels a block at (4, 6564, 896), 8 elsewhere, and
+    clusters of 1, 2, 4 and 8 blocks at (8, 128, 896), (1, 896, 4864),
+    (4, 128, 4864) and (2, 33, 8192); bf16 above 8 rows on the wgmma one,
+    with 4 and 19 K splits at (130, 896, 896) and (512, 128, 4864); the
+    rest on the FMA one): fp32 sums of exact products in another order,
+    3e-5 x max|want|.  Two launches of the decode design on the same inputs
+    are bit-equal."""
     took = []
     launch = port_i8._launch
     monkeypatch.setattr(port_i8, "_launch",
                         lambda source, *args: took.append(source) or launch(source, *args))
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for m, n, k in [(1, 896, 896), (4, 128, 896), (17, 6564, 896), (3, 896, 4864),
-                    (5, 33, 100), (130, 896, 896), (512, 128, 4864)]:
+                    (5, 33, 100), (130, 896, 896), (512, 128, 4864), (1, 896, 4864),
+                    (4, 6564, 896), (8, 128, 896), (4, 128, 4864), (2, 33, 8192)]:
         w_q = torch.randint(-127, 128, (n, k), generator=gen, device=cuda_device,
                             dtype=torch.int8)
         for dtype in (torch.bfloat16, torch.float32):
@@ -161,9 +167,12 @@ def test_int8_matmul_kernel_matches_plain_on_card(cuda_device, monkeypatch):
             torch.cuda.synchronize()
             assert port_i8.int8_matmul.launches == before + 1
             assert took[-1] == port_i8.design(dtype, m, k, True)
-            assert (took[-1] == port_i8.SM90_SOURCE) == (dtype == torch.bfloat16 and m > 8
-                                                         and k % 16 == 0)
+            expect = (port_i8.SOURCE if k % 16 else port_i8.DECODE_SOURCE if m <= 8
+                      else port_i8.SM90_SOURCE if dtype == torch.bfloat16 else port_i8.SOURCE)
+            assert took[-1] == expect
             assert (got - want).abs().max().item() <= 3e-5 * want.abs().max().item()
+            if took[-1] == port_i8.DECODE_SOURCE:
+                assert torch.equal(port_i8.int8_matmul(x, w_q), got)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """K2's tensor-core design (``csrc/int8_matmul_sm90.cu``) on the CPU: the
-routing between K2's two designs, the kernel's int8 -> bf16 conversion over
+routing between K2's designs, the kernel's int8 -> bf16 conversion over
 all 256 codes, the K splits, and a torch emulation of the kernel's
 arithmetic held against the Pallas kernel in interpret mode within the
 tolerance ``chip_smoke.py`` holds the card's kernel to (3e-5 x max|want|).
@@ -20,7 +20,7 @@ from torch_parity import t
 from cosyvoice2_eu_torch.ops import int8_matmul as port_i8
 from cosyvoice2_eu_tpu.ops.pallas.int8_matmul import int8_matmul as jax_int8_matmul
 
-SM90, FMA = port_i8.SM90_SOURCE, port_i8.SOURCE
+SM90, FMA, DECODE = port_i8.SM90_SOURCE, port_i8.SOURCE, port_i8.DECODE_SOURCE
 
 
 @pytest.mark.parametrize("dtype,m,k,aligned,want", [
@@ -28,9 +28,9 @@ SM90, FMA = port_i8.SM90_SOURCE, port_i8.SOURCE
     (torch.bfloat16, 512, 4864, True, SM90),   # a batch of four, the down projection
     (torch.bfloat16, 9, 896, True, SM90),      # one row past the decode tile
     (torch.bfloat16, 80, 80, True, SM90),      # K % 64 != 0 but K % 16 == 0: TMA pads with zeros
-    (torch.bfloat16, 8, 896, True, FMA),       # the decode tile
-    (torch.bfloat16, 1, 4864, True, FMA),      # decode of one request
-    (torch.bfloat16, 4, 896, True, FMA),       # decode of a batch of four
+    (torch.bfloat16, 8, 896, True, DECODE),    # the decode tile
+    (torch.bfloat16, 1, 4864, True, DECODE),   # decode of one request
+    (torch.bfloat16, 4, 896, True, DECODE),    # decode of a batch of four
     (torch.float32, 128, 896, True, FMA),      # fp32 x: exact fp32 products, no TF32
     (torch.float32, 512, 4864, True, FMA),
     (torch.bfloat16, 128, 100, True, FMA),     # ragged K: the byte-load path
