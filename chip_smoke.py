@@ -7,15 +7,19 @@ Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
      print the build time, ptxas's register, spill and shared-memory lines
-     (it fails on a spill in K2's decode design), and the count of
-     ``HGMMA`` (wgmma) instructions in the libraries of K1's bf16 design and
-     K2's prefill design (it fails at 0 in either);
+     (it fails on a spill in K2's decode design or in K3/K4's source), the
+     count of ``HGMMA`` (wgmma) instructions in the libraries of K1's bf16
+     design and K2's prefill design (it fails at 0 in either), and the
+     blocks of K3 and K4 resident on an SM (it fails below 2) with the waves
+     of their grids at the training path's two batches;
   2. kernel checks against the plain PyTorch versions on the card: K1
      (flash-attention forward, O and LSE; bf16 on the tensor cores, fp32 on
-     the FMA units) and K3/K4 (its backward), every row, at B=2 ragged
-     shapes and the training path's two batches, bf16 K1 also at the edges
-     of its 128-row tiles (T 1 to 200), with a row of length 0 and at the
-     int8 batch's B=8 (640 blocks, several waves), K1 ->
+     the FMA units) and K3/K4 (its backward, 3xTF32 on the tensor cores),
+     every row, at B=2 ragged shapes and the training path's two batches,
+     bf16 K1 also at the edges of its 128-row tiles (T 1 to 200), with a row
+     of length 0 and at the int8 batch's B=8 (640 blocks, several waves),
+     K3/K4 also at the edges of their 64-row tiles (T 1 to 129, and a row of
+     length 0) with a second launch that must be bit-equal, K1 ->
      K3/K4 also against the fully plain forward and backward; K2 (the int8
      matmul) at every (N, K) of the int8 LM, M 1 to 512, bf16 and fp32 x,
      plus a ragged K, in bf16 at the edges of its wgmma design (M 9 to 512,
@@ -46,7 +50,10 @@ Phases (any failure ends the run with a non-zero exit code):
      per step, and a bit-exact checkpoint round trip; per-step times;
   7. kernel timings at the shapes of the paths: K1 on all three (with
      TFLOP/s on the visible pairs and the share of the bound, and its
-     output at each timed shape held against the plain one), K2 at every
+     output at each timed shape held against the plain one), K3 and K4 at
+     the training path's shapes (CUDA-graph replay, eager beside it), with
+     the bound of fp32 work in 3xTF32 (three TF32 products at the tensor
+     cores' 495 TFLOP/s) and the fp32 FMA units' bound beside it, K2 at every
      (M, N, K) of the int8 path with its weights cold in L2 (its output
      held against the plain one, with TFLOP/s and the share of the bound,
      beside its plain version, ``torch._weight_int8pack_mm`` where the
@@ -64,7 +71,8 @@ with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
 ``library_ms`` is null (no library call computes one of them alone), and
 ``backward_*ms`` time the whole backward as delta + K3 + K4, the plain
-version and SDPA's.  The last line is
+version and SDPA's; ``fma_bound_ms`` beside K1's and K3/K4's ``bound_ms``
+is the bound on the FMA units.  The last line is
 ``{"ok": true, "device": {...}}``.  The script imports neither JAX nor the
 JAX package.
 """
@@ -85,9 +93,14 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 H100_BF16_FLOPS = 989e12  # dense tensor-core peak, H100 SXM data sheet
+H100_TF32_FLOPS = 495e12  # dense TF32 tensor-core peak, H100 SXM data sheet
 H100_FP32_FLOPS = 67e12   # fp32 outside the tensor cores (FMA), H100 SXM data sheet
 H100_BYTES = 3.35e12      # HBM3 bandwidth
-PEAKS = {"torch.float32": H100_FP32_FLOPS, "torch.bfloat16": H100_BF16_FLOPS}
+# The least time for one input type's work at its accuracy: bf16 on the tensor
+# cores; fp32 in 3xTF32 (three TF32 products per fp32-accurate product), the
+# fastest fp32-accurate way on this card.  The fp32 FMA units' bound
+# (H100_FP32_FLOPS) is printed beside it.
+PEAKS = {"torch.float32": H100_TF32_FLOPS / 3, "torch.bfloat16": H100_BF16_FLOPS}
 
 
 def _counters() -> tuple:
@@ -233,17 +246,55 @@ def check_flash_attention() -> float:
     return worst
 
 
+def bwd_occupancy() -> None:
+    """Blocks of K3 and K4 resident on one SM (CUDA's occupancy calculator on
+    the built kernels), which must be at least 2, and the waves of their
+    grids (one block per 64-row tile and b*h) at the training path's two
+    batches."""
+    import ctypes
+
+    import torch
+
+    from cosyvoice2_eu_torch.ops import cuda_build
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    fn = cuda_build.load_library(fa.BWD_SOURCE).cosy_flash_attention_bwd_occupancy
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for which, name in ((0, "K3"), (1, "K4")):
+        per_sm = {}
+        for dtype, code in (("fp32", 0), ("bf16", 1)):
+            n = ctypes.c_int(0)
+            err = fn(which, code, ctypes.byref(n))
+            if err:
+                raise SystemExit(f"{name}: occupancy query failed: CUDA error {err}")
+            per_sm[dtype] = n.value
+        waves = [f"lengths={lens}: {len(lens) * 8 * -(-max(lens) // 64)} blocks, "
+                 f"{len(lens) * 8 * -(-max(lens) // 64) / (per_sm['fp32'] * sms):.2f} waves"
+                 for lens in TRAIN_SHAPES]
+        ok = min(per_sm.values()) >= 2
+        print(f"  {fa.BWD_SOURCE} {name}: {per_sm['fp32']} blocks an SM in fp32, "
+              f"{per_sm['bf16']} in bf16, x {sms} SMs; {'; '.join(waves)} "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"{name}: fewer than 2 blocks fit on an SM")
+
+
 @_uncounted
 def check_flash_backward() -> tuple[float, float]:
     """K3 and K4 against their plain version: B=2 ragged at T from 128 to
-    2048 and the training path's two batches exactly; fp32 and bf16, chunk 0
-    and 50.  dQ is compared on every query row (pad rows included), dK/dV on
-    every key, and dK/dV must be exactly 0 on keys at or past length[b].
-    Two comparisons per case: both sides take K1's O and LSE (K3 and K4
-    alone), and, in fp32, the port's chain (K1, delta, K3, K4) against the
-    fully plain chain (the plain forward's O and LSE into the plain
-    backward).  Returns the worst dQ and dK/dV errors of the first.  Also:
-    the forward under autograd equals the inference launch."""
+    2048, the training path's two batches exactly, and the edges of the
+    kernels' 64-row tiles (T 1 to 129, and a row of length 0); fp32 and bf16,
+    chunk 0 and 50.  dQ is compared on every query row (pad rows included),
+    dK/dV on every key, and dK/dV must be exactly 0 on keys at or past
+    length[b].  Two comparisons per case: both sides take K1's O and LSE (K3
+    and K4 alone), and, in fp32, the port's chain (K1, delta, K3, K4) against
+    the fully plain chain (the plain forward's O and LSE into the plain
+    backward).  A second launch of K3 and of K4 on the same inputs must be
+    bit-equal to the first.  Returns the worst dQ and dK/dV errors of the
+    first comparison.  Also: the forward under autograd equals the inference
+    launch."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
@@ -255,15 +306,26 @@ def check_flash_backward() -> tuple[float, float]:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
     worst = {"dq": 0.0, "dkv": 0.0}
-    for lens in _check_cases((128, 384, 740, 1480, 2048)):
+    both = (torch.float32, torch.bfloat16)
+    cases = [(lens, both) for lens in _check_cases((128, 384, 740, 1480, 2048))]
+    # the edges of the 64-row tiles; at T = 1 the one visible key makes dQ and
+    # dK zero up to rounding, which a tolerance relative to bf16's largest
+    # output cannot hold, so that case runs in fp32 only
+    cases += [([1, 0], both[:1])]
+    cases += [([t, (3 * t) // 5], both) for t in (63, 64, 65, 127, 129)] + [([200, 0], both)]
+    for lens, dtypes in cases:
         b, t = len(lens), max(lens)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
             for chunk in (0, 50):
                 o, lse = fa.flash_attention(q, k, v, lengths, chunk, return_lse=True)
                 got = fa.flash_attention_bwd(q, k, v, o, lse, do, lengths, chunk)
+                # K3 and K4 again on the same inputs: each block owns its outputs
+                delta = (do.float() * o.float()).sum(-1)
+                again = (fa.flash_attention_dq(q, k, v, do, lse, delta, lengths, chunk),
+                         *fa.flash_attention_dkv(q, k, v, do, lse, delta, lengths, chunk))
                 refs = {"K1's O/LSE": fa.flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                                         lengths, chunk)}
                 if dtype == torch.float32:
@@ -287,10 +349,11 @@ def check_flash_backward() -> tuple[float, float]:
                     parts.append(f"vs {ref}: {', '.join(errs)}")
                 zero_past = all(not got[1][i, :, n:].any().item() and not got[2][i, :, n:].any().item()
                                 for i, n in enumerate(lens))
-                ok = ok and zero_past
+                bit_equal = all(torch.equal(a, g) for a, g in zip(again, got))
+                ok = ok and zero_past and bit_equal
                 print(f"K3/K4 check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk}, every "
                       f"row and key: max_abs_err {'; '.join(parts)}; dK=dV=0 past length: "
-                      f"{zero_past} {'ok' if ok else 'FAIL'}")
+                      f"{zero_past}; second launch bit-equal: {bit_equal} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"K3/K4 disagree with their plain version at lengths={lens}")
     # the differentiable forward (K1 with LSE) equals the inference launch
@@ -457,9 +520,11 @@ def _time_k1(lens, t: int, chunk: int, dtype, with_lse: bool, gen) -> dict:
     ops_ms = flops / PEAKS[str(dtype)] * 1e3
     bytes_ms = nbytes / H100_BYTES * 1e3
     bound_ms = max(ops_ms, bytes_ms)
+    fma_bound_ms = max(flops / H100_FP32_FLOPS * 1e3, bytes_ms)  # the same work on FMA units
     return dict(err=err, ms=ms, plain_ms=plain_ms, library_ms=library_ms, eager_ms=eager_ms,
-                bound_ms=bound_ms, ops_ms=ops_ms, bytes_ms=bytes_ms, gflop=flops / 1e9,
-                mb=nbytes / 1e6, tflops=flops / ms * 1e-9, share=bound_ms / ms)
+                bound_ms=bound_ms, fma_bound_ms=fma_bound_ms, ops_ms=ops_ms, bytes_ms=bytes_ms,
+                gflop=flops / 1e9, mb=nbytes / 1e6, tflops=flops / ms * 1e-9,
+                share=bound_ms / ms)
 
 
 def _weighted(parts: list) -> dict:
@@ -1111,36 +1176,43 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
             # no library call computes dQ (or dK, dV) alone: SDPA's backward
             # computes all three and stands beside the whole backward above
             kern[name] = dict(
-                ms=_cuda_ms(launch, 20),
+                ms=_graph_ms(lambda i: launch(), 20), eager_ms=_cuda_ms(launch, 20),
                 plain_ms=_cuda_ms(lambda: fa.flash_attention_bwd_plain(
                     q, k, v, do, lse, delta, lengths, chunk, grads=grads), 5),
-                library_ms=None, bound_ms=max(ops_ms, bytes_ms), ops_ms=ops_ms,
+                library_ms=None, bound_ms=max(ops_ms, bytes_ms),
+                fma_bound_ms=max(ops / H100_FP32_FLOPS * 1e3, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms, gflop=ops / 1e9, **backward)
         timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
         k3, k4 = kern["K3"], kern["K4"]
         print(f"K1/K3/K4 timing lengths={list(lens)} T={t} {str(dtype)[6:]} chunk={chunk} [{card}]: "
               f"K1+LSE {k1['ms']:.4f} ms ({k1['tflops']:.1f} TFLOP/s, {100 * k1['share']:.1f}% of "
               f"the bound; plain {k1['plain_ms']:.4f}, sdpa forward {k1['library_ms']:.4f}, bound "
-              f"{k1['bound_ms'] * 1e3:.1f} us); K3 {k3['ms']:.4f} ms "
-              f"(plain dQ {k3['plain_ms']:.4f}, bound {k3['bound_ms'] * 1e3:.1f} us, "
-              f"{k3['gflop']:.2f} GFLOP); K4 {k4['ms']:.4f} ms (plain dK/dV {k4['plain_ms']:.4f}, "
-              f"bound {k4['bound_ms'] * 1e3:.1f} us, {k4['gflop']:.2f} GFLOP); whole backward: "
-              f"delta+K3+K4 {backward['backward_ms']:.4f} ms, plain "
+              f"{k1['bound_ms'] * 1e3:.1f} us, FMA bound {k1['fma_bound_ms'] * 1e3:.1f} us); "
+              + "; ".join(
+                  f"{name} {r['ms']:.4f} ms replayed, {r['eager_ms']:.4f} eager ({r['gflop']:.2f} "
+                  f"GFLOP, {r['gflop'] / r['ms']:.1f} TFLOP/s, {100 * r['bound_ms'] / r['ms']:.1f}% "
+                  f"of the bound; plain {what} {r['plain_ms']:.4f}, bound "
+                  f"{r['bound_ms'] * 1e3:.1f} us, FMA bound {r['fma_bound_ms'] * 1e3:.1f} us)"
+                  for name, what, r in (("K3", "dQ", k3), ("K4", "dK/dV", k4)))
+              + f"; whole backward: delta+K3+K4 {backward['backward_ms']:.4f} ms, plain "
               f"{backward['backward_plain_ms']:.4f} ms, sdpa {backward['backward_library_ms']:.4f}"
-              f" ms; bounds at {'fp32 FMA' if dtype == torch.float32 else 'bf16 tensor-core'} "
-              f"{PEAKS[str(dtype)] / 1e12:.0f} TFLOP/s and HBM {H100_BYTES / 1e12:.2f} TB/s")
+              f" ms; bounds at {'3xTF32' if dtype == torch.float32 else 'bf16 tensor-core'} "
+              f"{PEAKS[str(dtype)] / 1e12:.0f} TFLOP/s (FMA bound at "
+              f"{H100_FP32_FLOPS / 1e12:.0f}) and HBM {H100_BYTES / 1e12:.2f} TB/s")
     per_step = [timed[(tuple(r["lens"]), r["chunk"], torch.float32)] for r in steps]
     n = k1_launches // (len(steps) + 1)  # launches of each kernel per step (and per CV batch)
     cv = _time_k1(CV_SHAPE, max(CV_SHAPE), 0, torch.float32, False, gen)
     print(f"K1 timing (CV batch, no LSE) lengths={CV_SHAPE} fp32 chunk=0 [{card}]: kernel "
           f"{cv['ms']:.4f} ms ({cv['tflops']:.1f} TFLOP/s, {100 * cv['share']:.1f}% of the "
           f"bound), plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, bound "
-          f"{cv['bound_ms'] * 1e3:.1f} us")
+          f"{cv['bound_ms'] * 1e3:.1f} us, FMA bound {cv['fma_bound_ms'] * 1e3:.1f} us")
     k1_train = _weighted([(n, p["k1"]) for p in per_step] + [(k1_launches - n * len(steps), cv)])
-    rows = [_kernel_row(name, "flash_attention_bwd.cu", f"flash_attention.py:{line}",
-                        _weighted([(n, p[key]) for p in per_step]))
-            for key, name, line in (("K3", "flash_attention_dq", 125),
-                                    ("K4", "flash_attention_dkv", 172))]
+    rows = []
+    for key, name, line in (("K3", "flash_attention_dq", 125), ("K4", "flash_attention_dkv", 172)):
+        times = _weighted([(n, p[key]) for p in per_step])
+        rows.append(_kernel_row(name, "flash_attention_bwd.cu", f"flash_attention.py:{line}",
+                                times, eager_ms=times["eager_ms"],
+                                fma_bound_ms=times["fma_bound_ms"]))
     step_kernel_ms = [p["k1"]["ms"] + p["K3"]["ms"] + p["K4"]["ms"] for p in per_step]
     return k1_train, rows[0], rows[1], step_kernel_ms
 
@@ -1366,18 +1438,20 @@ def main() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {src}: {line.strip()}")
-    spills = [line.strip() for line in cuda_build.build_logs[i8.DECODE_SOURCE].splitlines()
-              if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
-    print(f"  {i8.DECODE_SOURCE}: no spills in any of its kernels: {not spills} "
-          f"{'ok' if not spills else 'FAIL'}")
-    if spills:
-        raise SystemExit(f"{i8.DECODE_SOURCE} spills: {spills}")
+    for src in (i8.DECODE_SOURCE, fa.BWD_SOURCE):
+        spills = [line.strip() for line in cuda_build.build_logs[src].splitlines()
+                  if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
+        print(f"  {src}: no spills in any of its kernels: {not spills} "
+              f"{'ok' if not spills else 'FAIL'}")
+        if spills:
+            raise SystemExit(f"{src} spills: {spills}")
     for src in (fa.SM90_SOURCE, i8.SM90_SOURCE):
         hgmma = _sass_count(cuda_build.library_path(src), "HGMMA")
         print(f"  {src}: {hgmma} HGMMA (wgmma) instructions in its SASS "
               f"{'ok' if hgmma else 'FAIL'}")
         if not hgmma:
             raise SystemExit(f"{src} holds no wgmma instruction")
+    bwd_occupancy()
     _record_launches(fa)
     _record_k2_launches(i8)
 
@@ -1414,7 +1488,8 @@ def main() -> None:
     # K1's times are means per launch over the paths; each path's stand beside them
     paths = {"tts": k1_tts, "int8": k1_int8, "train": k1_train}
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
-    keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
+            "library_ms")
     # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (FMA) in training
     serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8)])
     designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}

@@ -1,9 +1,10 @@
-// Flash-attention backward for Hopper (sm_90a), plain C interface for ctypes.
+// Flash-attention backward on Hopper's tensor cores (sm_90a) in 3xTF32, plain
+// C interface for ctypes.
 //
 // Replaces the TPU kernels of cosyvoice2_eu_tpu/ops/pallas/flash_attention.py
 // launched by _flash_bwd:
-//   K3  _dq_kernel:  dQ = scale * sum_k [P o (dP - delta)] K
-//   K4  _dkv_kernel: dV = sum_q P^T dO,  dK = sum_q dS^T (Q * scale)
+//   K3  _dq_kernel  (:125):  dQ = scale * sum_k [P o (dP - delta)] K
+//   K4  _dkv_kernel (:172):  dV = sum_q P^T dO,  dK = sum_q dS^T (Q * scale)
 // with P = exp(S - LSE) under the forward's mask (S = Q K^T * scale, LSE the
 // forward's natural-log log-sum-exp), dP = dO V^T, delta = rowsum(dO o O)
 // (computed by the caller) and dS = P o (dP - delta).  The mask is built per
@@ -12,383 +13,549 @@
 //   j < (i / chunk + 1) * chunk.
 // A batch with length[b] == 0 has no visible key and gets zero gradients, as
 // the TPU kernels give it.  Every query row below T takes part (pad rows
-// included); keys at or past length[b] get dK = dV = 0 exactly.
+// included); keys at or past length[b] get dK = dV = 0 exactly.  Each block
+// owns its outputs (no atomics), so two launches on the same inputs are
+// bit-equal.
 //
-// Layout: q, k, v, dO, dQ, dK, dV (B*H, T, D) contiguous, float32 or
-// bfloat16; lse, delta (B*H, T) float32.  All products and sums in fp32;
-// outputs rounded once to the input type.  Scores are kept in base 2 as in
-// the forward: s2 = (q . k) * scale * log2(e), P = exp2(s2 - lse * log2(e)).
+// Layout: q, k, v, dO, dQ, dK, dV (B*H, T, 64) contiguous, float32 or
+// bfloat16, 16-byte aligned; lse, delta (B*H, T) float32.  Outputs are
+// rounded once to the input type.  Scores are kept in base 2 as in the
+// forward: s2 = (q . k) * scale * log2(e), P = exp2(s2 - lse * log2(e)).
 //
-// Grid and order.  K3 gives one 256-thread block per (64-query tile, b*h)
-// and loops over the key tiles its rows can see (the forward's bound).  K4
-// gives one block per (64-key tile, b*h) and loops over the query tiles from
-// the first one that can see the key tile (qb_start, from this kernel's
-// 64-row tiles) to the end.  Each block owns its outputs: no atomics, and
-// the result does not depend on scheduling.
+// What bounds it on the H100.  At the training shapes (B*H = 32, T = 740, or
+// B*H = 16, T = 1480, D = 64, fp32) K3 does 6*D and K4 8*D operations per
+// visible (query, key) pair: 5.8 and 7.8 GFLOP at T = 740, 12.2 and 16.3 at
+// T = 1480, on ~25-35 MB, so operations bound both.  On the fp32 FMA units
+// (67 TFLOP/s) that is 0.087 / 0.116 ms and 0.183 / 0.243 ms.  In 3xTF32 on
+// the tensor cores (three TF32 products at the dense 495 TFLOP/s, ~165
+// TFLOP/s of fp32-accurate work) it is 0.035 / 0.047 ms and 0.074 / 0.099 ms.
+// The first design ran every product on the FMA units with 4x4 register
+// tiles fed from shared memory (as many shared loads as FMAs), and loaded
+// each tile synchronously through registers, so no copy overlapped any math.
 //
-// What bounds it on the H100: at the training shapes (B*H = 32, T = 740, or
-// B*H = 16, T = 1480, D = 64) K3 does 6*D and K4 8*D operations per visible
-// (query, key) pair, some 7-13 GFLOP per launch on ~25 MB, far above the
-// ~20 FLOP/byte ridge of fp32 FMA, so operations bound both.  This first
-// design is simple and right, not fast: tiles staged in shared memory as
-// fp32, every product on the fp32 FMA units (67 TFLOP/s peak, no tensor
-// cores), each thread owning a 4x4 block of the 64x64 score tile and 4x4
-// blocks of its outputs.  wgmma and TMA are the way to the bound.
+// What this design does about it:
+//   * Every product runs on the tensor cores: mma.sync.m16n8k8 with tf32
+//     operands and fp32 accumulators, three products per k-step (below).
+//   * A block is 4 warps and owns a 64-row stationary tile (Q and dO in K3,
+//     K and V in K4); each warp owns a 16-row slab of it.  The block streams
+//     32-row tiles of the other side (K and V in K3, Q and dO in K4).  S and
+//     dP (K3), or S^T and dP^T (K4), are products over D with both operands
+//     read from shared memory; the mask, P and dS are formed on the
+//     accumulators in registers.
+//   * P and dS never leave registers: the m16n8 accumulator holds, per
+//     thread, the two adjacent columns 2t and 2t+1 of each 8-column tile,
+//     and an m16n8k8 A fragment holds columns t and t+4.  The second product
+//     (dQ += dS K in K3; dV += P^T dO and dK += dS^T Q in K4) sums over the
+//     sequence, so each 8-column tile of the accumulator becomes a k-step
+//     with k = t read as sequence 2t and k = t+4 as 2t+1, and its B rows
+//     are permuted the same way.  The output column of n-tile nt and lane
+//     group g is 4g + (nt & 3) + 32 (nt >> 2), so the B fragments of four
+//     n-tiles are one 16-byte shared load and each thread writes 8
+//     contiguous outputs of each of its rows.
+//   * Shared tiles are fp32 with a row stride of 68 floats: the scalar
+//     fragment loads over D and the 16-byte loads over the sequence are both
+//     free of bank conflicts.
+//   * The streamed tiles (with LSE and delta in K4) come through a 2-stage
+//     ring by cp.async (16-byte cp.async.cg for the tiles, 4-byte
+//     cp.async.ca for LSE and delta, zero-filled past T), so tile i+1 is in
+//     flight while tile i is multiplied.  Once its own copies have landed,
+//     each thread splits them in place into hi and lo (no barrier needed),
+//     so a streamed tile is split once per load for all four warps and both
+//     of its products.  bf16 inputs are widened to fp32 as they land in
+//     shared memory, by loads through registers (no path runs the backward
+//     in bf16); their lo part is then 0.
+//   * The stationary tile stays fp32 and is split as its fragments are
+//     loaded, once a k-step and streamed tile.  Kept as hi and lo it would
+//     need 35 KB more: one block an SM at 32-row streamed tiles, or 16-row
+//     streamed tiles with twice the barriers and mask work per query or key.
+//   * 104 KB of shared memory and at most 255 registers a thread (launch
+//     bounds of 128 threads and 2 blocks; ptxas used 136-194 with no spill),
+//     so two blocks fit on an SM: 384 blocks at both training shapes, 1.45
+//     waves of the 132 SMs.  The grid is (B*H, 64-row tiles), and blocks
+//     start in order of blockIdx.y: K3 maps it to the last query tile first
+//     and K4 to the first key tile first, the heaviest blocks under a chunk
+//     mask.
+//
+// 3xTF32 precision.  Each fp32 operand x is split into hi = tf32(x) and
+// lo = tf32(x - hi), where tf32() is cvt.rna.tf32.f32's rounding (10
+// explicit mantissa bits, round to nearest, ties away from zero) done as two
+// integer operations on the bits: it equals the instruction on every finite
+// input and spares the conversion unit, whose lower issue rate the splits
+// would otherwise wait on.  x - hi is exact in fp32 and |x - hi - lo| <=
+// 2^-22 |x|.  A product a*b is taken as lo_a*hi_b + hi_a*lo_b + hi_a*hi_b
+// (small terms first, three mma into one fp32 accumulator): each TF32
+// product is exact, and the dropped lo_a*lo_b and the split residuals are
+// ~2^-21 of |a*b|.  What remains is the tensor core's fp32 accumulation,
+// which does not round to nearest: over the hundreds of k-steps of a long
+// sequence it leaves errors of ~1e-5 of the largest output (at T = 2048),
+// against the plain version's 1e-4 bound.  P and dS are split once per tile.
 
-#include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per tile
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int D = 64;           // head dim
+constexpr int BM = 64;          // rows of a block's stationary tile (queries in K3, keys in K4)
+constexpr int SN = 32;          // rows of a streamed tile (keys in K3, queries in K4)
+constexpr int NT = SN / 8;      // 8-column tiles of a warp's score accumulator
+constexpr int WARPS = 4;        // each owns 16 rows of the stationary tile
+constexpr int THREADS = WARPS * 32;
+constexpr int MIN_BLOCKS = 2;   // blocks an SM, for the register budget
+constexpr int RS = D + 4;       // shared row stride in floats (see the note)
+constexpr int TILE = BM * RS;   // floats of one stationary tensor
+constexpr int STILE = SN * RS;  // floats of one streamed array
 constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_float(float x);
-template <> __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-template <int D>
-struct Smem {
-  static constexpr int RS = D + 4;   // row-major stride (float4-aligned, bank offset)
-  static constexpr int TS = BK + 1;  // transposed stride (conflict-free transpose)
-  static constexpr int PS = BK + 4;  // score-tile stride
-  // K3: Qs, dOs [BQ][RS]; Kt, Vt [D][TS]; dS [BQ][PS]
-  static constexpr int DQ_BYTES = (2 * BQ * RS + 2 * D * TS + BQ * PS) * 4;
-  // K4: Ks, Vs [BK][RS]; Qt, dOt [D][TS]; P, dS [BK][PS]; lse2, delta [BQ]
-  static constexpr int DKV_BYTES = (2 * BK * RS + 2 * D * TS + 2 * BK * PS + 2 * BQ) * 4;
-};
+// Stationary: two fp32 tensors (Q, dO in K3; K, V in K4).  Ring: 2 stages x
+// two tensors (K, V in K3; Q, dO in K4) x hi and lo.  K4 adds per stage the
+// tile's LSE, delta and visible ends.
+constexpr int DQ_BYTES = (2 * TILE + 8 * STILE) * 4;
+constexpr int DKV_BYTES = DQ_BYTES + 2 * 3 * SN * 4;
 
 // first key past what row `row` may see
 __device__ __forceinline__ int visible_end(int row, int chunk, int length) {
   return chunk > 0 ? min((row / chunk + 1) * chunk, length) : length;
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// asynchronous copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !in (src must still be valid)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(smem_addr(dst)), "l"(src),
+               "r"(in ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// floats a thread moves per chunk in load_tile: 4 (16-byte copies) or 8 (16
+// bytes of bf16 widened)
+template <typename T>
+__host__ __device__ constexpr int chunk_floats() {
+  return std::is_same<T, float>::value ? 4 : 8;
+}
+
+// Rows r0 .. r0+ROWS-1 of a (t, 64) matrix into a shared fp32 tile, zeros
+// past t.  fp32 by 16-byte cp.async; bf16 widened through registers.
+template <int ROWS, typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* src, int r0, int t, int tid) {
+  constexpr int CH = chunk_floats<T>(), PER_ROW = D / CH;
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int r = c / PER_ROW, col = (c % PER_ROW) * CH;
+    const bool in = r0 + r < t;
+    if constexpr (std::is_same<T, float>::value) {
+      cp_async16(dst + r * RS + col, src + (size_t)(in ? r0 + r : 0) * D + col, in);
+    } else {
+      uint4 raw = make_uint4(0u, 0u, 0u, 0u);
+      if (in) raw = __ldg(reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + col));
+      // a bf16 is the high half of its fp32
+      *reinterpret_cast<uint4*>(dst + r * RS + col) =
+          make_uint4(raw.x << 16, raw.x & 0xffff0000u, raw.y << 16, raw.y & 0xffff0000u);
+      *reinterpret_cast<uint4*>(dst + r * RS + col + 4) =
+          make_uint4(raw.z << 16, raw.z & 0xffff0000u, raw.w << 16, raw.w & 0xffff0000u);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// the 3xTF32 tile product
+// ---------------------------------------------------------------------------
+
+// cvt.rna.tf32.f32 on a finite x: add half of the 13 dropped bits to the
+// magnitude and clear them (round to nearest, ties away from zero)
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// The chunks this thread loaded with load_tile<ROWS, T>, split in place: hi
+// over the fp32 values, lo into `lo` at the same offsets.  The thread's own
+// copies are visible to it after cp.async.wait_group, so no barrier is needed.
+template <int ROWS, typename T>
+__device__ __forceinline__ void split_tile(float* hi, float* lo, int tid) {
+  constexpr int CH = chunk_floats<T>(), PER_ROW = D / CH;
+#pragma unroll
+  for (int i = 0; i < ROWS * PER_ROW / THREADS; ++i) {
+    const int c = tid + i * THREADS;
+    const int off = (c / PER_ROW) * RS + (c % PER_ROW) * CH;
+#pragma unroll
+    for (int u = 0; u < CH; u += 4) {
+      const float4 x = *reinterpret_cast<const float4*>(hi + off + u);
+      uint4 h, l;
+      split(x.x, h.x, l.x);
+      split(x.y, h.y, l.y);
+      split(x.z, h.z, l.z);
+      split(x.w, h.w, l.w);
+      *reinterpret_cast<uint4*>(hi + off + u) = h;
+      *reinterpret_cast<uint4*>(lo + off + u) = l;
+    }
+  }
+}
+
+// c += a b for one m16n8k8 tile, tf32 operands, fp32 accumulators
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c[nt0 + j] += A B[j] for M n-tiles in 3xTF32: lo*hi, hi*lo, then hi*hi
+template <int M, int N>
+__device__ __forceinline__ void mma3(float (&c)[N][4], int nt0, const uint32_t (&ahi)[4],
+                                     const uint32_t (&alo)[4], const uint32_t (&bhi)[M][2],
+                                     const uint32_t (&blo)[M][2]) {
+#pragma unroll
+  for (int j = 0; j < M; ++j) mma(c[nt0 + j], alo, bhi[j]);
+#pragma unroll
+  for (int j = 0; j < M; ++j) mma(c[nt0 + j], ahi, blo[j]);
+#pragma unroll
+  for (int j = 0; j < M; ++j) mma(c[nt0 + j], ahi, bhi[j]);
+}
+
+// acc (16 x SN) += A (16 x 64) B^T, B (SN x 64), the product over D.  A is
+// the warp's slab of the stationary tile in fp32, split here; B a streamed
+// tile as hi and lo; both D-contiguous.  acc[nt][e]: row g + 8 (e >> 1),
+// column nt * 8 + 2t + (e & 1) of the SN rows of B.
+__device__ __forceinline__ void score_product(float (&acc)[NT][4], const float* A,
+                                              const float* Bhi, const float* Blo, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int ks = 0; ks < D / 8; ++ks) {
+    const float* a = A + g * RS + ks * 8 + t;
+    uint32_t ahi[4], alo[4];
+    split(a[0], ahi[0], alo[0]);
+    split(a[8 * RS], ahi[1], alo[1]);
+    split(a[4], ahi[2], alo[2]);
+    split(a[8 * RS + 4], ahi[3], alo[3]);
+    uint32_t bhi[NT][2], blo[NT][2];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+      const int ob = (j * 8 + g) * RS + ks * 8 + t;
+      bhi[j][0] = __float_as_uint(Bhi[ob]);
+      bhi[j][1] = __float_as_uint(Bhi[ob + 4]);
+      blo[j][0] = __float_as_uint(Blo[ob]);
+      blo[j][1] = __float_as_uint(Blo[ob + 4]);
+    }
+    mma3(acc, 0, ahi, alo, bhi, blo);
+  }
+}
+
+// acc (16 x 64) += P (16 x SN) X, X (SN x 64) a streamed tile as hi and lo;
+// the product over the sequence, with P in score_product's accumulator
+// layout.  k-step j is P's n-tile j: k = t is sequence j*8 + 2t, k = t + 4 is
+// j*8 + 2t + 1.  acc[nt][e]: row g + 8 (e >> 1), column 8t + 4 (e & 1) +
+// (nt & 3) + 32 (nt >> 2) of X.
+__device__ __forceinline__ void value_product(float (&acc)[8][4], const float (&p)[NT][4],
+                                              const float* Xhi, const float* Xlo, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    uint32_t ahi[4], alo[4];
+    split(p[j][0], ahi[0], alo[0]);
+    split(p[j][2], ahi[1], alo[1]);
+    split(p[j][1], ahi[2], alo[2]);
+    split(p[j][3], ahi[3], alo[3]);
+    const int o = (j * 8 + 2 * t) * RS + 4 * g;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 uh = *reinterpret_cast<const uint4*>(Xhi + o + 32 * h);
+      const uint4 wh = *reinterpret_cast<const uint4*>(Xhi + o + RS + 32 * h);
+      const uint4 ul = *reinterpret_cast<const uint4*>(Xlo + o + 32 * h);
+      const uint4 wl = *reinterpret_cast<const uint4*>(Xlo + o + RS + 32 * h);
+      const uint32_t bhi[4][2] = {{uh.x, wh.x}, {uh.y, wh.y}, {uh.z, wh.z}, {uh.w, wh.w}};
+      const uint32_t blo[4][2] = {{ul.x, wl.x}, {ul.y, wl.y}, {ul.z, wl.z}, {ul.w, wl.w}};
+      mma3(acc, h * 4, ahi, alo, bhi, blo);
+    }
+  }
+}
+
+// 8 contiguous outputs x[0..7] * scale, rounded once to T
+template <typename T>
+__device__ __forceinline__ void store8(T* out, const float (&x)[8], float scale) {
+  if constexpr (std::is_same<T, float>::value) {
+    *reinterpret_cast<float4*>(out) =
+        make_float4(x[0] * scale, x[1] * scale, x[2] * scale, x[3] * scale);
+    *reinterpret_cast<float4*>(out + 4) =
+        make_float4(x[4] * scale, x[5] * scale, x[6] * scale, x[7] * scale);
+  } else {
+    __nv_bfloat162 h[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) h[i] = __floats2bfloat162_rn(x[2 * i] * scale, x[2 * i + 1] * scale);
+    *reinterpret_cast<uint4*>(out) = *reinterpret_cast<const uint4*>(h);
+  }
+}
+
+// Rows g and g + 8 of a warp's value_product accumulator (scaled) to `out`
+// (the warp's first row), rows at or past `rows` skipped.
+template <typename T>
+__device__ __forceinline__ void store_rows(T* out, const float (&acc)[8][4], float scale, int rows,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = g + 8 * r;
+    if (row >= rows) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x[8];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        x[i] = acc[4 * h + i][2 * r];
+        x[4 + i] = acc[4 * h + i][2 * r + 1];
+      }
+      store8(out + (size_t)row * D + 8 * t + 32 * h, x, scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K3: dQ
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const T* __restrict__ dout, const float* __restrict__ lse,
                 const float* __restrict__ delta, const int* __restrict__ lengths,
                 T* __restrict__ dq, int heads, int t, int chunk, float scale_log2,
                 float sm_scale) {
-  constexpr int NC = D / 16;  // output columns per thread
-  using S = Smem<D>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qs = smem;                // [BQ][RS], pre-scaled by scale*log2(e)
-  float* dOs = Qs + BQ * S::RS;    // [BQ][RS]
-  float* Kt = dOs + BQ * S::RS;    // [D][TS]  (K transposed)
-  float* Vt = Kt + D * S::TS;      // [D][TS]  (V transposed)
-  float* dSs = Vt + D * S::TS;     // [BQ][PS]
+  float* Qs = reinterpret_cast<float*>(smem4);  // stationary [BM][RS]
+  float* dOs = Qs + TILE;
+  float* ring = dOs + TILE;  // stage s: K hi, K lo, V hi, V lo [SN][RS] from 4s
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
-  const int length = min(lengths[bh / heads], t);  // keys past T do not exist
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // last query tile first
+  const int length = min(lengths[bh / heads], t);   // keys past T do not exist
   const size_t base = (size_t)bh * t * D;
-
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    int r = e / D, c = e % D;
-    int row = q0 + r;
-    bool in = row < t;
-    Qs[r * S::RS + c] = in ? to_float(q[base + (size_t)row * D + c]) * scale_log2 : 0.f;
-    dOs[r * S::RS + c] = in ? to_float(dout[base + (size_t)row * D + c]) : 0.f;
-  }
 
   // key tiles any row of this block can see: the forward's bound, and none
   // at all when length == 0
-  const int q_last = min(q0 + BQ, t) - 1;
-  int kv_end = min(t, length);
+  const int q_last = min(q0 + BM, t) - 1;
+  int kv_end = length;
   if (chunk > 0) kv_end = min(kv_end, (q_last / chunk + 1) * chunk);
-  const int n_tiles = kv_end > 0 ? (kv_end + BK - 1) / BK : 0;
+  const int n_tiles = kv_end > 0 ? (kv_end + SN - 1) / SN : 0;
 
-  int row_end[4];
-  float lse2[4], dlt[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    const bool in = row < t;
-    row_end[i] = in ? visible_end(row, chunk, length) : 0;
-    lse2[i] = in ? lse[(size_t)bh * t + row] * LOG2E : 0.f;
-    dlt[i] = in ? delta[(size_t)bh * t + row] : 0.f;
+  if (n_tiles > 0) {
+    load_tile<BM>(Qs, q + base, q0, t, tid);
+    load_tile<BM>(dOs, dout + base, q0, t, tid);
+    load_tile<SN>(ring, k + base, 0, t, tid);
+    load_tile<SN>(ring + 2 * STILE, v + base, 0, t, tid);
+    cp_async_commit();
   }
 
-  float acc[4][NC];
+  // this thread's rows: g and g + 8 of the warp's slab
+  int row_end[2];
+  float lse2[2], dlt[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + warp * 16 + g + 8 * r;
+    const bool in = row < t;
+    row_end[r] = in ? visible_end(row, chunk, length) : 0;
+    lse2[r] = in ? lse[(size_t)bh * t + row] * LOG2E : 0.f;
+    dlt[r] = in ? delta[(size_t)bh * t + row] : 0.f;
+  }
+
+  float acc[8][4];
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // previous tile fully consumed (and Qs/dOs written)
-    for (int e = tid; e < BK * D; e += THREADS) {
-      int r = e / D, c = e % D;
-      int key = k0 + r;
-      float kval = 0.f, vval = 0.f;
-      if (key < t) {
-        kval = to_float(k[base + (size_t)key * D + c]);
-        vval = to_float(v[base + (size_t)key * D + c]);
-      }
-      Kt[c * S::TS + r] = kval;
-      Vt[c * S::TS + r] = vval;
+    const int s = kb & 1;
+    float* Khi = ring + 4 * s * STILE;
+    float* Klo = Khi + STILE;
+    float* Vhi = Khi + 2 * STILE;
+    float* Vlo = Khi + 3 * STILE;
+    if (kb + 1 < n_tiles) {  // the next tile flies while this one is multiplied
+      float* next = ring + 4 * (s ^ 1) * STILE;
+      load_tile<SN>(next, k + base, (kb + 1) * SN, t, tid);
+      load_tile<SN>(next + 2 * STILE, v + base, (kb + 1) * SN, t, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    split_tile<SN, T>(Khi, Klo, tid);
+    split_tile<SN, T>(Vhi, Vlo, tid);
     __syncthreads();
 
-    // S = Q K^T and dP = dO V^T for rows ty*4+i, keys tx+16*j
-    float s[4][4], dp[4][4];
+    float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * S::RS + d]);
-        ov[i] = *reinterpret_cast<const float4*>(&dOs[(ty * 4 + i) * S::RS + d]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float k0v = Kt[(d + 0) * S::TS + c], k1v = Kt[(d + 1) * S::TS + c];
-        const float k2v = Kt[(d + 2) * S::TS + c], k3v = Kt[(d + 3) * S::TS + c];
-        const float v0 = Vt[(d + 0) * S::TS + c], v1 = Vt[(d + 1) * S::TS + c];
-        const float v2 = Vt[(d + 2) * S::TS + c], v3 = Vt[(d + 3) * S::TS + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(qv[i].x, k0v, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, k1v, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, k2v, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, k3v, s[i][j]);
-          dp[i][j] = fmaf(ov[i].x, v0, dp[i][j]);
-          dp[i][j] = fmaf(ov[i].y, v1, dp[i][j]);
-          dp[i][j] = fmaf(ov[i].z, v2, dp[i][j]);
-          dp[i][j] = fmaf(ov[i].w, v3, dp[i][j]);
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+    const int slab = warp * 16 * RS;
+    score_product(sc, Qs + slab, Khi, Klo, lane);   // S = Q K^T
+    score_product(dp, dOs + slab, Vhi, Vlo, lane);  // dP = dO V^T
 
     // dS = P (dP - delta), P = exp2(s2 - lse2) on visible keys, else 0
+    const int k0 = kb * SN;
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        const float p = key < row_end[i] ? exp2f(s[i][j] - lse2[i]) : 0.f;
-        dSs[(ty * 4 + i) * S::PS + tx + 16 * j] = p * (dp[i][j] - dlt[i]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int key = k0 + i * 8 + 2 * tq + (e & 1);
+        const float p = key < row_end[r] ? exp2f(sc[i][e] * scale_log2 - lse2[r]) : 0.f;
+        dp[i][e] = p * (dp[i][e] - dlt[r]);
       }
-    __syncthreads();
-
-    // acc += dS K for rows ty*4+i, columns tx+16*j (K[c][col] = Kt[col][c])
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        sv[i] = *reinterpret_cast<const float4*>(&dSs[(ty * 4 + i) * S::PS + c]);
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float* kc = &Kt[(tx + 16 * j) * S::TS + c];
-        const float w0 = kc[0], w1 = kc[1], w2 = kc[2], w3 = kc[3];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(sv[i].x, w0, acc[i][j]);
-          acc[i][j] = fmaf(sv[i].y, w1, acc[i][j]);
-          acc[i][j] = fmaf(sv[i].z, w2, acc[i][j]);
-          acc[i][j] = fmaf(sv[i].w, w3, acc[i][j]);
-        }
-      }
-    }
+    value_product(acc, dp, Khi, Klo, lane);  // dQ += dS K
+    __syncthreads();                         // stage s read by all before it is refilled
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= t) continue;
-#pragma unroll
-    for (int j = 0; j < NC; ++j)
-      dq[base + (size_t)row * D + tx + 16 * j] = from_float<T>(acc[i][j] * sm_scale);
-  }
+  const int row0 = q0 + warp * 16;
+  store_rows(dq + base + (size_t)row0 * D, acc, sm_scale, t - row0, lane);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// ---------------------------------------------------------------------------
+// K4: dK, dV
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  const T* __restrict__ dout, const float* __restrict__ lse,
                  const float* __restrict__ delta, const int* __restrict__ lengths,
                  T* __restrict__ dk, T* __restrict__ dv, int heads, int t, int chunk,
                  float scale_log2, float sm_scale) {
-  constexpr int NC = D / 16;
-  using S = Smem<D>;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Ks = smem;                // [BK][RS]
-  float* Vs = Ks + BK * S::RS;     // [BK][RS]
-  float* Qt = Vs + BK * S::RS;     // [D][TS]  (Q transposed, unscaled)
-  float* dOt = Qt + D * S::TS;     // [D][TS]  (dO transposed)
-  float* Ps = dOt + D * S::TS;     // [BK][PS] P^T tile (keys x queries)
-  float* dSs = Ps + BK * S::PS;    // [BK][PS] dS^T tile
-  float* lse2s = dSs + BK * S::PS; // [BQ]
-  float* dlts = lse2s + BQ;        // [BQ]
+  float* Ks = reinterpret_cast<float*>(smem4);  // stationary [BM][RS]
+  float* Vs = Ks + TILE;
+  float* ring = Vs + TILE;         // stage s: Q hi, Q lo, dO hi, dO lo [SN][RS] from 4s
+  float* rows = ring + 8 * STILE;  // stage s: lse, delta, end [SN] each
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int k0 = blockIdx.x * BK;
-  const int length = min(lengths[bh / heads], t);  // keys past T do not exist
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int k0 = blockIdx.y * BM;  // first key tile first
+  const int length = min(lengths[bh / heads], t);
   const size_t base = (size_t)bh * t * D;
+  const int row0 = k0 + warp * 16;
+
+  float dk_acc[8][4], dv_acc[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[i][e] = dv_acc[i][e] = 0.f;
 
   if (k0 >= length) {  // no query sees these keys: their gradients are zero
-    for (int e = tid; e < BK * D; e += THREADS) {
-      int key = k0 + e / D;
-      if (key < t) {
-        dk[base + (size_t)key * D + e % D] = from_float<T>(0.f);
-        dv[base + (size_t)key * D + e % D] = from_float<T>(0.f);
-      }
-    }
+    store_rows(dk + base + (size_t)row0 * D, dk_acc, 1.f, t - row0, lane);
+    store_rows(dv + base + (size_t)row0 * D, dv_acc, 1.f, t - row0, lane);
     return;
   }
 
-  for (int e = tid; e < BK * D; e += THREADS) {
-    int r = e / D, c = e % D;
-    int key = k0 + r;
-    bool in = key < t;
-    Ks[r * S::RS + c] = in ? to_float(k[base + (size_t)key * D + c]) : 0.f;
-    Vs[r * S::RS + c] = in ? to_float(v[base + (size_t)key * D + c]) : 0.f;
-  }
-
   // queries in chunks before this key tile's chunk see none of it
-  const int qb_start = chunk > 0 ? ((k0 / chunk) * chunk) / BQ : 0;
-  const int n_qtiles = (t + BQ - 1) / BQ;
+  const int qb_start = chunk > 0 ? ((k0 / chunk) * chunk) / SN : 0;
+  const int n_qtiles = (t + SN - 1) / SN;
 
-  float dk_acc[4][NC], dv_acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < NC; ++j) dk_acc[i][j] = dv_acc[i][j] = 0.f;
+  // Q and dO tile qb, with its LSE, delta and visible ends, into stage s
+  auto issue = [&](int qb, int s) {
+    const int q0 = qb * SN;
+    float* st = ring + 4 * s * STILE;
+    load_tile<SN>(st, q + base, q0, t, tid);
+    load_tile<SN>(st + 2 * STILE, dout + base, q0, t, tid);
+    float* rs = rows + s * 3 * SN;
+    if (tid < SN) {
+      const int row = q0 + tid;
+      const bool in = row < t;
+      const size_t at = (size_t)bh * t + (in ? row : 0);
+      cp_async4(rs + tid, lse + at, in);
+      cp_async4(rs + SN + tid, delta + at, in);
+      reinterpret_cast<int*>(rs + 2 * SN)[tid] = in ? visible_end(row, chunk, length) : 0;
+    }
+  };
+
+  load_tile<BM>(Ks, k + base, k0, t, tid);
+  load_tile<BM>(Vs, v + base, k0, t, tid);
+  issue(qb_start, 0);
+  cp_async_commit();
 
   for (int qb = qb_start; qb < n_qtiles; ++qb) {
-    const int q0 = qb * BQ;
-    __syncthreads();  // previous tile fully consumed (and Ks/Vs written)
-    for (int e = tid; e < BQ * D; e += THREADS) {
-      int r = e / D, c = e % D;
-      int row = q0 + r;
-      float qval = 0.f, oval = 0.f;
-      if (row < t) {
-        qval = to_float(q[base + (size_t)row * D + c]);
-        oval = to_float(dout[base + (size_t)row * D + c]);
-      }
-      Qt[c * S::TS + r] = qval;
-      dOt[c * S::TS + r] = oval;
+    const int s = (qb - qb_start) & 1;
+    float* Qhi = ring + 4 * s * STILE;
+    float* Qlo = Qhi + STILE;
+    float* dOhi = Qhi + 2 * STILE;
+    float* dOlo = Qhi + 3 * STILE;
+    if (qb + 1 < n_qtiles) {
+      issue(qb + 1, s ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    if (tid < BQ) {
-      const int row = q0 + tid;
-      lse2s[tid] = row < t ? lse[(size_t)bh * t + row] * LOG2E : 0.f;
-      dlts[tid] = row < t ? delta[(size_t)bh * t + row] : 0.f;
-    }
+    split_tile<SN, T>(Qhi, Qlo, tid);
+    split_tile<SN, T>(dOhi, dOlo, tid);
     __syncthreads();
+    const float* lse_s = rows + s * 3 * SN;
+    const float* dlt_s = lse_s + SN;
+    const int* end_s = reinterpret_cast<const int*>(lse_s + 2 * SN);
 
-    // S^T = K Q^T and dP^T = V dO^T for keys ty*4+i, queries tx+16*j
-    float s[4][4], dp[4][4];
+    float sc[NT][4], dp[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 2
-    for (int d = 0; d < D; d += 4) {
-      float4 kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = *reinterpret_cast<const float4*>(&Ks[(ty * 4 + i) * S::RS + d]);
-        vv[i] = *reinterpret_cast<const float4*>(&Vs[(ty * 4 + i) * S::RS + d]);
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        const float q0v = Qt[(d + 0) * S::TS + c], q1v = Qt[(d + 1) * S::TS + c];
-        const float q2v = Qt[(d + 2) * S::TS + c], q3v = Qt[(d + 3) * S::TS + c];
-        const float o0 = dOt[(d + 0) * S::TS + c], o1 = dOt[(d + 1) * S::TS + c];
-        const float o2 = dOt[(d + 2) * S::TS + c], o3 = dOt[(d + 3) * S::TS + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(kv[i].x, q0v, s[i][j]);
-          s[i][j] = fmaf(kv[i].y, q1v, s[i][j]);
-          s[i][j] = fmaf(kv[i].z, q2v, s[i][j]);
-          s[i][j] = fmaf(kv[i].w, q3v, s[i][j]);
-          dp[i][j] = fmaf(vv[i].x, o0, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].y, o1, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].z, o2, dp[i][j]);
-          dp[i][j] = fmaf(vv[i].w, o3, dp[i][j]);
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e) sc[i][e] = dp[i][e] = 0.f;
+    const int slab = warp * 16 * RS;
+    score_product(sc, Ks + slab, Qhi, Qlo, lane);   // S^T = K Q^T
+    score_product(dp, Vs + slab, dOhi, dOlo, lane);  // dP^T = V dO^T
 
     // P^T and dS^T on visible (key, query) pairs, else 0
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int qc = tx + 16 * j;
-      const int row = q0 + qc;
-      const int end = row < t ? visible_end(row, chunk, length) : 0;
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int key = k0 + ty * 4 + i;
-        const float p = key < end ? exp2f(s[i][j] * scale_log2 - lse2s[qc]) : 0.f;
-        Ps[(ty * 4 + i) * S::PS + qc] = p;
-        dSs[(ty * 4 + i) * S::PS + qc] = p * (dp[i][j] - dlts[qc]);
+      for (int e = 0; e < 4; ++e) {
+        const int col = i * 8 + 2 * tq + (e & 1);
+        const int key = row0 + g + 8 * (e >> 1);
+        const float p = key < end_s[col] ? exp2f(sc[i][e] * scale_log2 - lse_s[col] * LOG2E) : 0.f;
+        sc[i][e] = p;
+        dp[i][e] = p * (dp[i][e] - dlt_s[col]);
       }
-    }
+    value_product(dv_acc, sc, dOhi, dOlo, lane);  // dV += P^T dO
+    value_product(dk_acc, dp, Qhi, Qlo, lane);    // dK += dS^T Q
     __syncthreads();
-
-    // dV += P^T dO and dK += dS^T Q for keys ty*4+i, columns tx+16*j
-#pragma unroll 2
-    for (int c = 0; c < BQ; c += 4) {
-      float4 pv[4], sv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * S::PS + c]);
-        sv[i] = *reinterpret_cast<const float4*>(&dSs[(ty * 4 + i) * S::PS + c]);
-      }
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const float* oc = &dOt[(tx + 16 * j) * S::TS + c];
-        const float* qc = &Qt[(tx + 16 * j) * S::TS + c];
-        const float o0 = oc[0], o1 = oc[1], o2 = oc[2], o3 = oc[3];
-        const float w0 = qc[0], w1 = qc[1], w2 = qc[2], w3 = qc[3];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          dv_acc[i][j] = fmaf(pv[i].x, o0, dv_acc[i][j]);
-          dv_acc[i][j] = fmaf(pv[i].y, o1, dv_acc[i][j]);
-          dv_acc[i][j] = fmaf(pv[i].z, o2, dv_acc[i][j]);
-          dv_acc[i][j] = fmaf(pv[i].w, o3, dv_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i].x, w0, dk_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i].y, w1, dk_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i].z, w2, dk_acc[i][j]);
-          dk_acc[i][j] = fmaf(sv[i].w, w3, dk_acc[i][j]);
-        }
-      }
-    }
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int key = k0 + ty * 4 + i;
-    if (key >= t) continue;
-#pragma unroll
-    for (int j = 0; j < NC; ++j) {
-      dk[base + (size_t)key * D + tx + 16 * j] = from_float<T>(dk_acc[i][j] * sm_scale);
-      dv[base + (size_t)key * D + tx + 16 * j] = from_float<T>(dv_acc[i][j]);
-    }
-  }
+  store_rows(dk + base + (size_t)row0 * D, dk_acc, sm_scale, t - row0, lane);
+  store_rows(dv + base + (size_t)row0 * D, dv_acc, 1.f, t - row0, lane);
 }
+
+// ---------------------------------------------------------------------------
+// launches
+// ---------------------------------------------------------------------------
 
 template <typename K>
 cudaError_t set_smem(K kern, int bytes, bool* done) {
@@ -398,41 +565,67 @@ cudaError_t set_smem(K kern, int bytes, bool* done) {
   return err;
 }
 
-template <typename T, int D>
+template <typename T>
+cudaError_t prepare_dq() {
+  static bool done = false;
+  return set_smem(flash_dq_kernel<T>, DQ_BYTES, &done);
+}
+
+template <typename T>
+cudaError_t prepare_dkv() {
+  static bool done = false;
+  return set_smem(flash_dkv_kernel<T>, DKV_BYTES, &done);
+}
+
+template <typename T>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
               const float* delta, const int* lengths, void* dq, int bh, int heads, int t,
               int chunk, float sm_scale, cudaStream_t stream) {
-  static bool smem_set = false;
-  const int smem = Smem<D>::DQ_BYTES;
-  cudaError_t err = set_smem(flash_dq_kernel<T, D>, smem, &smem_set);
+  cudaError_t err = prepare_dq<T>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BQ - 1) / BQ, bh);
-  flash_dq_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(bh, (t + BM - 1) / BM);
+  flash_dq_kernel<T><<<grid, THREADS, DQ_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, lengths, static_cast<T*>(dq), heads, t, chunk,
       sm_scale * LOG2E, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                const float* delta, const int* lengths, void* dk, void* dv, int bh, int heads,
                int t, int chunk, float sm_scale, cudaStream_t stream) {
-  static bool smem_set = false;
-  const int smem = Smem<D>::DKV_BYTES;
-  cudaError_t err = set_smem(flash_dkv_kernel<T, D>, smem, &smem_set);
+  cudaError_t err = prepare_dkv<T>();
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + BK - 1) / BK, bh);
-  flash_dkv_kernel<T, D><<<grid, THREADS, smem, stream>>>(
+  dim3 grid(bh, (t + BM - 1) / BM);
+  flash_dkv_kernel<T><<<grid, THREADS, DKV_BYTES, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, lengths, static_cast<T*>(dk),
       static_cast<T*>(dv), heads, t, chunk, sm_scale * LOG2E, sm_scale);
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+int occupancy(int which, int* blocks) {
+  cudaError_t err;
+  if (which == 0) {
+    err = prepare_dq<T>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_dq_kernel<T>, THREADS,
+                                                          DQ_BYTES);
+  } else {
+    err = prepare_dkv<T>();
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_dkv_kernel<T>, THREADS,
+                                                          DKV_BYTES);
+  }
+  return (int)err;
+}
+
 bool bad_args(int bh, int heads, int t, int d, int chunk) {
   // the estimator's head dim is 64 (8 heads x 64 = 512 wide at every width)
-  return bh <= 0 || t <= 0 || heads <= 0 || bh % heads != 0 || chunk < 0 || d != 64;
+  return bh <= 0 || t <= 0 || heads <= 0 || bh % heads != 0 || chunk < 0 || d != D ||
+         (t + BM - 1) / BM > 65535;
 }
 
 }  // namespace
@@ -446,11 +639,11 @@ extern "C" int cosy_flash_attention_dq(const void* q, const void* k, const void*
   if (bad_args(bh, heads, t, d, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dq<float, 64>(q, k, v, dout, lse, delta, lengths, dq, bh, heads, t, chunk,
-                                sm_scale, s);
+    return launch_dq<float>(q, k, v, dout, lse, delta, lengths, dq, bh, heads, t, chunk,
+                            sm_scale, s);
   if (dtype == 1)
-    return launch_dq<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, lengths, dq, bh, heads, t,
-                                        chunk, sm_scale, s);
+    return launch_dq<__nv_bfloat16>(q, k, v, dout, lse, delta, lengths, dq, bh, heads, t,
+                                    chunk, sm_scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -462,10 +655,18 @@ extern "C" int cosy_flash_attention_dkv(const void* q, const void* k, const void
   if (bad_args(bh, heads, t, d, chunk)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_dkv<float, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, bh, heads, t,
-                                 chunk, sm_scale, s);
+    return launch_dkv<float>(q, k, v, dout, lse, delta, lengths, dk, dv, bh, heads, t, chunk,
+                             sm_scale, s);
   if (dtype == 1)
-    return launch_dkv<__nv_bfloat16, 64>(q, k, v, dout, lse, delta, lengths, dk, dv, bh,
-                                         heads, t, chunk, sm_scale, s);
+    return launch_dkv<__nv_bfloat16>(q, k, v, dout, lse, delta, lengths, dk, dv, bh, heads, t,
+                                     chunk, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Blocks of K3 (which = 0) or K4 (which = 1) resident on one SM, for dtype
+// as above: the occupancy the launch gets.  Returns a cudaError_t.
+extern "C" int cosy_flash_attention_bwd_occupancy(int which, int dtype, int* blocks) {
+  if (dtype == 0) return occupancy<float>(which, blocks);
+  if (dtype == 1) return occupancy<__nv_bfloat16>(which, blocks);
   return (int)cudaErrorInvalidValue;
 }

@@ -5,9 +5,10 @@ Counterpart of ``cosyvoice2_eu_tpu/ops/pallas/flash_attention.py::
 flash_attention`` and its custom VJP.  On a CUDA tensor each wrapper
 launches its hand-written Hopper kernel (K1: ``csrc/flash_attention_sm90.cu``
 for bfloat16, on the tensor cores, and ``csrc/flash_attention.cu`` for
-float32; ``csrc/flash_attention_bwd.cu`` for K3 and K4); on a CPU tensor it
-runs its plain PyTorch version, and on no other device.  There is no
-fallback from the card to the plain versions, nor between K1's two designs.
+float32; ``csrc/flash_attention_bwd.cu`` for K3 and K4, in 3xTF32 on the
+tensor cores); on a CPU tensor it runs its plain PyTorch version, and on no
+other device.  There is no fallback from the card to the plain versions, nor
+between K1's two designs.
 
 Mask semantics == ``ops.masks.chunk_attention_mask``: key j is visible to
 query i iff j < length[b] and, when chunk_size > 0,
@@ -121,6 +122,12 @@ def _check(name, q, others, lengths, chunk_size):
         raise ValueError(f"{name}: chunk_size must be >= 0")
 
 
+def _check_aligned(name, *xs):
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{name}: q, k, v and dO must start on 16-byte boundaries "
+                         "(the kernel loads them by 16-byte asynchronous copies)")
+
+
 def _check_rows(name, q, **rows):
     b, h, t, _ = q.shape
     for row, x in rows.items():
@@ -188,6 +195,7 @@ def flash_attention_dq(q, k, v, do, lse, delta, lengths, chunk_size: int = 0,
         return dq[0].to(q.dtype)
     _check("flash_attention_dq", q, {"k": k, "v": v, "do": do}, lengths, chunk_size)
     _check_rows("flash_attention_dq", q, lse=lse, delta=delta)
+    _check_aligned("flash_attention_dq", q, k, v, do)
     b, h, t, d = q.shape
     lengths = lengths.to(torch.int32).contiguous()
     dq = torch.empty_like(q)
@@ -216,6 +224,7 @@ def flash_attention_dkv(q, k, v, do, lse, delta, lengths, chunk_size: int = 0,
         return dk.to(k.dtype), dv.to(v.dtype)
     _check("flash_attention_dkv", q, {"k": k, "v": v, "do": do}, lengths, chunk_size)
     _check_rows("flash_attention_dkv", q, lse=lse, delta=delta)
+    _check_aligned("flash_attention_dkv", q, k, v, do)
     b, h, t, d = q.shape
     lengths = lengths.to(torch.int32).contiguous()
     dk, dv = torch.empty_like(k), torch.empty_like(v)
