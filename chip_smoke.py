@@ -7,17 +7,21 @@ Phases (any failure ends the run with a non-zero exit code):
   1. print the card's name and power limit, build the CUDA kernels from
      ``cosyvoice2_eu_torch/csrc`` (one nvcc per source, in parallel) and
      print the build time, ptxas's register, spill and shared-memory lines
-     (it fails on a spill in K2's decode design or in K3/K4's source), the
-     count of ``HGMMA`` (wgmma) instructions in the libraries of K1's bf16
-     design and K2's prefill design (it fails at 0 in either), and the
-     blocks of K3 and K4 resident on an SM (it fails below 2) with the waves
-     of their grids at the training path's two batches;
+     (it fails on a spill in K2's decode design, in K1's fp32 source or in
+     K3/K4's), the count of ``HGMMA`` (wgmma) instructions in the libraries
+     of K1's bf16 design and K2's prefill design and of ``HMMA``
+     (``mma.sync``) instructions in those of K1's fp32 design and K3/K4 (it
+     fails at 0 in any), and the blocks of K1 fp32, K3 and K4 resident on an
+     SM (it fails below 3 for K1, 2 for K3/K4) with the waves of their grids
+     at the training path's two batches;
   2. kernel checks against the plain PyTorch versions on the card: K1
-     (flash-attention forward, O and LSE; bf16 on the tensor cores, fp32 on
-     the FMA units) and K3/K4 (its backward, 3xTF32 on the tensor cores),
-     every row, at B=2 ragged shapes and the training path's two batches,
-     bf16 K1 also at the edges of its 128-row tiles (T 1 to 200), with a row
-     of length 0 and at the int8 batch's B=8 (640 blocks, several waves),
+     (flash-attention forward, O and LSE; bf16 by wgmma, fp32 in 3xTF32 on
+     ``mma.sync``) and K3/K4 (its backward, 3xTF32 on ``mma.sync``), every
+     row, at B=2 ragged shapes and the training path's two batches, K1 also
+     at the edges of its tiles (T 1 to 200: bf16 128-row, fp32 64-row blocks
+     over 32-key tiles), with a row of length 0, fp32 K1 with a second
+     launch that must be bit-equal, bf16 K1 at the int8 batch's B=8 (640
+     blocks, several waves),
      K3/K4 also at the edges of their 64-row tiles (T 1 to 129, and a row of
      length 0) with a second launch that must be bit-equal, K1 ->
      K3/K4 also against the fully plain forward and backward; K2 (the int8
@@ -204,11 +208,13 @@ def _k1_errors(got, want, dtype, with_lse: bool) -> tuple:
 def check_flash_attention() -> float:
     """K1 against its plain version at the shapes of both paths, with and
     without LSE; O and LSE compared on every row (pad rows included, which
-    K3 and K4 read).  bf16 also at the edges of the sm90 kernel's 128-row
-    tiles (T 1 to 200), with a row of length 0 (at chunk 0 the mean of V
-    over all T keys on both sides), and at the int8 batch's shape (B=8 at
-    T 1280: 640 blocks, more than one wave of the card).  Returns the worst
-    O error."""
+    K3 and K4 read).  Both designs also at the edges of their tiles (T 1 to
+    200: bf16's 128-row blocks, fp32's 64-row blocks over 32-key tiles), with
+    a row of length 0 (at chunk 0 the mean of V over all T keys on both
+    sides); bf16 at the int8 batch's shape (B=8 at T 1280: 640 blocks, more
+    than one wave of the card).  Every fp32 case launches twice, and the two
+    outputs must be bit-equal (each block owns its outputs).  Returns the
+    worst O error."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
@@ -221,7 +227,9 @@ def check_flash_attention() -> float:
              for lens in _check_cases((128, 384, 1280, 1536, 2048))]
     cases += [([t, max(1, (3 * t) // 5)], t, (torch.bfloat16,), (0, 50), " edge")
               for t in (1, 64, 65, 127, 129, 200)]
-    cases.append(([200, 0], 200, (torch.bfloat16,), (0,), " edge"))
+    cases += [([t, max(1, (3 * t) // 5)], t, (torch.float32,), (0, 50), " edge")
+              for t in (1, 31, 32, 33, 63, 64, 65, 127, 129, 200)]
+    cases.append(([200, 0], 200, both, (0,), " edge"))
     # the int8 path's tts_batch of 4 (CFG doubles the rows) in its mel bucket
     cases.append(([1150, 1270, 730, 1190] * 2, 1280, (torch.bfloat16,), (0, 50), " int8 batch"))
     worst = 0.0
@@ -237,20 +245,28 @@ def check_flash_attention() -> float:
                     want = fa.flash_attention_reference(q, k, v, lengths, chunk,
                                                         return_lse=with_lse)
                     err, tol, lse_err, ok = _k1_errors(got, want, dtype, with_lse)
+                    again = ""
+                    if dtype == torch.float32:
+                        second = fa.flash_attention(q, k, v, lengths, chunk, return_lse=with_lse)
+                        pairs = zip(got, second) if with_lse else [(got, second)]
+                        same = all(torch.equal(a, b) for a, b in pairs)
+                        again, ok = f", a second launch bit-equal: {same}", ok and same
                     print(f"K1{what} check lengths={lens} T={t} {str(dtype)[6:]} chunk={chunk} "
                           f"lse={with_lse}, every row: max_abs_err={err:.3e} (tol {tol:.3e}) "
-                          f"lse_err={lse_err:.3e} (tol {K1_LSE_TOL:g}) {'ok' if ok else 'FAIL'}")
+                          f"lse_err={lse_err:.3e} (tol {K1_LSE_TOL:g}){again} "
+                          f"{'ok' if ok else 'FAIL'}")
                     if not ok:
                         raise SystemExit(f"K1 disagrees with its plain version at lengths={lens}")
                     worst = max(worst, err)
     return worst
 
 
-def bwd_occupancy() -> None:
-    """Blocks of K3 and K4 resident on one SM (CUDA's occupancy calculator on
-    the built kernels), which must be at least 2, and the waves of their
-    grids (one block per 64-row tile and b*h) at the training path's two
-    batches."""
+def tf32_occupancy() -> None:
+    """Blocks of K1's fp32 design, K3 and K4 resident on one SM (CUDA's
+    occupancy calculator on the built kernels), which must be at least what
+    their launch bounds ask (3 for K1, 2 for K3 and K4), and the waves of
+    their grids (one block per 64-row tile and b*h) at the training path's
+    two batches."""
     import ctypes
 
     import torch
@@ -258,27 +274,34 @@ def bwd_occupancy() -> None:
     from cosyvoice2_eu_torch.ops import cuda_build
     from cosyvoice2_eu_torch.ops import flash_attention as fa
 
-    fn = cuda_build.load_library(fa.BWD_SOURCE).cosy_flash_attention_bwd_occupancy
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
-    fn.restype = ctypes.c_int
+    fwd = cuda_build.load_library(fa.SOURCE).cosy_flash_attention_fwd_occupancy
+    fwd.argtypes = [ctypes.POINTER(ctypes.c_int)]
+    bwd = cuda_build.load_library(fa.BWD_SOURCE).cosy_flash_attention_bwd_occupancy
+    bwd.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    fwd.restype = bwd.restype = ctypes.c_int
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for which, name in ((0, "K3"), (1, "K4")):
+    kernels = (("K1", fa.SOURCE, 3, {"fp32": fwd}),
+               ("K3", fa.BWD_SOURCE, 2, {"fp32": functools.partial(bwd, 0, 0),
+                                         "bf16": functools.partial(bwd, 0, 1)}),
+               ("K4", fa.BWD_SOURCE, 2, {"fp32": functools.partial(bwd, 1, 0),
+                                         "bf16": functools.partial(bwd, 1, 1)}))
+    for name, src, least, queries in kernels:
         per_sm = {}
-        for dtype, code in (("fp32", 0), ("bf16", 1)):
+        for dtype, query in queries.items():
             n = ctypes.c_int(0)
-            err = fn(which, code, ctypes.byref(n))
+            err = query(ctypes.byref(n))
             if err:
                 raise SystemExit(f"{name}: occupancy query failed: CUDA error {err}")
             per_sm[dtype] = n.value
         waves = [f"lengths={lens}: {len(lens) * 8 * -(-max(lens) // 64)} blocks, "
                  f"{len(lens) * 8 * -(-max(lens) // 64) / (per_sm['fp32'] * sms):.2f} waves"
                  for lens in TRAIN_SHAPES]
-        ok = min(per_sm.values()) >= 2
-        print(f"  {fa.BWD_SOURCE} {name}: {per_sm['fp32']} blocks an SM in fp32, "
-              f"{per_sm['bf16']} in bf16, x {sms} SMs; {'; '.join(waves)} "
-              f"{'ok' if ok else 'FAIL'}")
+        ok = min(per_sm.values()) >= least
+        print(f"  {src} {name}: "
+              + ", ".join(f"{n} blocks an SM in {dtype}" for dtype, n in per_sm.items())
+              + f" (at least {least}), x {sms} SMs; {'; '.join(waves)} {'ok' if ok else 'FAIL'}")
         if not ok:
-            raise SystemExit(f"{name}: fewer than 2 blocks fit on an SM")
+            raise SystemExit(f"{name}: fewer than {least} blocks fit on an SM")
 
 
 @_uncounted
@@ -1438,7 +1461,7 @@ def main() -> None:
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
                 print(f"  {src}: {line.strip()}")
-    for src in (i8.DECODE_SOURCE, fa.BWD_SOURCE):
+    for src in (i8.DECODE_SOURCE, fa.SOURCE, fa.BWD_SOURCE):
         spills = [line.strip() for line in cuda_build.build_logs[src].splitlines()
                   if any(int(b) for b in re.findall(r"(\d+) bytes spill", line))]
         print(f"  {src}: no spills in any of its kernels: {not spills} "
@@ -1451,7 +1474,13 @@ def main() -> None:
               f"{'ok' if hgmma else 'FAIL'}")
         if not hgmma:
             raise SystemExit(f"{src} holds no wgmma instruction")
-    bwd_occupancy()
+    for src in (fa.SOURCE, fa.BWD_SOURCE):
+        hmma = _sass_count(cuda_build.library_path(src), "HMMA")
+        print(f"  {src}: {hmma} HMMA (mma.sync) instructions in its SASS "
+              f"{'ok' if hmma else 'FAIL'}")
+        if not hmma:
+            raise SystemExit(f"{src} holds no mma.sync instruction")
+    tf32_occupancy()
     _record_launches(fa)
     _record_k2_launches(i8)
 
@@ -1490,7 +1519,7 @@ def main() -> None:
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
     keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
             "library_ms")
-    # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (FMA) in training
+    # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (3xTF32) in training
     serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8)])
     designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}
     k1 = _kernel_row("flash_attention_fwd", fa.SM90_SOURCE, "flash_attention.py:71",

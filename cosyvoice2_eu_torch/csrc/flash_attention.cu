@@ -1,5 +1,5 @@
-// Flash-attention forward in float32 for Hopper (sm_90a), plain C interface
-// for ctypes.
+// Flash-attention forward in float32 on Hopper's tensor cores (sm_90a) in
+// 3xTF32, plain C interface for ctypes.
 //
 // Replaces the TPU kernel cosyvoice2_eu_tpu/ops/pallas/flash_attention.py::
 // _attn_kernel (launched by _flash_call / flash_attention) for float32
@@ -11,223 +11,247 @@
 //   j < (i / chunk + 1) * chunk.
 // Masked scores take the same finite NEG_INF = -1e30 as the TPU kernel and l
 // is clamped at 1e-30, so a row with no visible key (length[b] == 0) gives
-// the mean of V over the visited keys, as the TPU kernel does, not NaN (with
-// chunk > 0 the visited keys end at this kernel's 64-key tile boundary, not
-// at the TPU kernel's wider block).  Keys past T are excluded outright.  Key
-// tiles past the chunk bound are skipped, and so are tiles past length[b]
-// when length[b] > 0 (their weights are exactly 0).
+// the mean of V over the visited keys, as the TPU kernel does, not NaN, and
+// its LSE is -1e30.  At chunk 0 that is every key below T; with chunk > 0
+// the visited keys end at the 32-key tile boundary past the block's chunk
+// bound, not at the TPU kernel's wider block (no path makes such a row).
+// Keys past T are excluded outright.  Key tiles past the chunk bound are
+// skipped, and so are tiles past length[b] when length[b] > 0 (their
+// weights are exactly 0).  Each block owns its outputs, so two launches on
+// the same inputs are bit-equal.
 //
-// Inputs q, k, v: (B*H, T, D) contiguous float32; scores, softmax,
-// accumulator and output in fp32; optional fp32 log-sum-exp (B*H, T).
+// Inputs q, k, v: (B*H, T, 64) contiguous float32, k and v 16-byte aligned;
+// scores, softmax, accumulator and output in fp32; optional fp32 natural-log
+// log-sum-exp (B*H, T).
 //
-// What bounds it on the H100: fp32 has no dense tensor-core path other than
-// TF32, which would break the train step's gradient parity, so the bound is
-// the fp32 FMA rate (67 TFLOP/s).  The design is simple and right: one
-// 256-thread block per (64-query tile, batch*head), K/V tiles of 64 keys
-// staged in shared memory, each thread owning a 4x4 score block and a
-// 4x(D/16) output block.  Its gap to that bound is the block's shared-memory
-// traffic (about 2.5 FMAs per shared load) and loads that overlap no math.
+// What bounds it on the H100.  At the training shapes (B*H = 32, T = 740, or
+// B*H = 16, T = 1480, D = 64) it does 4*D operations per visible (query,
+// key) pair, 3.9 and 8.2 GFLOP at chunk 0, on ~24 MB, so operations bound
+// it.  fp32 has no fp32-accurate tensor-core path but 3xTF32 (plain TF32
+// would break the train step's gradient parity): three TF32 products at the
+// dense 495 TFLOP/s, 0.024 / 0.049 ms; on the fp32 FMA units (67 TFLOP/s)
+// 0.058 / 0.122 ms.
+//
+// What this design does about it (the tile product is tf32_mma.cuh's,
+// shared with the backward):
+//   * Both products run on the tensor cores: mma.sync.m16n8k8 with tf32
+//     operands and fp32 accumulators, three products per k-step.
+//   * A block is 4 warps and owns 64 query rows, 16 per warp.  Each warp
+//     loads its Q rows once, pre-scales them by scale * log2(e) in fp32 and
+//     keeps them split into TF32 hi and lo A fragments in registers (64 a
+//     thread) for all key tiles.
+//   * K and V stream in 32-key tiles through a 2-stage cp.async ring (zero
+//     filled past T), so tile i+1 is in flight while tile i is multiplied.
+//     Each thread splits its own landed chunks in place into hi and lo, so a
+//     tile is split once for all four warps.
+//   * S = Q K^T lands in registers; the mask and the base-2 online softmax
+//     work on the accumulators (row max and sum over the lane quad by two
+//     shuffles each), and alpha rescales the O accumulator in registers.
+//   * O += P V takes P from the score accumulator as its A operand (columns
+//     2t and 2t+1 read as k = t and t+4, V's rows permuted to match), split
+//     once a tile: P never goes to shared memory.
+//   * Tiles that every row of a warp sees whole (below the chunk bound of
+//     its first row, and below T) skip the mask.
+//   * Two barriers a tile (the landed tile split by all; the stage read by
+//     all before it is refilled).  70 KB of shared memory and at most 168
+//     registers a thread (launch bounds of 128 threads and 3 blocks), so
+//     three blocks fit an SM: 384 blocks at both training shapes, 0.97 waves
+//     of the 132 SMs (two blocks, at ~196 registers, took 1.45 waves and
+//     ran longer at chunk 0).  The Q fragments (64 registers) and the O
+//     accumulator (32) leave little room, so each thread keeps its rows'
+//     running max and sum in shared memory between tiles, and a full K/V
+//     tile is loaded from one pointer a thread with constant offsets: both
+//     keep ptxas from spilling under the 168-register cap.  The grid is
+//     (B*H, 64-query tiles), and blocks start with the last query tile, the
+//     heaviest under a chunk mask.
+//
+// Precision: 3xTF32 products (~2^-21 of |a*b|) summed by the tensor core's
+// fp32 accumulation, which truncates; both stay inside the plain version's
+// 1e-4 on O and 1e-5 on the LSE.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "tf32_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per block
-constexpr int BK = 64;        // keys per tile
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int MIN_BLOCKS = 3;  // blocks an SM, for the register budget
 constexpr float NEG_INF = -1.0e30f;
-constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
+// Ring: 2 stages x K, V x hi, lo; then each thread's running max and sum.
+constexpr int SMEM_BYTES = (8 * STILE + 4 * THREADS) * 4;
 
-template <int D>
-struct Smem {
-  static constexpr int QS = D + 4;   // Q row stride (float4-aligned, bank offset)
-  static constexpr int KS = BK + 1;  // K^T row stride (conflict-free transpose)
-  static constexpr int PS = BK + 4;  // P row stride
-  static constexpr int BYTES = (BQ * QS + D * KS + BK * D + BQ * PS) * 4;
-};
+// K and V rows r0 .. r0+SN-1 into a ring stage: a full tile by one pointer a
+// thread and constant offsets, the last (partial) one zero-filled past t
+__device__ __forceinline__ void load_kv(float* st, const float* k, const float* v, int r0, int t,
+                                        int tid) {
+  if (r0 + SN <= t) {
+    const size_t at = (size_t)r0 * D + tid * 4;  // chunk i: row tid / 16 + 8 i
+    float* dst = st + (tid >> 4) * RS + (tid & 15) * 4;
+#pragma unroll
+    for (int i = 0; i < SN * D / 4 / THREADS; ++i) {
+      cp_async16(dst + 8 * i * RS, k + at + 8 * i * D, true);
+      cp_async16(dst + 2 * STILE + 8 * i * RS, v + at + 8 * i * D, true);
+    }
+  } else {
+    load_tile<SN>(st, k, r0, t, tid);
+    load_tile<SN>(st + 2 * STILE, v, r0, t, tid);
+  }
+}
 
-template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const int* __restrict__ lengths,
-                 float* __restrict__ o, float* __restrict__ lse,
-                 int heads, int t, int chunk, float scale_log2) {
-  constexpr int NC = D / 16;  // output columns per thread
-  using S = Smem<D>;
+                 float* __restrict__ o, float* __restrict__ lse, int heads, int t, int chunk,
+                 float scale_log2) {
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* Qs = smem;                 // [BQ][QS], pre-scaled by scale*log2(e)
-  float* Kt = Qs + BQ * S::QS;      // [D][KS]  (K transposed)
-  float* Vs = Kt + D * S::KS;       // [BK][D]
-  float* Ps = Vs + BK * D;          // [BQ][PS]
+  float* ring = reinterpret_cast<float*>(smem4);  // stage s: K hi, K lo, V hi, V lo [SN][RS] from 4s
 
-  const int tid = threadIdx.x;
-  const int ty = tid / 16, tx = tid % 16;
-  const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * BQ;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // this thread's running max (base 2) and sum of its two rows
+  float4* ml = reinterpret_cast<float4*>(ring + 8 * STILE) + tid;
+  const int g = lane >> 2, tq = lane & 3;
+  const int bh = blockIdx.x;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;  // last query tile first
   const int length = lengths[bh / heads];
   const size_t base = (size_t)bh * t * D;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
-    int r = e / D, c = e % D;
-    int row = q0 + r;
-    Qs[r * S::QS + c] = row < t ? q[base + (size_t)row * D + c] * scale_log2 : 0.f;
-  }
-
-  // number of key tiles any row of this block can see
-  const int q_last = min(q0 + BQ, t) - 1;
+  // key tiles any row of this block can see
+  const int q_last = min(q0 + BM, t) - 1;
   int kv_end = t;
   if (chunk > 0) kv_end = min(kv_end, (q_last / chunk + 1) * chunk);
   if (length > 0) kv_end = min(kv_end, length);
-  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int n_tiles = (kv_end + SN - 1) / SN;
 
-  int row_limit[4];
+  load_kv(ring, k + base, v + base, 0, t, tid);
+  cp_async_commit();
+
+  // this thread's rows: g and g + 8 of the warp's 16; their Q fragments,
+  // scaled and split, while the first tile flies
+  const int row0 = q0 + warp * 16;
+  SplitA qa;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    int row = q0 + ty * 4 + i;
-    row_limit[i] = chunk > 0 ? min((row / chunk + 1) * chunk, length) : length;
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + g + 8 * r;
+    const float* qr = q + base + (size_t)min(row, t - 1) * D + tq;
+#pragma unroll
+    for (int ks = 0; ks < KS; ++ks) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {  // columns ks*8 + tq and ks*8 + tq + 4
+        const float x = row < t ? __ldg(qr + ks * 8 + 4 * c) * scale_log2 : 0.f;
+        split(x, qa.hi[ks][r + 2 * c], qa.lo[ks][r + 2 * c]);
+      }
+    }
   }
 
-  float acc[4][NC];
-  float m[4], l[4];
+  // every row of the warp sees the keys below full_end (visible_end grows
+  // with the row): the tiles under it need no mask
+  const int full_end = min(visible_end(row0, chunk, length), t);
+
+  *ml = make_float4(NEG_INF, NEG_INF, 0.f, 0.f);
+  float acc[8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.f;
+  for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int j = 0; j < NC; ++j) acc[i][j] = 0.f;
-  }
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
 
   for (int kb = 0; kb < n_tiles; ++kb) {
-    const int k0 = kb * BK;
-    __syncthreads();  // previous tile fully consumed (and Qs written)
-    for (int e = tid; e < BK * D; e += THREADS) {
-      int r = e / D, c = e % D;
-      int key = k0 + r;
-      float kval = 0.f, vval = 0.f;
-      if (key < t) {
-        kval = k[base + (size_t)key * D + c];
-        vval = v[base + (size_t)key * D + c];
-      }
-      Kt[c * S::KS + r] = kval;
-      Vs[r * D + c] = vval;
+    const int s = kb & 1;
+    float* Khi = ring + 4 * s * STILE;
+    float* Klo = Khi + STILE;
+    float* Vhi = Khi + 2 * STILE;
+    float* Vlo = Khi + 3 * STILE;
+    if (kb + 1 < n_tiles) {  // the next tile flies while this one is multiplied
+      float* next = ring + 4 * (s ^ 1) * STILE;
+      load_kv(next, k + base, v + base, (kb + 1) * SN, t, tid);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
+    split_tile<SN, float>(Khi, Klo, tid);
+    split_tile<SN, float>(Vhi, Vlo, tid);
     __syncthreads();
 
-    // S = Q K^T for rows ty*4+i, keys tx+16*j
-    float s[4][4];
+    float sc[NT][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(&Qs[(ty * 4 + i) * S::QS + d]);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx + 16 * j;
-        float k0v = Kt[(d + 0) * S::KS + c], k1v = Kt[(d + 1) * S::KS + c];
-        float k2v = Kt[(d + 2) * S::KS + c], k3v = Kt[(d + 3) * S::KS + c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          s[i][j] = fmaf(qv[i].x, k0v, s[i][j]);
-          s[i][j] = fmaf(qv[i].y, k1v, s[i][j]);
-          s[i][j] = fmaf(qv[i].z, k2v, s[i][j]);
-          s[i][j] = fmaf(qv[i].w, k3v, s[i][j]);
-        }
-      }
-    }
+      for (int e = 0; e < 4; ++e) sc[i][e] = 0.f;
+    score_product(sc, qa, Khi, Klo, lane);  // S = Q K^T, in base 2
 
-    // mask + online softmax (base 2; scores already carry log2(e))
+    // mask + online softmax on the accumulators
+    const int k0 = kb * SN;
+    if (k0 + SN > full_end) {
+      const int row_end[2] = {visible_end(row0 + g, chunk, length),
+                              visible_end(row0 + g + 8, chunk, length)};
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
+      for (int i = 0; i < NT; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int key = k0 + tx + 16 * j;
-        if (key >= t) s[i][j] = -INFINITY;
-        else if (key >= row_limit[i]) s[i][j] = NEG_INF;
-        mx = fmaxf(mx, s[i][j]);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float alpha = exp2f(m[i] - mx);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - mx);
-        rs += p;
-        Ps[(ty * 4 + i) * S::PS + tx + 16 * j] = p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) rs += __shfl_xor_sync(0xffffffffu, rs, off);
-      l[i] = l[i] * alpha + rs;
-      m[i] = mx;
-#pragma unroll
-      for (int j = 0; j < NC; ++j) acc[i][j] *= alpha;
-    }
-    __syncthreads();
-
-    // acc += P V for rows ty*4+i, columns tx+16*j
-#pragma unroll 2
-    for (int c = 0; c < BK; c += 4) {
-      float4 pv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(&Ps[(ty * 4 + i) * S::PS + c]);
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        const int col = tx + 16 * j;
-        float v0 = Vs[(c + 0) * D + col], v1 = Vs[(c + 1) * D + col];
-        float v2 = Vs[(c + 2) * D + col], v3 = Vs[(c + 3) * D + col];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][j] = fmaf(pv[i].x, v0, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].y, v1, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].z, v2, acc[i][j]);
-          acc[i][j] = fmaf(pv[i].w, v3, acc[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + i * 8 + 2 * tq + (e & 1);
+          if (key >= t) sc[i][e] = -INFINITY;
+          else if (key >= row_end[e >> 1]) sc[i][e] = NEG_INF;
         }
-      }
     }
+    const float4 ml0 = *ml;
+    const float m[2] = {ml0.x, ml0.y};
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], sc[i][e]);
+    float alpha[2], rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+    }
+#pragma unroll
+    for (int i = 0; i < NT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        sc[i][e] = exp2f(sc[i][e] - mx[e >> 1]);
+        rs[e >> 1] += sc[i][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 1);
+      rs[r] += __shfl_xor_sync(0xffffffffu, rs[r], 2);
+    }
+    *ml = make_float4(mx[0], mx[1], ml0.z * alpha[0] + rs[0], ml0.w * alpha[1] + rs[1]);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][e] *= alpha[e >> 1];
+    value_product(acc, sc, Vhi, Vlo, lane);  // O += P V
+    __syncthreads();                         // stage s read by all before it is refilled
   }
 
+  const float4 ml1 = *ml;
+  const float m[2] = {ml1.x, ml1.y}, l[2] = {ml1.z, ml1.w};
+  float inv_l[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
-    if (row >= t) continue;
-    const float inv_l = 1.f / fmaxf(l[i], 1e-30f);
+  for (int r = 0; r < 2; ++r) inv_l[r] = 1.f / fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int j = 0; j < NC; ++j)
-      o[base + (size_t)row * D + tx + 16 * j] = acc[i][j] * inv_l;
-    if (lse != nullptr && tx == 0) {
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] *= inv_l[e >> 1];
+  store_rows(o + base + (size_t)row0 * D, acc, 1.f, t - row0, lane);
+  if (lse != nullptr && tq == 0) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + g + 8 * r;
+      if (row >= t) continue;
       // natural-log lse; a row with no visible key keeps the TPU kernel's -1e30
-      const float m_nat = m[i] == NEG_INF ? NEG_INF : m[i] * LN2;
-      lse[(size_t)bh * t + row] = m_nat + logf(fmaxf(l[i], 1e-30f));
+      const float m_nat = m[r] == NEG_INF ? NEG_INF : m[r] * LN2;
+      lse[(size_t)bh * t + row] = m_nat + logf(fmaxf(l[r], 1e-30f));
     }
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, const int* lengths, float* o,
-           float* lse, int bh, int heads, int t, int chunk, float sm_scale,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<D>;
-  const int smem = Smem<D>::BYTES;
-  static bool smem_set = false;  // the attribute is per kernel and idempotent
-  if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  dim3 grid((t + BQ - 1) / BQ, bh);
-  kern<<<grid, THREADS, smem, stream>>>(q, k, v, lengths, o, lse, heads, t, chunk,
-                                        sm_scale * LOG2E);
-  return (int)cudaGetLastError();
+cudaError_t prepare() {
+  static bool done = false;
+  return set_smem(flash_fwd_kernel, SMEM_BYTES, &done);
 }
 
 }  // namespace
@@ -238,10 +262,22 @@ extern "C" int cosy_flash_attention_fwd(const void* q, const void* k, const void
                                         const int* lengths, void* o, float* lse, int bh,
                                         int heads, int t, int d, int chunk, float sm_scale,
                                         int dtype, void* stream) {
-  // the estimator's head dim is 64 (8 heads x 64 = 512 wide at every width)
-  if (bh <= 0 || t <= 0 || heads <= 0 || bh % heads != 0 || chunk < 0 || d != 64 || dtype != 0)
-    return (int)cudaErrorInvalidValue;
-  return launch<64>(static_cast<const float*>(q), static_cast<const float*>(k),
-                    static_cast<const float*>(v), lengths, static_cast<float*>(o), lse, bh, heads,
-                    t, chunk, sm_scale, static_cast<cudaStream_t>(stream));
+  if (bad_args(bh, heads, t, d, chunk) || dtype != 0) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare();
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(bh, (t + BM - 1) / BM);
+  flash_fwd_kernel<<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      lengths, static_cast<float*>(o), lse, heads, t, chunk, sm_scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+// Blocks of the kernel resident on one SM: the occupancy the launch gets.
+// Returns a cudaError_t.
+extern "C" int cosy_flash_attention_fwd_occupancy(int* blocks) {
+  cudaError_t err = prepare();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, flash_fwd_kernel, THREADS,
+                                                        SMEM_BYTES);
+  return (int)err;
 }

@@ -3,7 +3,8 @@
 Each ``csrc/*.cu`` file has a plain C interface.  At first use it is compiled
 with ``nvcc -gencode arch=compute_90a,code=sm_90a`` into a shared library
 under ``cosyvoice2_eu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of its source and the compiler flags, and loaded with ``ctypes``.
+hash of its source, the shared ``csrc/*.cuh`` headers and the compiler
+flags, and loaded with ``ctypes``.
 ``build`` starts one nvcc per missing source, all at once, and waits for
 them.  nvcc's report (ptxas's registers, spills and shared memory per
 kernel) is kept beside each library as ``<library>.log``, so ``build_logs``
@@ -43,8 +44,12 @@ def _nvcc() -> str:
 
 def library_path(source: str) -> Path:
     """The shared library of one ``csrc`` source, named by the hash of the
-    source and the flags."""
-    key = hashlib.sha256((CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode())
+    source, every ``csrc/*.cuh`` header (a source may include any of them)
+    and the flags."""
+    key = hashlib.sha256((CSRC / source).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.name.encode() + header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{Path(source).stem}_{key.hexdigest()[:16]}.so"
 
 

@@ -3,12 +3,13 @@ and backward (kernels K3 and K4).
 
 Counterpart of ``cosyvoice2_eu_tpu/ops/pallas/flash_attention.py::
 flash_attention`` and its custom VJP.  On a CUDA tensor each wrapper
-launches its hand-written Hopper kernel (K1: ``csrc/flash_attention_sm90.cu``
-for bfloat16, on the tensor cores, and ``csrc/flash_attention.cu`` for
-float32; ``csrc/flash_attention_bwd.cu`` for K3 and K4, in 3xTF32 on the
-tensor cores); on a CPU tensor it runs its plain PyTorch version, and on no
-other device.  There is no fallback from the card to the plain versions, nor
-between K1's two designs.
+launches its hand-written Hopper kernel, all on the tensor cores (K1:
+``csrc/flash_attention_sm90.cu`` for bfloat16, by wgmma, and
+``csrc/flash_attention.cu`` for float32, in 3xTF32 on mma.sync;
+``csrc/flash_attention_bwd.cu`` for K3 and K4, in 3xTF32 on mma.sync; the
+3xTF32 tile product is ``csrc/tf32_mma.cuh``); on a CPU tensor it runs its
+plain PyTorch version, and on no other device.  There is no fallback from
+the card to the plain versions, nor between K1's two designs.
 
 Mask semantics == ``ops.masks.chunk_attention_mask``: key j is visible to
 query i iff j < length[b] and, when chunk_size > 0,
@@ -32,7 +33,7 @@ import torch
 from cosyvoice2_eu_torch.ops.masks import chunk_attention_mask
 
 NEG_INF = -1.0e30
-SOURCE = "flash_attention.cu"            # K1, float32 (fp32 FMA)
+SOURCE = "flash_attention.cu"            # K1, float32 (3xTF32 on mma.sync)
 SM90_SOURCE = "flash_attention_sm90.cu"  # K1, bfloat16 (wgmma and TMA)
 BWD_SOURCE = "flash_attention_bwd.cu"
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -124,8 +125,8 @@ def _check(name, q, others, lengths, chunk_size):
 
 def _check_aligned(name, *xs):
     if any(x.data_ptr() % 16 for x in xs):
-        raise ValueError(f"{name}: q, k, v and dO must start on 16-byte boundaries "
-                         "(the kernel loads them by 16-byte asynchronous copies)")
+        raise ValueError(f"{name}: q, k, v (and dO) must start on 16-byte boundaries "
+                         "(the kernels load them by TMA or 16-byte asynchronous copies)")
 
 
 def _check_rows(name, q, **rows):
@@ -163,9 +164,7 @@ def _launch_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse):
     if q.device.type == "cpu":
         return flash_attention_reference(q, k, v, lengths, chunk_size, sm_scale, return_lse)
     _check("flash_attention", q, {"k": k, "v": v}, lengths, chunk_size)
-    if q.dtype == torch.bfloat16 and any(x.data_ptr() % 16 for x in (q, k, v)):
-        raise ValueError("flash_attention: bfloat16 q, k, v must start on 16-byte boundaries "
-                         "(the kernel reads them by TMA)")
+    _check_aligned("flash_attention", q, k, v)
     b, h, t, d = q.shape
     lengths = lengths.to(torch.int32).contiguous()
     o = torch.empty_like(q)

@@ -141,7 +141,7 @@ def test_sm90_emulation_row_of_length_zero():
 
 
 def test_dtype_picks_the_kernel_design():
-    """bf16 launches the wgmma/TMA source, fp32 the FMA source."""
+    """bf16 launches the wgmma/TMA source, fp32 the 3xTF32 mma.sync source."""
     assert port_fa.fwd_kernel(torch.bfloat16) == ("flash_attention_sm90.cu",
                                                   "cosy_flash_attention_sm90_fwd")
     assert port_fa.fwd_kernel(torch.float32) == ("flash_attention.cu", "cosy_flash_attention_fwd")

@@ -120,10 +120,13 @@ def k4_emulation(q, k, v, do, lse, delta, length, chunk, scale):
 
 
 def test_emulated_tiles_are_the_sources():
-    """The emulation's block and tile heights are the kernels' own."""
+    """The emulation's block and tile heights are the kernels' own: the
+    backward takes them from the tile product's header, which it includes."""
     from pathlib import Path
 
-    src = (Path(port_fa.__file__).parent.parent / "csrc" / port_fa.BWD_SOURCE).read_text()
+    csrc = Path(port_fa.__file__).parent.parent / "csrc"
+    assert '#include "tf32_mma.cuh"' in (csrc / port_fa.BWD_SOURCE).read_text()
+    src = (csrc / "tf32_mma.cuh").read_text()
     assert f"constexpr int BM = {BM};" in src and f"constexpr int SN = {SN};" in src
 
 

@@ -140,11 +140,12 @@ def test_flash_cpu_tensor_takes_plain_version_without_counting():
 
 @pytest.mark.cuda
 def test_flash_kernel_matches_plain_on_card(cuda_device):
-    """K1 on the card (bf16: the wgmma/TMA design; fp32: the FMA design)
-    against its plain version on valid rows, O and LSE, at T 300 and at
-    T 65 (a partial tile); skipped without a GPU.  fp32 1e-4 (summation
-    order); bf16 one output rounding, 2^-7 of the largest output (both
-    round nearly the same fp32 result); the fp32 LSE 1e-5."""
+    """K1 on the card (bf16: the wgmma/TMA design; fp32: the 3xTF32
+    mma.sync design) against its plain version on valid rows, O and LSE, at
+    T 300 and at T 65 (a partial tile); skipped without a GPU.  fp32 1e-4
+    (summation order and 3xTF32's ~2^-21 products); bf16 one output
+    rounding, 2^-7 of the largest output (both round nearly the same fp32
+    result); the fp32 LSE 1e-5."""
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     for t_len, lens in ((300, (300, 123)), (65, (65, 40))):
         for dtype in (torch.float32, torch.bfloat16):
@@ -164,3 +165,22 @@ def test_flash_kernel_matches_plain_on_card(cuda_device):
                     assert err <= tol, (t_len, dtype, chunk, err, tol)
                     lse_err = (got_lse[b, :, :n] - want_lse[b, :, :n]).abs().max().item()
                     assert lse_err <= 1e-5, (t_len, dtype, chunk, lse_err)
+
+
+def test_library_name_follows_the_shared_headers(tmp_path, monkeypatch):
+    """A library is named by its source, every csrc/*.cuh header and the
+    flags, so an edit to a header the source includes rebuilds it, and an
+    edit to another source does not."""
+    from cosyvoice2_eu_torch.ops import cuda_build
+
+    (tmp_path / "a.cu").write_text('#include "shared.cuh"\n')
+    (tmp_path / "b.cu").write_text("int b;\n")
+    (tmp_path / "shared.cuh").write_text("int x;\n")
+    monkeypatch.setattr(cuda_build, "CSRC", tmp_path)
+    before = cuda_build.library_path("a.cu")
+    assert before == cuda_build.library_path("a.cu")
+    assert before.name.startswith("a_") and before.suffix == ".so"
+    (tmp_path / "b.cu").write_text("int b2;\n")
+    assert cuda_build.library_path("a.cu") == before
+    (tmp_path / "shared.cuh").write_text("int y;\n")
+    assert cuda_build.library_path("a.cu") != before
