@@ -47,18 +47,32 @@ Phases (any failure ends the run with a non-zero exit code):
      design and every decode launch the decode one; per-stage times, RTF, the
      int8-vs-bf16 logits on one packed prompt, and ``lm_prefill`` alone at
      one request's and the batch's prompt;
+  5b. stream phase: on a small config, streams on the card against the
+     plain CPU path (the chunk-cached path, the recompute path and a
+     rollover past a 100-token cap: equal chunks, audio within 1e-3) and
+     the cached flow's mel against the recompute on the card; at the
+     published widths one ``Cosy2EU.stream`` request per path
+     (``cached_stream=False``, then the default) and one ``Cosy2EU.tts``,
+     each on a fresh ``load(seed=0)``, which must give the same tokens,
+     tokens x 960 samples in finite, non-silent chunks and 560 K1 launches
+     per flow call (recompute: one per chunk; cached: 2), with time to
+     first audio, each chunk's wall time, the steady chunk's median, RTF,
+     LM ms/token, session bytes (held equal to the state's tensors) and
+     peak memory; one int8 cached stream (K2 168 + 169 x steps, each launch
+     on its design); then K1 checked at every (lengths, T, chunk) the
+     phase gave it;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
      MultiSteps update at step 4, 56 launches of K1 (with LSE), K3 and K4
      per step, and a bit-exact checkpoint round trip; per-step times;
-  7. kernel timings at the shapes of the paths: K1 on all three (with
+  7. kernel timings at the shapes of the paths: K1 on all four (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one), K3 and K4 at
      the training path's shapes (CUDA-graph replay, eager beside it), with
      the bound of fp32 work in 3xTF32 (three TF32 products at the tensor
      cores' 495 TFLOP/s) and the fp32 FMA units' bound beside it, K2 at every
-     (M, N, K) of the int8 path with its weights cold in L2 (its output
+     (M, N, K) of the int8 path and stream with its weights cold in L2 (its output
      held against the plain one, with TFLOP/s and the share of the bound,
      beside its plain version, ``torch._weight_int8pack_mm`` where the
      card's PyTorch runs it, ``F.linear`` on the bf16 weights and, at the
@@ -68,8 +82,9 @@ Phases (any failure ends the run with a non-zero exit code):
      design's, ``F.linear``'s and the bound.
 The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
 are means per launch over the paths (each path's under ``by_path``, each
-design's under ``by_dtype``: bf16 on the TTS and int8 paths, fp32 on the
-training path), K2's over the int8 path's shapes (each under ``by_shape``,
+design's under ``by_dtype``: bf16 on the TTS, int8 and stream paths, fp32
+on the training path), K2's over the shapes of the int8 path and the int8
+stream (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
 and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
@@ -204,24 +219,10 @@ def _k1_errors(got, want, dtype, with_lse: bool) -> tuple:
     return err, tol, lse_err, ok
 
 
-@_uncounted
-def check_flash_attention() -> float:
-    """K1 against its plain version at the shapes of both paths, with and
-    without LSE; O and LSE compared on every row (pad rows included, which
-    K3 and K4 read).  Both designs also at the edges of their tiles (T 1 to
-    200: bf16's 128-row blocks, fp32's 64-row blocks over 32-key tiles), with
-    a row of length 0 (at chunk 0 the mean of V over all T keys on both
-    sides); bf16 at the int8 batch's shape (B=8 at T 1280: 640 blocks, more
-    than one wave of the card).  Every fp32 case launches twice, and the two
-    outputs must be bit-equal (each block owns its outputs).  Returns the
-    worst O error."""
+def _k1_default_cases() -> list:
+    """K1's check cases: (lengths, T, dtypes, chunks, label)."""
     import torch
 
-    from cosyvoice2_eu_torch.ops import flash_attention as fa
-
-    h, d = 8, 64
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(0)
     both = (torch.bfloat16, torch.float32)
     cases = [(lens, max(lens), both, (0, 50), "")
              for lens in _check_cases((128, 384, 1280, 1536, 2048))]
@@ -232,6 +233,30 @@ def check_flash_attention() -> float:
     cases.append(([200, 0], 200, both, (0,), " edge"))
     # the int8 path's tts_batch of 4 (CFG doubles the rows) in its mel bucket
     cases.append(([1150, 1270, 730, 1190] * 2, 1280, (torch.bfloat16,), (0, 50), " int8 batch"))
+    return cases
+
+
+@_uncounted
+def check_flash_attention(cases=None) -> float:
+    """K1 against its plain version at the shapes of both paths, with and
+    without LSE; O and LSE compared on every row (pad rows included, which
+    K3 and K4 read).  Both designs also at the edges of their tiles (T 1 to
+    200: bf16's 128-row blocks, fp32's 64-row blocks over 32-key tiles), with
+    a row of length 0 (at chunk 0 the mean of V over all T keys on both
+    sides); bf16 at the int8 batch's shape (B=8 at T 1280: 640 blocks, more
+    than one wave of the card).  Every fp32 case launches twice, and the two
+    outputs must be bit-equal (each block owns its outputs).  ``cases``
+    replaces these with (lengths, T, dtypes, chunks, label) of its own (the
+    stream phase's flow calls).  Returns the worst O error."""
+    import torch
+
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    h, d = 8, 64
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    if cases is None:
+        cases = _k1_default_cases()
     worst = 0.0
     for lens, t, dtypes, chunks, what in cases:
         b = len(lens)
@@ -566,19 +591,23 @@ def _weighted(parts: list) -> dict:
 def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, list]:
     """K1, its plain version and SDPA at each flow call's shape of a TTS path.
 
-    ``shapes`` holds (T, valid mel frames of each of K1's batch rows) per
-    flow call (the CFG halves double the rows), and each call launches K1
-    equally often.  Returns the path's mean per launch and the kernel's ms
-    at each call's shape.
+    ``shapes`` holds (T, valid mel frames of each of K1's batch rows, chunk)
+    per flow call (the CFG halves double the rows), and each call launches
+    K1 equally often; a shape met again is timed once.  Returns the path's
+    mean per launch and the kernel's ms at each call's shape.
     """
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    rows = []
-    for t, lens in shapes:
-        r = _time_k1(lens, t, 0, torch.bfloat16, False, gen)
-        print(f"K1 timing T={t} bf16 chunk=0 lengths={lens} [{card}]: kernel {r['ms']:.4f} ms "
+    rows, timed = [], {}
+    for t, lens, chunk in shapes:
+        key = (t, tuple(lens), chunk)
+        if key in timed:
+            rows.append(timed[key])
+            continue
+        r = timed[key] = _time_k1(lens, t, chunk, torch.bfloat16, False, gen)
+        print(f"K1 timing T={t} bf16 chunk={chunk} lengths={lens} [{card}]: kernel {r['ms']:.4f} ms "
               f"({r['tflops']:.1f} TFLOP/s on the visible pairs, {100 * r['share']:.1f}% of the "
               f"bound; eager from Python {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
               f"sdpa {r['library_ms']:.4f} ms, bound {r['bound_ms'] * 1e3:.2f} us "
@@ -750,11 +779,9 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     import cosyvoice2_eu_torch as cosy
     from cosyvoice2_eu_torch.config import TTSConfig
     from cosyvoice2_eu_torch.ops import flash_attention as fa
-    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, bucket_for
 
     cfg = TTSConfig()
-    est = cfg.flow.estimator
-    k1_per_flow = (2 + est.num_mid_blocks) * est.n_blocks * cfg.flow.cfm.n_timesteps
+    k1_per_flow = _k1_per_flow(cfg)
     t0 = time.perf_counter()
     model = cosy.load(config=cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
@@ -764,7 +791,6 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     texts = ["Bonjour, comment allez-vous ?", "Guten Morgen, wie geht es dir?",
              "Il fait beau aujourd'hui."]
     n_prompt = len(prompt["speech_tokens"])
-    ratio = cfg.token_mel_ratio
     shapes, flow_ms = [], []
     torch.cuda.reset_peak_memory_stats()
     for f in _counters():
@@ -793,7 +819,7 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
         if not ok:
             raise SystemExit(f"request {i} failed its checks")
         total = n_prompt + n_tok
-        shapes.append((bucket_for(total, FLOW_TOKEN_BUCKETS) * ratio, [total * ratio] * 2))
+        shapes.append(_k1_shape(cfg, total, False, True))
         flow_ms.append(stages["flow"]["total_s"] * 1e3)
     launches = fa.flash_attention.launches
     design = _k1_design()
@@ -877,8 +903,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
     from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, bucket_for
 
     cfg = TTSConfig()
-    est = cfg.flow.estimator
-    k1_per_flow = (2 + est.num_mid_blocks) * est.n_blocks * cfg.flow.cfm.n_timesteps
+    k1_per_flow = _k1_per_flow(cfg)
     n_layers = cfg.llm.backbone.num_layers
     per_prefill, per_step = 7 * n_layers, 7 * n_layers + 1  # 168, 169 at full width
     ratio, sr = cfg.token_mel_ratio, cfg.sample_rate
@@ -927,7 +952,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
         decodes.append((len(inputs), p_bucket, steps))
         totals = [len(p.flow_prompt_speech_tokens) + n for p, n in zip(inputs, n_toks)]
         t_mel = bucket_for(max(totals), FLOW_TOKEN_BUCKETS) * ratio
-        shapes.append((t_mel, [n * ratio for n in totals] * 2))
+        shapes.append((t_mel, [n * ratio for n in totals] * 2, 0))
 
     # zero-shot: the LM's prompt holds the 75 prompt speech tokens (bucket 128)
     for i, text in enumerate(texts):
@@ -955,6 +980,294 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
           f"argmax agreement {agree:.3f} (reported; the band is pinned on the small config) "
           f"[{card}]")
     return decodes, shapes, launches, prefill_ms
+
+
+def _k1_per_flow(cfg) -> int:
+    """K1 launches of one flow call: every transformer block of the estimator, each Euler step."""
+    est = cfg.flow.estimator
+    return (2 + est.num_mid_blocks) * est.n_blocks * cfg.flow.cfm.n_timesteps
+
+
+def _k1_shape(cfg, total: int, stream: bool, finalize: bool) -> tuple:
+    """(T, valid mel frames of each of K1's rows, chunk) of a flow call over
+    ``total`` tokens of prompt and generated speech, as ``_token2wav`` makes
+    it: a call that is not final feeds the last 3 tokens as context only."""
+    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, bucket_for
+
+    cut = 0 if finalize else cfg.flow.pre_lookahead_len
+    t = (bucket_for(total, FLOW_TOKEN_BUCKETS) - cut) * cfg.token_mel_ratio
+    chunk = cfg.flow.estimator.static_chunk_size if stream else 0
+    return t, [(total - cut) * cfg.token_mel_ratio] * 2, chunk
+
+
+def _record_flow_calls(tm, calls: list) -> None:
+    """Note each flow call of ``tm`` (all go through ``_token2wav``) in
+    ``calls``: (prompt + chunk tokens, streaming, finalize, chunk tokens)."""
+    import numpy as np
+
+    inner = tm._token2wav
+
+    def recorded(all_tokens, p, token_offset, session, stream, finalize, *args, **kwargs):
+        calls.append((len(p.flow_prompt_speech_tokens) + len(all_tokens), stream, finalize,
+                      np.asarray(all_tokens).copy()))
+        return inner(all_tokens, p, token_offset, session, stream, finalize, *args, **kwargs)
+
+    tm._token2wav = recorded
+
+
+def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str) -> dict:
+    """One request through ``Cosy2EU.stream`` (or ``.tts``) on a fresh model,
+    timed chunk by chunk on the host clock, with its checks: tokens x 960
+    samples, every chunk finite and not silent, 560 K1 launches per flow
+    call and the flow calls the path makes (recompute: one per chunk;
+    cached: the first chunk's and the final one; without streaming: one)."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    tm = model._model
+    cfg = tm.cfg
+    calls: list = []
+    _record_flow_calls(tm, calls)
+    before = fa.flash_attention.launches
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tm.timer.reset()
+    chunks, walls = [], []
+    t0 = t_prev = time.perf_counter()
+    if stream:
+        for chunk in model.stream(text, prompt):
+            now = time.perf_counter()
+            walls.append((now - t_prev) * 1e3)
+            t_prev = now
+            chunks.append(chunk)
+    else:
+        chunks.append(model.tts(text, prompt)[0])
+        walls.append((time.perf_counter() - t0) * 1e3)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_tok = tm.last_n_tokens
+    stages = tm.timer.summary()
+    launched = fa.flash_attention.launches - before
+    flow_calls = len(chunks) if (stream and not tm.cached_stream) else 2 if stream else 1
+    samples = sum(c.shape[1] for c in chunks)
+    ok = (all(c.ndim == 2 and c.shape[0] == 1 and c.dtype == np.float32 and c.shape[1] > 0
+              and np.isfinite(c).all() and float(np.abs(c).max()) > 1e-3 for c in chunks)
+          and samples == n_tok * 960 and len(calls) == flow_calls
+          and launched == _k1_per_flow(cfg) * flow_calls)
+    lm_s = sum(stages[k]["total_s"] for k in ("lm_decode", "lm_prefill_chunk", "lm_chunk")
+               if k in stages)
+    audio_s = samples / cfg.sample_rate
+    between = sorted(walls[1:-1])  # the steady chunks: after the first, before the final
+    steady = f", steady chunk median {between[len(between) // 2]:.1f} ms" if between else ""
+    session = ""
+    if stream and tm.cached_stream:
+        (state,) = tm._primed_cache.values()
+        held = state.nbytes()
+        ok = ok and held == tm.stream_session_bytes()
+        session = (f"; stream_session_bytes {tm.stream_session_bytes()} (the session's tensors "
+                   f"hold {held} bytes)")
+    print(f"{what}: {len(text.encode())} text bytes -> {n_tok} tokens in {tm.last_decode_steps} "
+          f"decode steps, {audio_s:.2f} s audio in {len(chunks)} chunks of "
+          f"{[c.shape[1] for c in chunks]} samples; flow calls {len(calls)} (expected "
+          f"{flow_calls}), K1 launches {launched} (expected {_k1_per_flow(cfg)} x {flow_calls}); "
+          f"time to first audio {walls[0]:.1f} ms, chunk wall ms "
+          f"[{', '.join(f'{w:.1f}' for w in walls)}]{steady}, "
+          f"RTF {wall / audio_s:.3f}, LM {lm_s * 1e3 / max(n_tok, 1):.2f} ms/token, peak memory "
+          f"{peak / 2**30:.2f} GiB{session} [{card}] {'ok' if ok else 'FAIL'}")
+    print(f"{what} stages (ms total / count): "
+          + ", ".join(f"{k} {v['total_s'] * 1e3:.1f}/{v['count']}" for k, v in stages.items()))
+    if not ok:
+        raise SystemExit(f"{what} failed its checks")
+    return {"tokens": calls[-1][3], "shapes": [_k1_shape(cfg, *c[:3]) for c in calls],
+            "launches": launched}
+
+
+def stream_path(card: str) -> tuple[list, int]:
+    """Streaming at the published widths (bf16): one request of a 14-byte
+    text through ``Cosy2EU.stream`` on the recompute path
+    (``cached_stream=False``) and one on the chunk-cached flow (the
+    default), then the same text through ``Cosy2EU.tts``, each on a fresh
+    ``load(seed=0)``; all three must give the same tokens.  Returns each
+    flow call's K1 shape and the phase's K1 launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    prompt = _prompt(cfg, 3.0)
+    text = "Bonjour, Paris"  # 14 bytes: ~280 tokens, 10-12 chunks
+    for f in _counters():
+        f.launches = 0
+    LAUNCHED.clear()
+    runs = {}
+    for what, stream, cached in (("stream recompute", True, False),
+                                 ("stream cached", True, True), ("non-stream", False, True)):
+        model = cosy.load(config=cfg, seed=0, device="cuda")
+        model._model.cached_stream = cached
+        runs[what] = _stream_request(model, text, prompt, stream, card, what)
+        del model
+        torch.cuda.empty_cache()
+    launches = [f.launches for f in _counters()]
+    same = {k: bool(np.array_equal(r["tokens"], runs["non-stream"]["tokens"]))
+            for k, r in runs.items()}
+    print(f"stream phase: the same tokens as the non-stream request: {same}; K1/K3/K4/K2 "
+          f"launches {launches} ({_k1_design()}) [{card}]")
+    if not all(same.values()):
+        raise SystemExit("streaming changed the tokens of one seed")
+    if launches[0] != sum(r["launches"] for r in runs.values()) or any(launches[1:]):
+        raise SystemExit("stream phase: K1 launches do not match its flow calls, or a "
+                         "backward kernel or K2 ran")
+    return [s for r in runs.values() for s in r["shapes"]], launches[0]
+
+
+def int8_stream_path(card: str) -> tuple[list, int, tuple, int]:
+    """One shorter request through ``Cosy2EU.stream`` on the chunk-cached
+    flow with ``lm_quant="int8"``: K2 launched 168 + 169 x decode steps
+    times over the chunked decode, each prefill launch on the wgmma design
+    and each decode launch on the decode one.  Returns its flow calls' K1
+    shapes, K1's launches, its LM decode's (batch, prompt bucket, steps)
+    and K2's launches."""
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    n_layers = cfg.llm.backbone.num_layers
+    model = cosy.load(config=cfg, seed=0, device="cuda", lm_quant="int8")
+    tm = model._model
+    prompt = _prompt(cfg, 3.0)
+    text = "Bonjour!"
+    for f in _counters():
+        f.launches = 0
+    LAUNCHED.clear()
+    K2_LAUNCHED.clear()
+    run = _stream_request(model, text, prompt, True, card, "int8 stream cached")
+    launches = [f.launches for f in _counters()]
+    steps = tm.last_decode_steps
+    p_bucket = tm._pack_lm_prompt(model._frontend.frontend_cross_lingual(text, prompt))[3]
+    want = 7 * n_layers + (7 * n_layers + 1) * steps
+    designs = _k2_designs({p_bucket}, launches[3])
+    print(f"int8 stream: K2 launches {launches[3]} (expected {7 * n_layers} + "
+          f"{7 * n_layers + 1} x {steps} steps = {want}; by M, as recorded at each launch: "
+          f"{designs}); K1 {_k1_design()} [{card}]")
+    if launches[3] != want or launches[1:3] != [0, 0] or launches[0] != run["launches"]:
+        raise SystemExit("int8 stream: K2 launches do not match its decode steps, or a "
+                         "backward kernel ran")
+    del model, tm
+    torch.cuda.empty_cache()
+    return run["shapes"], launches[0], (1, p_bucket, steps), launches[3]
+
+
+# Tolerance of the chunk-cached mel against the full-prefix recompute on the
+# card (small config, fp32).  The CPU holds the two to 1e-4
+# (tests/test_torch_flow_streaming.py); on the card the recompute attends
+# through K1's 3xTF32 products (within K1's own fp32 tolerance of 1e-4 of
+# the plain version) where the cached flow uses fp32 einsums, and each of
+# the 10 Euler steps carries that difference through the estimator's
+# attention: 10x the CPU's tolerance.
+STREAM_MEL_TOL = 1e-3
+
+
+@_uncounted
+def check_small_stream() -> None:
+    """Streaming on the card against the plain CPU path on a small config
+    (fp32, the same weights and injected draws, as ``check_small_reference``):
+    the chunk-cached path, the recompute path and a cached stream past a
+    100-token cap (rollover); equal chunk counts and lengths, audio within
+    1e-3.  Then, on the card, the cached flow's mel against the recompute
+    (K1 at chunk 50) within ``STREAM_MEL_TOL``."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import tiny_test_config
+    from cosyvoice2_eu_torch.frontend.frontend import Frontend
+    from cosyvoice2_eu_torch.models import flow_streaming as fs
+    from cosyvoice2_eu_torch.models.flow import flow_inference, init_flow
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.ops.sampling import gumbel
+    from cosyvoice2_eu_torch.runtime.model import TTSModel
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, flow=dataclasses.replace(
+        cfg.flow, estimator=dataclasses.replace(cfg.flow.estimator, attention_head_dim=64,
+                                                num_heads=2)))
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    params = {"llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
+              "hift": init_hift(gen, cfg.hift)}
+    g_lm = torch.Generator(device="cpu")
+    g_lm.manual_seed(2)
+    lm_noise = [(gumbel((1, cfg.llm.top_k), g_lm), gumbel((1, cfg.llm.full_vocab), g_lm))
+                for _ in range(256)]
+
+    def hift_draws(dev):
+        """A fresh sequence of per-call HiFT draws, the same on every device."""
+        g = torch.Generator(device="cpu")
+        g.manual_seed(3)
+        return lambda b, length, h: (torch.rand((b, h), generator=g).to(dev),
+                                     torch.randn((b, length, h), generator=g).to(dev))
+
+    # 60 bytes: min_len 120 tokens, past the rollover case's 100-token cap
+    text = "Bonjour tout le monde, il fait beau aujourd'hui a Paris. Oui"
+    prompt = Frontend(cfg).frontend_zero_shot(text, _prompt(cfg, 0.24, 4))
+    for what, kw in (("cached", {}), ("recompute", {"cached_stream": False}),
+                     ("rollover", {"stream_max_tokens": 100, "stream_rollover_window": 25})):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tm = TTSModel(cfg, params, seed=0, compute_dtype=None, device=dev, **kw)
+            chunks = list(tm.tts(prompt, stream=True, hift_draws=hift_draws(dev),
+                                 lm_draws=lambda step: tuple(x.to(dev) for x in lm_noise[step])))
+            out[dev] = (chunks, tm.last_n_tokens, tm.timer.counts.get("stream_rollover", 0))
+        (c_cpu, n_cpu, r_cpu), (c_gpu, n_gpu, r_gpu) = out["cpu"], out["cuda"]
+        lens = [len(c) for c in c_gpu]
+        same = lens == [len(c) for c in c_cpu] and n_cpu == n_gpu
+        err = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(c_gpu, c_cpu)) \
+            if same else float("inf")
+        ok = (same and err <= 1e-3 and all(np.isfinite(c).all() for c in c_gpu)
+              and sum(lens) == n_gpu * 960 and (what != "rollover" or r_gpu == r_cpu >= 1))
+        print(f"stream reference check (small config, fp32, {what}, card vs CPU plain path): "
+              f"{n_gpu} vs {n_cpu} tokens, {len(c_gpu)} vs {len(c_cpu)} chunks of {lens} samples, "
+              f"rollovers {r_gpu} vs {r_cpu}, audio max_abs_err={err:.3e} (tol 1e-3) "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the card's {what} stream disagrees with the plain CPU path")
+
+    # cached mel against the full-prefix recompute, on the card
+    flow = tree_map(lambda x: x.to("cuda"), params["flow"])
+    sparams = fs.prepare_stream_params(flow, cfg.flow, 128)
+    state = fs.init_flow_stream_state(cfg.flow, 128, dtype=torch.float32, device="cuda")
+    rng = np.random.default_rng(4)
+    hop, la = cfg.flow.encoder.static_chunk_size, cfg.flow.pre_lookahead_len
+    tokens = torch.as_tensor(rng.integers(0, cfg.flow.vocab_size, (1, 3 * hop + la)),
+                             device="cuda")
+    xvec = torch.as_tensor(rng.standard_normal((1, cfg.flow.spk_embed_dim)), device="cuda",
+                           dtype=torch.float32)
+    worst = 0.0
+    for c in range(3):
+        o = c * hop
+        got, state = fs.flow_chunk(sparams, cfg.flow, state, tokens[:, o:o + hop],
+                                   tokens[:, o + hop:o + hop + la], xvec,
+                                   torch.zeros((1, 2 * hop, cfg.flow.output_size), device="cuda"))
+        upto = o + hop + la
+        mel = flow_inference(flow, cfg.flow, tokens[:, :upto],
+                             torch.tensor([upto], device="cuda"),
+                             torch.zeros((1, 8, cfg.flow.output_size), device="cuda"),
+                             torch.tensor([0], device="cuda"), xvec, streaming=True,
+                             finalize=False)
+        worst = max(worst, (got - mel[:, :, 2 * o:2 * (o + hop)]).abs().max().item())
+    ok = math.isfinite(worst) and worst <= STREAM_MEL_TOL
+    print(f"stream mel check (small config, fp32, on the card): 3 chunk-cached flow chunks "
+          f"against the full-prefix recompute (K1 at chunk 50), max_abs_err={worst:.3e} "
+          f"(tol {STREAM_MEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the chunk-cached flow disagrees with the recompute on the card")
 
 
 def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
@@ -1304,7 +1617,8 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
 
 @_uncounted
 def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
-    """K2 at every (M, N, K) the int8 path ran, weighted by its launches there.
+    """K2 at every (M, N, K) the int8 path and the int8 stream ran, weighted
+    by its launches there.
 
     ``decodes`` holds each LM decode's (batch, prompt bucket, steps): the
     prefill runs the 7 projections of each layer at M = batch x bucket, each
@@ -1330,7 +1644,7 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
             else:  # the speech head, once per step
                 add((b, n, k), steps)
     if sum(counts.values()) != launches:
-        raise SystemExit(f"K2's launches on the int8 path ({launches}) do not match its shapes "
+        raise SystemExit(f"K2's launches on the int8 paths ({launches}) do not match its shapes "
                          f"({sum(counts.values())})")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1343,7 +1657,7 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
             f"FMA design {r['fma_ms']:.4f} ms (K2 {r['fma_ms'] / r['ms']:.2f}x faster), ")
         vs = r["ms"] / r["bf16_linear_ms"]
         print(f"K2 timing M={m} N={n} K={k} x bf16 ({r['source']}), weights cold, {c} launches "
-              f"on the int8 path [{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} "
+              f"on the int8 paths [{card}]: kernel {r['ms']:.4f} ms ({r['mb'] / r['ms']:.0f} "
               f"GB/s, {r['tflops']:.1f} TFLOP/s, {100 * r['share']:.1f}% of the bound), plain "
               f"{r['plain_ms']:.4f} ms, {fma}_weight_int8pack_mm {lib}, bf16 F.linear "
               f"{r['bf16_linear_ms']:.4f} ms (K2 {'beats it' if vs < 1 else 'loses'}, "
@@ -1490,21 +1804,34 @@ def main() -> None:
     check_small_reference()
     check_small_reference(lm_quant="int8")
     check_small_train_reference()
+    check_small_stream()
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
     decodes, int8_shapes, int8_launches, prefill_ms = int8_path(card, bf16_llm)
     del bf16_llm
+    stream_shapes, stream_launches = stream_path(card)
+    int8_stream_shapes, int8_stream_launches, int8_stream_decode, int8_stream_k2 = \
+        int8_stream_path(card)
+    stream_shapes += int8_stream_shapes
+    stream_launches += int8_stream_launches
+    # K1 checked against its plain version at every shape the stream phase gave it
+    stream_cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in stream_shapes})
+    worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
+                                               " stream") for lens, t, chunk in stream_cases]))
     steps, train_launches = train_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
-    for i, ((t, lens), f_ms) in enumerate(zip(shapes, flow_ms)):
+    for i, ((t, lens, _), f_ms) in enumerate(zip(shapes, flow_ms)):
         # K1's time at this call's shape, timed alone, times its launches per call
         print(f"request {i}: K1 at T={t}, {lens[0]} frames x {per_call} launches is an estimated "
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
     k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
-    k2_times = time_int8_matmul(decodes, int8_launches[3], card)
+    k1_stream, _ = time_flash_attention(stream_shapes, stream_launches, card)
+    # K2 at the int8 path's shapes and the int8 stream's (its prefill at M = 64)
+    k2_times = time_int8_matmul(decodes + [int8_stream_decode],
+                                int8_launches[3] + int8_stream_k2, card)
     k2 = _kernel_row("int8_matmul", i8.DECODE_SOURCE, "int8_matmul.py:31", k2_times,
                      bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
                      by_design=k2_times["by_design"])
@@ -1515,12 +1842,12 @@ def main() -> None:
     if [k3["launches"], k4["launches"]] != train_launches[1:3]:
         raise SystemExit("K3/K4 launches do not match the training path")
     # K1's times are means per launch over the paths; each path's stand beside them
-    paths = {"tts": k1_tts, "int8": k1_int8, "train": k1_train}
+    paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, "train": k1_train}
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
     keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
             "library_ms")
     # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (3xTF32) in training
-    serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8)])
+    serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8, k1_stream)])
     designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}
     k1 = _kernel_row("flash_attention_fwd", fa.SM90_SOURCE, "flash_attention.py:71",
                      _weighted([(p["launches"], p) for p in paths.values()]),

@@ -7,6 +7,8 @@ caller asks for the CPU:
     import cosyvoice2_eu_torch as cosy
     model = cosy.load(seed=0)                     # random weights, on "cuda"
     wav, sr = model.tts("Bonjour !", prompt)      # prompt: dict of artifacts
+    for chunk in model.stream("Bonjour !", prompt):  # (1, t) float32 chunks
+        ...
     int8 = cosy.load(seed=0, lm_quant="int8")     # int8 LM projections (kernel K2)
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
@@ -16,7 +18,7 @@ does not tolerate TF32.
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,7 +32,8 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, "none": None}
 
 
 class Cosy2EU:
-    """High-level inference wrapper (non-streaming tts)."""
+    """High-level inference wrapper: ``tts`` returns the whole waveform,
+    ``stream`` yields it chunk by chunk."""
 
     def __init__(self, model, frontend, cfg: TTSConfig):
         self._model = model
@@ -63,21 +66,38 @@ class Cosy2EU:
         **precomputed,
     ) -> Tuple[np.ndarray, int]:
         """Synthesize; returns (waveform (1, T) float32, sample_rate)."""
+        chunks = list(self._generate(text, prompt, prompt_text, False, speed, text_frontend,
+                                     mode, **precomputed))
+        return np.concatenate(chunks)[None], self.sample_rate
+
+    def stream(
+        self,
+        text: str,
+        prompt,
+        *,
+        prompt_text: str = "",
+        speed: float = 1.0,
+        text_frontend: bool = False,
+        mode: str = "cross_lingual",
+        **precomputed,
+    ) -> Iterator[np.ndarray]:
+        """Yield waveform chunks (1, t) float32 for streaming playback."""
+        for chunk in self._generate(text, prompt, prompt_text, True, speed, text_frontend, mode,
+                                    **precomputed):
+            yield chunk[None]
+
+    def _generate(self, text, prompt, prompt_text, stream, speed, text_frontend, mode,
+                  **precomputed):
         prompt_art = self._prepare(prompt, prompt_text, **precomputed)
         segments = (self._frontend.normalize_text(text, split=True) if text_frontend
                     else [text])
         if mode == "instruct2":
-            raise NotImplementedError("instruct2 mode is not ported yet: ROADMAP item 8")
+            raise NotImplementedError("instruct2 mode is not ported yet: ROADMAP item 5")
         if mode not in ("zero_shot", "cross_lingual"):
             raise ValueError(f"unknown mode {mode!r}")
         build = getattr(self._frontend, f"frontend_{mode}")
-        chunks = []
         for seg in segments:
-            chunks.extend(self._model.tts(build(seg, prompt_art), stream=False, speed=speed))
-        return np.concatenate(chunks)[None], self.sample_rate
-
-    def stream(self, *args, **kwargs):
-        raise NotImplementedError("streaming synthesis is not ported yet: ROADMAP item 7")
+            yield from self._model.tts(build(seg, prompt_art), stream=stream, speed=speed)
 
 
 def load(
@@ -111,9 +131,11 @@ def load(
     from cosyvoice2_eu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    if model_dir is not None or backbone is not None:
+    if model_dir is not None:
+        raise NotImplementedError("loading checkpoints is not ported yet: ROADMAP item 3")
+    if backbone is not None:
         raise NotImplementedError(
-            "loading checkpoints and alternative backbones is not ported yet: ROADMAP item 6")
+            "alternative backbones (the v1 family) are not ported yet: ROADMAP item 9")
     cfg = config or TTSConfig()
     if params is None:
         from cosyvoice2_eu_torch.models.flow import init_flow

@@ -5,7 +5,7 @@ text tokens, and the zero-shot / cross-lingual packing of a prompt dict
 ``{"prompt_feat", "speech_tokens", "embedding", "prompt_text"}`` into
 ``PromptInputs``.  Prompt feature extraction from a wav (mel, speech
 tokenizer, speaker embedding) and text normalisation are not ported yet
-(ROADMAP item 8) and raise.
+(ROADMAP item 5) and raise.
 """
 
 from __future__ import annotations
@@ -23,14 +23,14 @@ class Frontend:
         self.tokenizer = tokenizer or get_tokenizer("")
 
     def normalize_text(self, text: str, split: bool = True, lang: str | None = None):
-        raise NotImplementedError("text normalisation is not ported yet: ROADMAP item 8")
+        raise NotImplementedError("text normalisation is not ported yet: ROADMAP item 5")
 
     def text_tokens(self, text: str) -> np.ndarray:
         return np.asarray(self.tokenizer.encode(text), np.int32)
 
     def extract_prompt(self, prompt_wav_16k, prompt_text: str = "", **precomputed) -> dict:
         raise NotImplementedError(
-            "prompt extraction from a wav is not ported yet (ROADMAP item 8); pass the "
+            "prompt extraction from a wav is not ported yet (ROADMAP item 5); pass the "
             "prompt as a dict of artifacts: prompt_feat, speech_tokens, embedding")
 
     def frontend_zero_shot(self, text: str, prompt: dict) -> PromptInputs:

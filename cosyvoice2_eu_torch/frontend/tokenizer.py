@@ -81,7 +81,7 @@ def get_tokenizer(token_path: str = "", skip_special_tokens: bool = True):
         if any(f.endswith(".tiktoken") for f in os.listdir(token_path)) and not \
                 os.path.exists(os.path.join(token_path, "tokenizer_config.json")):
             raise NotImplementedError(
-                "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 12")
+                "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 9")
         if not any(
             os.path.exists(os.path.join(token_path, f))
             for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json")
@@ -90,5 +90,5 @@ def get_tokenizer(token_path: str = "", skip_special_tokens: bool = True):
             return ByteFallbackTokenizer()
     elif token_path.endswith(".tiktoken"):
         raise NotImplementedError(
-            "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 12")
+            "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 9")
     return QwenTokenizer(token_path, skip_special_tokens)

@@ -6,9 +6,12 @@ pair, where ``src`` selects the embedding table.  The JAX ``lax.while_loop``
 becomes a Python loop that checks on the host once per token whether every
 row has finished (one device sync per token).
 
-Random draws: ``lm_decode`` takes an optional ``draws(step)`` callable that
-returns the step's Gumbel vectors ``(gumbel_nuc (B, top_k), gumbel_full
-(B, V))``; without it they come from a ``torch.Generator``.
+``lm_decode`` is ``lm_prefill`` followed by ``lm_decode_chunk`` run to
+the end; streaming resumes ``lm_decode_chunk`` hop by hop on one state.
+
+Random draws: the decode takes a ``draws(step)`` callable that returns the
+step's Gumbel vectors ``(gumbel_nuc (B, top_k), gumbel_full (B, V))``;
+``generator_draws`` makes one from a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -97,42 +100,30 @@ def _sample_tokens(params, cfg: LMConfig, state: DecodeState, min_len, gumbel_nu
     )
 
 
-def lm_decode(
-    params,
-    cfg: LMConfig,
-    ids: torch.Tensor,
-    src: torch.Tensor,
-    prompt_len: torch.Tensor,
-    min_len: torch.Tensor,
-    max_len: torch.Tensor,
-    max_gen: int,
-    generator: Optional[torch.Generator] = None,
-    draws: Optional[Draws] = None,
-):
-    """Full autoregressive decode.
+def generator_draws(generator: torch.Generator, batch: int, cfg: LMConfig) -> Draws:
+    """``draws(step)`` from ``generator``, consumed in step order."""
+    return lambda step: (gumbel((batch, cfg.top_k), generator),
+                         gumbel((batch, cfg.full_vocab), generator))
 
-    Args:
-      ids/src: (B, P_bucket) packed prompt (see embed_mixed).
-      prompt_len, min_len, max_len: (B,) prompt lengths and decode bounds.
-      max_gen: generation capacity.
-      generator: source of the Gumbel draws when ``draws`` is None.
-      draws: optional ``draws(step) -> (gumbel_nuc, gumbel_full)``.
 
-    Returns (tokens (B, max_gen), lengths (B,), steps): steps counts the
-    decode steps run, each of which samples once for the whole batch and
-    feeds the tokens back (the JAX function returns the first two).
+def lm_decode_chunk(params, cfg: LMConfig, state: DecodeState, prompt_len, min_len, max_len,
+                    target_step: int, draws: Draws) -> DecodeState:
+    """Resumable decode: run steps until ``state.step == min(target_step,
+    max_gen)`` or every row has finished (one host check per step).
+
+    ``draws(step)`` is indexed by the absolute step, so a decode split into
+    chunks consumes the same draws as one that runs to the end.  The
+    state's tensors are replaced, not written in place (the KV cache is).
     """
-    b, p_bucket = ids.shape
+    b, max_gen = state.tokens.shape
+    p_bucket = state.kv.k.shape[3] - max_gen
     vocab = cfg.full_vocab
-    if draws is None:
-        if generator is None:
-            raise ValueError("lm_decode needs a generator or a draws source")
-        draws = lambda step: (gumbel((b, cfg.top_k), generator), gumbel((b, vocab), generator))
-    state = lm_prefill(params, cfg, ids, src, prompt_len, max_gen)
-    slot_idx = torch.arange(p_bucket + max_gen, device=ids.device)[None, :]
-    col = torch.arange(max_gen, device=ids.device)[None, :]
+    dev = state.tokens.device
+    slot_idx = torch.arange(p_bucket + max_gen, device=dev)[None, :]
+    col = torch.arange(max_gen, device=dev)[None, :]
+    target = min(target_step, max_gen)
 
-    while state.step < max_gen and not bool(state.finished.all()):
+    while state.step < target and not bool(state.finished.all()):
         gumbel_nuc, gumbel_full = draws(state.step)
         tok = _sample_tokens(params, cfg, state, min_len, gumbel_nuc, gumbel_full)
         # EOS stops; other specials (ids > eos) are fed back but never emitted
@@ -155,6 +146,40 @@ def lm_decode(
         state.last_hidden, state.kv = qwen2_decode_step(
             params["backbone"], cfg.backbone, embed, rope_pos, cache_index, visible, state.kv)
         state.step += 1
+    return state
+
+
+def lm_decode(
+    params,
+    cfg: LMConfig,
+    ids: torch.Tensor,
+    src: torch.Tensor,
+    prompt_len: torch.Tensor,
+    min_len: torch.Tensor,
+    max_len: torch.Tensor,
+    max_gen: int,
+    generator: Optional[torch.Generator] = None,
+    draws: Optional[Draws] = None,
+):
+    """Full autoregressive decode: ``lm_prefill`` + ``lm_decode_chunk`` to ``max_gen``.
+
+    Args:
+      ids/src: (B, P_bucket) packed prompt (see embed_mixed).
+      prompt_len, min_len, max_len: (B,) prompt lengths and decode bounds.
+      max_gen: generation capacity.
+      generator: source of the Gumbel draws when ``draws`` is None.
+      draws: optional ``draws(step) -> (gumbel_nuc, gumbel_full)``.
+
+    Returns (tokens (B, max_gen), lengths (B,), steps): steps counts the
+    decode steps run, each of which samples once for the whole batch and
+    feeds the tokens back (the JAX function returns the first two).
+    """
+    if draws is None:
+        if generator is None:
+            raise ValueError("lm_decode needs a generator or a draws source")
+        draws = generator_draws(generator, ids.shape[0], cfg)
+    state = lm_prefill(params, cfg, ids, src, prompt_len, max_gen)
+    state = lm_decode_chunk(params, cfg, state, prompt_len, min_len, max_len, max_gen, draws)
     return state.tokens, state.lengths, state.step
 
 

@@ -1,25 +1,33 @@
 """TTS pipeline orchestrator: LM decode -> flow mel -> HiFT waveform, in PyTorch.
 
-Counterpart of the non-streaming path of ``cosyvoice2_eu_tpu/runtime/model.py``.
-Prompts and token streams are right-padded to the same buckets as the JAX
-package, so the same inputs take the same shapes (and, with injected random
-draws, give the same tokens and waveform).  Dtype policy: bf16 for the LM and
-the flow, fp32 for HiFT and for the flow's fixed noise.
+Counterpart of ``cosyvoice2_eu_tpu/runtime/model.py``.  Prompts and token
+streams are right-padded to the same buckets as the JAX package, so the same
+inputs take the same shapes (and, with injected random draws, give the same
+tokens and waveform).  Dtype policy: bf16 for the LM and the flow, fp32 for
+HiFT and for the flow's fixed noise.
 
 ``lm_quant="int8"`` quantizes the LM's projections per output channel
 after the cast to the compute dtype; on the card they run through kernel K2.
 ``tts_batch`` synthesizes several prompts in one batched LM decode, flow and
 HiFT call.
 
-Not ported yet, and raising ``NotImplementedError``: streaming
-(``stream=True``, ROADMAP item 7), synthesis past the largest flow bucket
-(the JAX package's windowed fallback, item 7), bistream decode (item 11)
-and tensor-parallel decode (item 13).  ``vc`` (item 9) has no counterpart
-yet.
+Streaming (``tts(stream=True)``) decodes the LM hop by hop
+(``lm_decode_chunk``) and vocodes each chunk with the reference's vocoder
+cache (mel and source tails, Hamming crossfade).  ``cached_stream=True``
+feeds the chunk-cached flow (``models/flow_streaming.py``, O(T) per chunk);
+``cached_stream=False`` recomputes the whole prefix per chunk, as the
+reference does.  The final chunk is a full recompute on either path.
+
+Not ported yet, and raising ``NotImplementedError``: synthesis past the
+largest flow bucket under ``cached_stream=True`` (the JAX package routes it
+through the serving engine's ``StreamSession``, ROADMAP item 6), bistream
+decode (item 7) and tensor-parallel decode (item 8g).  ``vc`` (item 6) has
+no counterpart yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 from typing import Callable, Generator, Optional
 
@@ -29,6 +37,12 @@ import torch
 from cosyvoice2_eu_torch.config import TTSConfig
 from cosyvoice2_eu_torch.models import llm as llm_mod
 from cosyvoice2_eu_torch.models.flow import flow_inference
+from cosyvoice2_eu_torch.models.flow_streaming import (
+    FlowStreamState,
+    flow_chunk,
+    init_flow_stream_state,
+    prepare_stream_params,
+)
 from cosyvoice2_eu_torch.models.hift import hift_inference
 from cosyvoice2_eu_torch.utils.device import resolve_device
 from cosyvoice2_eu_torch.utils.params import cast_floating, quantize_lm_params, tree_map
@@ -69,21 +83,33 @@ def _to_device(tree, device):
 
 
 class TTSModel:
+    # feed sizes for priming the prompt through the cached flow
+    PRIME_SIZES = (400, 200, 100, 50, 25)
+
     def __init__(self, cfg: TTSConfig, params: dict, seed: int = 0,
                  compute_dtype: Optional[torch.dtype] = torch.bfloat16,
                  device: str | torch.device = "cuda", lm_quant: Optional[str] = None,
-                 use_bistream: bool = False, tp: int = 0):
+                 cached_stream: bool = True, stream_max_tokens: int = 768,
+                 use_bistream: bool = False, stream_rollover: bool = True,
+                 stream_rollover_window: int = 200, tp: int = 0):
         """params: {"llm", "flow", "hift"} trees of tensors or numpy arrays.
         compute_dtype: dtype of the LM and flow (None keeps the parameters'
         own); HiFT and the flow's fixed noise stay fp32.
         lm_quant: None, or "int8" for per-channel int8 LM projections, taken
-        from the weights after the cast to compute_dtype (fp32 scales)."""
+        from the weights after the cast to compute_dtype (fp32 scales).
+        cached_stream: stream through the chunk-cached flow (O(T) a chunk)
+        instead of recomputing the whole prefix per chunk; a session's
+        caches hold ``stream_max_tokens`` tokens.  stream_rollover: when a
+        session reaches that cap, re-prime a fresh state over the prompt and
+        the last ``stream_rollover_window`` generated tokens and go on
+        streaming (False ends the cached schedule there and vocodes the rest
+        in the final recompute)."""
         if lm_quant not in (None, "int8"):
             raise ValueError(f"unknown lm_quant {lm_quant!r}: expected None or 'int8'")
         if use_bistream:
-            raise NotImplementedError("bistream decode is not ported yet: ROADMAP item 11")
+            raise NotImplementedError("bistream decode is not ported yet: ROADMAP item 7")
         if tp:
-            raise NotImplementedError("tensor-parallel decode is not ported yet: ROADMAP item 13")
+            raise NotImplementedError("tensor-parallel decode is not ported yet: ROADMAP item 8g")
         self.cfg = cfg
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
@@ -103,7 +129,18 @@ class TTSModel:
         self.last_n_tokens = 0  # speech tokens generated by the last tts call
         self.last_batch_tokens: list = []  # per prompt, by the last tts_batch call
         self.last_decode_steps = 0  # decode steps of the last tts or tts_batch call
-        self.pre_lookahead_len = cfg.stream.pre_lookahead_len
+        self.cached_stream = cached_stream
+        self.stream_max_tokens = stream_max_tokens
+        self.stream_rollover = stream_rollover
+        self.stream_rollover_window = stream_rollover_window
+        self._stream_params: Optional[dict] = None  # rel-pos tables, built at first use
+        self._primed_cache: dict = {}  # prompt -> FlowStreamState primed over it
+        stream = cfg.stream
+        self.token_hop_len = stream.token_hop_len
+        self.pre_lookahead_len = stream.pre_lookahead_len
+        self.mel_cache_len = stream.mel_cache_len
+        self.source_cache_len = stream.source_cache_len
+        self.speech_window = np.hamming(2 * self.source_cache_len)
 
     # ------------------------------------------------------------------
     # host-side helpers
@@ -132,16 +169,25 @@ class TTSModel:
     def _tensor(self, a, dtype=torch.long):
         return torch.as_tensor(np.asarray(a)).to(self.device, dtype)
 
+    def _lm_draws(self, batch: int) -> llm_mod.Draws:
+        """The Gumbel draws of one call's LM, from a generator of its own
+        seeded by one draw of ``self.generator``: HiFT calls interleaved with
+        the decode (streaming) then leave the tokens as they are, so one seed
+        gives the same tokens with and without streaming."""
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.generator, device=self.device))
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return llm_mod.generator_draws(gen, batch, self.cfg.llm)
+
     def _finalize_full(self, tokens: np.ndarray, p: PromptInputs, session: dict,
                        speed: float = 1.0, hift_draws: Optional[HiftDraws] = None) -> np.ndarray:
-        """One-shot non-streaming synthesis of the generated tokens."""
-        n_prompt = len(p.flow_prompt_speech_tokens)
-        if n_prompt + len(tokens) > FLOW_TOKEN_BUCKETS[-1]:
-            raise NotImplementedError(
-                f"{n_prompt} prompt + {len(tokens)} generated tokens exceed the largest flow "
-                f"bucket ({FLOW_TOKEN_BUCKETS[-1]}); the windowed streaming fallback is not "
-                "ported yet: ROADMAP item 7")
-        return self._token2wav(tokens, p, 0, session, False, True, speed, hift_draws)
+        """One-shot non-streaming synthesis; past the largest flow bucket it
+        runs the windowed streaming loop and joins its chunks (``speed``
+        then reaches only the final chunk)."""
+        if len(p.flow_prompt_speech_tokens) + len(tokens) <= FLOW_TOKEN_BUCKETS[-1]:
+            return self._token2wav(tokens, p, 0, session, False, True, speed, hift_draws)
+        return np.concatenate(list(self._wav_from_token_gen(iter(tokens), p, True, speed,
+                                                            hift_draws)))
 
     def _token2wav(self, all_tokens: np.ndarray, p: PromptInputs, token_offset: int,
                    session: dict, stream: bool, finalize: bool, speed: float = 1.0,
@@ -173,14 +219,32 @@ class TTSModel:
             tts_mel = mel[:, :, prompt_mel_len + token_offset * ratio: mel_valid]
         return self._hift_chunk(tts_mel, session, finalize, speed, hift_draws)
 
+    def _vocode(self, mel_in: torch.Tensor, hift_draws: Optional[HiftDraws],
+                cache_source: Optional[torch.Tensor] = None, cache_len=None):
+        """One HiFT call on (B, 80, bucket) fp32 mel; ``hift_draws`` is
+        called once, for this call's shapes."""
+        hcfg = self.cfg.hift
+        draws = None
+        if hift_draws is not None:
+            draws = hift_draws(mel_in.shape[0], mel_in.shape[2] * hcfg.upsample_scale,
+                               hcfg.nb_harmonics + 1)
+        return hift_inference(self.params["hift"], hcfg, mel_in, generator=self.generator,
+                              draws=draws, cache_source=cache_source, cache_len=cache_len)
+
     def _hift_chunk(self, tts_mel: torch.Tensor, session: dict, finalize: bool,
                     speed: float = 1.0, hift_draws: Optional[HiftDraws] = None) -> np.ndarray:
-        """Vocode one mel chunk: edge-replicate to the HiFT bucket, run HiFT,
-        cut to the valid samples."""
-        if not finalize or session.get("hift_cache") is not None:
-            raise NotImplementedError("streaming vocoder caches are not ported yet: "
-                                      "ROADMAP item 7")
-        if speed != 1.0:
+        """Vocode one mel chunk with the session's vocoder cache: the cached
+        mel tail goes in front, the cached source tail replaces the first
+        source samples, the first ``source_cache_len`` samples crossfade
+        (Hamming) with the previous chunk's withheld tail, and a chunk that
+        is not final withholds its own last ``source_cache_len`` samples."""
+        cache = session.get("hift_cache")
+        sc, mc = self.source_cache_len, self.mel_cache_len
+        if cache is not None:
+            tts_mel = torch.cat([cache["mel"], tts_mel.float()], dim=2)
+        if finalize and speed != 1.0 and cache is not None:
+            raise ValueError("speed change only supports non-stream inference mode")
+        if finalize and speed != 1.0:
             # linear mel interpolation for speed control
             mel_np = tts_mel.float().cpu().numpy()
             T = mel_np.shape[2]
@@ -191,19 +255,186 @@ class TTSModel:
             ).astype(np.float32)
             tts_mel = torch.as_tensor(mel_np, device=self.device)
 
+        # edge-replicate to the HiFT bucket; cut the valid samples after
         t_mel = int(tts_mel.shape[2])
         h_bucket = bucket_for(t_mel, buckets=HIFT_MEL_BUCKETS)
-        edge = tts_mel[:, :, t_mel - 1:t_mel].expand(-1, -1, h_bucket - t_mel)
-        mel_in = torch.cat([tts_mel, edge], dim=2).float()
-        hcfg = self.cfg.hift
-        draws = None
-        if hift_draws is not None:
-            draws = hift_draws(1, h_bucket * hcfg.upsample_scale, hcfg.nb_harmonics + 1)
+        tts_mel = tts_mel.float()
+        mel_in = torch.cat([tts_mel, tts_mel[:, :, t_mel - 1:].expand(-1, -1, h_bucket - t_mel)],
+                           dim=2)
+        cache_buf = torch.zeros((1, 1, sc), device=self.device)
+        c_len = 0 if cache is None else int(cache["source"].shape[2])
+        if c_len:
+            cache_buf[:, :, :c_len] = cache["source"]
         with self.timer.stage("hift"):
-            audio, _ = hift_inference(self.params["hift"], hcfg, mel_in,
-                                      generator=self.generator, draws=draws)
-            audio = audio[0, : t_mel * hcfg.upsample_scale].cpu().numpy()
+            audio, source = self._vocode(mel_in, hift_draws, cache_buf, c_len)
+            n_samples = t_mel * self.cfg.hift.upsample_scale
+            # the source's tail (all of it when the chunk is shorter than the cache)
+            source = source[:, :, max(n_samples - sc, 0): n_samples]
+            audio = audio[0, :n_samples].cpu().numpy()
+
+        if cache is not None:
+            audio = _fade_in_out(audio, cache["speech"], self.speech_window)
+        if not finalize:
+            session["hift_cache"] = {"mel": tts_mel[:, :, max(t_mel - mc, 0):],
+                                     "source": source, "speech": audio[-sc:]}
+            audio = audio[:-sc]
         return audio
+
+    # ------------------------------------------------------------------
+    # streaming: LM side
+    # ------------------------------------------------------------------
+
+    def _lm_prefill_chunk(self, lm: dict, ids, src, max_gen: int, target_step: int):
+        """LM prefill and the decode of the first chunk."""
+        with self.timer.stage("lm_prefill_chunk"):
+            state = llm_mod.lm_prefill(self.params["llm"], self.cfg.llm, self._tensor(ids),
+                                       self._tensor(src), lm["prompt_len"], max_gen)
+            return llm_mod.lm_decode_chunk(self.params["llm"], self.cfg.llm, state,
+                                           lm["prompt_len"], lm["min_len"], lm["max_len"],
+                                           target_step, lm["draws"])
+
+    def _lm_chunk(self, lm: dict, state: llm_mod.DecodeState, target_step: int):
+        with self.timer.stage("lm_chunk"):
+            return llm_mod.lm_decode_chunk(self.params["llm"], self.cfg.llm, state,
+                                           lm["prompt_len"], lm["min_len"], lm["max_len"],
+                                           target_step, lm["draws"])
+
+    @staticmethod
+    def _fetch(state: llm_mod.DecodeState):
+        """(emitted tokens, finished, token row) of row 0 in ONE device-to-host copy."""
+        snap = torch.cat([state.lengths[:1], state.finished[:1].long(),
+                          state.tokens[0]]).cpu().numpy()
+        return int(snap[0]), bool(snap[1]), snap[2:]
+
+    # ------------------------------------------------------------------
+    # streaming: chunk-cached flow
+    # ------------------------------------------------------------------
+
+    def _get_stream_params(self) -> dict:
+        if self._stream_params is None:
+            with self.timer.stage("stream_params_build"):
+                self._stream_params = prepare_stream_params(
+                    self.params["flow"], self.cfg.flow, self.stream_max_tokens)
+        return self._stream_params
+
+    def _init_stream_state(self, device=None) -> FlowStreamState:
+        return init_flow_stream_state(self.cfg.flow, self.stream_max_tokens,
+                                      dtype=self.params["flow"]["input_embedding"]["weight"].dtype,
+                                      device=self.device if device is None else device)
+
+    def stream_session_bytes(self) -> int:
+        """Device bytes one cached-flow streaming session holds at the
+        configured token cap (sized on the meta device, nothing allocated)."""
+        return self._init_stream_state("meta").nbytes()
+
+    def _flow_feed(self, fstate: FlowStreamState, tok: np.ndarray, ctx: np.ndarray,
+                   cond: np.ndarray, embedding: np.ndarray):
+        """One ``flow_chunk`` on host arrays: tok (n,), ctx (la,), cond (2n, 80)."""
+        return flow_chunk(self._get_stream_params(), self.cfg.flow, fstate,
+                          self._tensor(tok[None]), self._tensor(ctx[None]),
+                          self._tensor(np.asarray(embedding)[None], torch.float32),
+                          self._tensor(cond[None], torch.float32))
+
+    def _decompose_feed(self, n: int) -> list:
+        out = []
+        for s in self.PRIME_SIZES:
+            while n >= s:
+                out.append(s)
+                n -= s
+        if n:
+            raise ValueError(f"{n} tokens left over: feeds come in multiples of {s}")
+        return out
+
+    @staticmethod
+    def _prompt_prime_len(P: int, hop: int, la: int) -> int:
+        """Tokens of the prompt primed ahead of generation: full hops, minus
+        one if the remainder is too short to provide la-token context."""
+        prompt_only = (P // hop) * hop
+        if prompt_only and P - prompt_only < la:
+            prompt_only -= hop
+        return prompt_only
+
+    def _prompt_feat_chunk(self, prompt: PromptInputs, t0: int, n: int) -> np.ndarray:
+        """(2n, 80) prompt mel over tokens [t0, t0 + n), zeros past the
+        prompt's speech tokens."""
+        ratio = self.cfg.flow.token_mel_ratio
+        cond = np.zeros((n * ratio, self.cfg.flow.output_size), np.float32)
+        lo = t0 * ratio
+        take = min(n * ratio, len(prompt.flow_prompt_speech_tokens) * ratio - lo)
+        if take > 0:
+            cond[:take] = prompt.prompt_feat[lo: lo + take]
+        return cond
+
+    def _primed_flow_state(self, prompt: PromptInputs):
+        """A FlowStreamState primed over the prompt's full hops, from the
+        per-prompt snapshot cache (at most 4 prompts).  Chunks update a state
+        in place, so a snapshot is cloned on the way in and on the way out.
+        Returns (fstate, prompt_only)."""
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        sp = prompt.flow_prompt_speech_tokens.astype(np.int32)
+        P = len(sp)
+        prompt_only = self._prompt_prime_len(P, hop, la)
+        key = hashlib.sha1(b"".join(np.ascontiguousarray(a).tobytes() for a in (
+            sp, np.asarray(prompt.prompt_feat, np.float32),
+            np.asarray(prompt.embedding, np.float32)))).hexdigest()
+        cached = self._primed_cache.get(key)
+        if cached is not None:
+            return cached.clone(), prompt_only
+        fstate = self._init_stream_state()
+        with self.timer.stage("prompt_prime"):
+            t = 0
+            for n in self._decompose_feed(prompt_only):
+                _, fstate = self._flow_feed(fstate, sp[t: t + n], sp[t + n: t + n + la],
+                                            self._prompt_feat_chunk(prompt, t, n),
+                                            prompt.embedding)
+                t += n
+        if len(self._primed_cache) >= 4:  # bound the device memory snapshots hold
+            self._primed_cache.pop(next(iter(self._primed_cache)))
+        self._primed_cache[key] = fstate.clone()
+        return fstate, prompt_only
+
+    def _fused_cache_ok(self, session: dict) -> bool:
+        """The vocoder cache has the steady state's full-size tails."""
+        cache = session.get("hift_cache")
+        return (cache is not None and cache["mel"].shape[2] == self.mel_cache_len
+                and cache["source"].shape[2] == self.source_cache_len
+                and cache["speech"].shape[0] == self.source_cache_len)
+
+    def _first_chunk_fused(self, fstate, tok, ctx, cond, embedding, emit_frames: int,
+                           hift_draws: Optional[HiftDraws]):
+        """Boundary feed + the session's first HiFT chunk (no vocoder cache
+        yet): the feed's last ``emit_frames`` mel frames are the emission.
+        Returns (fstate, audio (1, n), source (1, 1, n), emitted mel)."""
+        mel, fstate = self._flow_feed(fstate, tok, ctx, cond, embedding)
+        emit = mel[:, :, mel.shape[2] - emit_frames:]
+        h_bucket = bucket_for(emit_frames, buckets=(64, 128, 256, 512))
+        mel_in = torch.cat([emit, emit[:, :, -1:].expand(-1, -1, h_bucket - emit_frames)], dim=2)
+        audio, source = self._vocode(mel_in, hift_draws)
+        n_samples = emit_frames * self.cfg.hift.upsample_scale
+        return fstate, audio[:, :n_samples], source[:, :, :n_samples], emit
+
+    def _stream_chunk_fused(self, fstate, tok, ctx, cond, embedding, cache: dict,
+                            hift_draws: Optional[HiftDraws]):
+        """Steady-state chunk: flow feed + HiFT with the vocoder cache +
+        crossfade + cache rotation, on the device (the same math as a feed
+        and ``_hift_chunk``, with the window in fp32 as the JAX package's
+        fused program has it).  Returns (fstate, audio (n,) on the host, new
+        cache)."""
+        mc, sc = self.mel_cache_len, self.source_cache_len
+        mel, fstate = self._flow_feed(fstate, tok, ctx, cond, embedding)
+        tts_mel = torch.cat([cache["mel"], mel], dim=2)  # (1, 80, T_mel)
+        t_mel = tts_mel.shape[2]
+        h_bucket = bucket_for(t_mel, buckets=HIFT_MEL_BUCKETS)
+        mel_in = torch.cat([tts_mel, tts_mel[:, :, -1:].expand(-1, -1, h_bucket - t_mel)], dim=2)
+        audio, source = self._vocode(mel_in, hift_draws, cache["source"], sc)
+        n_samples = t_mel * self.cfg.hift.upsample_scale
+        audio, source = audio[0, :n_samples], source[:, :, :n_samples]
+        win = torch.as_tensor(self.speech_window, dtype=torch.float32, device=self.device)
+        speech = torch.as_tensor(cache["speech"], device=self.device)
+        audio = torch.cat([audio[:sc] * win[:sc] + speech * win[sc:], audio[sc:]]).cpu().numpy()
+        new_cache = {"mel": tts_mel[:, :, -mc:], "source": source[:, :, -sc:],
+                     "speech": audio[-sc:]}
+        return fstate, audio[:-sc], new_cache
 
     # ------------------------------------------------------------------
     # public API
@@ -217,28 +448,271 @@ class TTSModel:
         lm_draws: Optional[llm_mod.Draws] = None,
         hift_draws: Optional[HiftDraws] = None,
     ) -> Generator[np.ndarray, None, None]:
-        """Yield waveform chunks (float32 at cfg.sample_rate).
+        """Yield waveform chunks (float32 at cfg.sample_rate): one without
+        streaming, one per hop (the first joined with the prompt's padding to
+        a hop) and a final one with it.
 
-        lm_draws / hift_draws inject the random draws (see ``lm_decode`` and
-        ``sine_source``); by default they come from ``self.generator``.
+        lm_draws / hift_draws inject the random draws (see ``lm_decode_chunk``
+        and ``sine_source``; ``hift_draws`` is called once per HiFT call, in
+        order); by default the LM draws from a generator seeded by one draw
+        of ``self.generator`` at the start of the call, HiFT from
+        ``self.generator``.
         """
-        if stream:
-            raise NotImplementedError("stream=True is not ported yet: ROADMAP item 7")
         ids, src, prompt_len, p_bucket, min_len, max_len = self._pack_lm_prompt(prompt)
         # round up to a multiple of 64, capped by the KV-cache capacity
         max_gen = min(((max_len + 63) // 64) * 64, self.cfg.llm.max_seq_len - p_bucket)
         session: dict = {"hift_cache": None}
+        own_draws = self._lm_draws(1)  # drawn in every call, injected draws or not
+        lm = {"prompt_len": self._tensor([prompt_len]), "min_len": self._tensor([min_len]),
+              "max_len": self._tensor([max_len]), "draws": lm_draws or own_draws}
 
-        with self.timer.stage("lm_decode"):
-            tokens, lengths, self.last_decode_steps = llm_mod.lm_decode(
-                self.params["llm"], self.cfg.llm, self._tensor(ids), self._tensor(src),
-                self._tensor([prompt_len]), self._tensor([min_len]), self._tensor([max_len]),
-                max_gen, generator=self.generator, draws=lm_draws,
-            )
-            n = int(lengths[0])
-            tokens = tokens[0, :n].cpu().numpy()
-        self.last_n_tokens = n
-        yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
+        if not stream:
+            with self.timer.stage("lm_decode"):
+                tokens, lengths, self.last_decode_steps = llm_mod.lm_decode(
+                    self.params["llm"], self.cfg.llm, self._tensor(ids), self._tensor(src),
+                    lm["prompt_len"], lm["min_len"], lm["max_len"], max_gen, draws=lm["draws"])
+                n = int(lengths[0])
+                tokens = tokens[0, :n].cpu().numpy()
+            self.last_n_tokens = n
+            yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
+            return
+        run = self._tts_stream_cached if self.cached_stream else self._tts_stream_recompute
+        yield from run(prompt, lm, ids, src, max_gen, session, speed, hift_draws)
+
+    def _tts_stream_recompute(self, prompt: PromptInputs, lm: dict, ids, src, max_gen: int,
+                              session: dict, speed: float,
+                              hift_draws: Optional[HiftDraws]) -> Generator[np.ndarray, None, None]:
+        """The reference's streaming schedule: each chunk recomputes the flow
+        over prompt + every generated token so far (a rolling window keeps
+        the span within the largest flow bucket)."""
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        prompt_sp = len(prompt.flow_prompt_speech_tokens)
+        prompt_pad = int(np.ceil(prompt_sp / hop) * hop - prompt_sp)
+        token_offset = 0
+        cap = FLOW_TOKEN_BUCKETS[-1]
+        window = max(hop, min(self.stream_rollover_window, cap - prompt_sp - 2 * (hop + la)))
+        base = 0  # generated tokens dropped from the recompute context
+
+        # prefill + the first chunk's decode before the first audio
+        state = self._lm_prefill_chunk(lm, ids, src, max_gen, hop + prompt_pad + la)
+        while True:
+            this_hop = hop + prompt_pad if token_offset == 0 else hop
+            need = token_offset + this_hop + la
+            n_avail, finished, toks = self._fetch(state)
+            if n_avail < need and not finished:
+                state = self._lm_chunk(lm, state, state.step + (need - n_avail))
+                n_avail, finished, toks = self._fetch(state)
+            done = finished or state.step >= max_gen
+            rel = token_offset - base
+            if prompt_sp + rel + this_hop + la > cap and rel > window:
+                base, rel = token_offset - window, window
+            if n_avail - token_offset >= this_hop + la:
+                audio = self._token2wav(toks[base: token_offset + this_hop + la], prompt, rel,
+                                        session, True, False, hift_draws=hift_draws)
+                token_offset += this_hop
+                yield audio
+            elif done:
+                break
+        self.last_n_tokens, self.last_decode_steps = n_avail, state.step
+        yield self._token2wav(toks[base: n_avail], prompt, token_offset - base, session, False,
+                              True, speed, hift_draws)
+
+    def _wav_from_token_gen(self, token_gen, prompt: PromptInputs, stream: bool,
+                            speed: float = 1.0, hift_draws: Optional[HiftDraws] = None
+                            ) -> Generator[np.ndarray, None, None]:
+        """Vocode an incremental speech-token stream on the reference's hop
+        schedule, recomputing the prefix per chunk within a rolling window
+        that keeps the span inside the largest flow bucket."""
+        session: dict = {"hift_cache": None}
+        if not stream:
+            tokens = np.fromiter(token_gen, np.int32)
+            yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
+            return
+        if self.cached_stream:
+            raise NotImplementedError(
+                "streaming a token stream through the cached flow runs through the serving "
+                "engine's StreamSession, which is not ported yet: ROADMAP item 6")
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        n_prompt = len(prompt.flow_prompt_speech_tokens)
+        prompt_pad = int(np.ceil(n_prompt / hop) * hop - n_prompt)
+        cap = FLOW_TOKEN_BUCKETS[-1]
+        window = max(hop, min(self.stream_rollover_window, cap - n_prompt - 2 * (hop + la)))
+        base = 0  # generated tokens dropped from the recompute context
+        token_offset = 0
+        buf: list = []
+        for t in token_gen:
+            buf.append(int(t))
+            this_hop = hop + prompt_pad if token_offset == 0 else hop
+            rel = token_offset - base
+            if n_prompt + rel + this_hop + la > cap and rel > window:
+                base, rel = token_offset - window, window
+            if len(buf) - token_offset >= this_hop + la:
+                chunk = np.asarray(buf[base: token_offset + this_hop + la], np.int32)
+                yield self._token2wav(chunk, prompt, rel, session, True, False,
+                                      hift_draws=hift_draws)
+                token_offset += this_hop
+        yield self._token2wav(np.asarray(buf[base:], np.int32), prompt, token_offset - base,
+                              session, False, True, speed, hift_draws)
+
+    def _tts_stream_cached(self, prompt: PromptInputs, lm: dict, ids, src, max_gen: int,
+                           session: dict, speed: float,
+                           hift_draws: Optional[HiftDraws]) -> Generator[np.ndarray, None, None]:
+        """Streaming through the chunk-cached flow: [prompt ++ generated]
+        feeds the flow in 25-token chunks at O(1) each; the emitted mel
+        follows the reference's hop schedule; the first chunk is a recompute
+        (the cached state catches up behind it), and the final chunk the
+        reference's full-recompute finalize, bounded by the window after a
+        rollover."""
+        cfg = self.cfg
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        ratio = cfg.flow.token_mel_ratio
+        P = len(prompt.flow_prompt_speech_tokens)
+        prompt_pad = int(np.ceil(P / hop) * hop - P)
+        prompt_mel = P * ratio
+        sp = prompt.flow_prompt_speech_tokens.astype(np.int32)
+        emb = prompt.embedding
+        self._get_stream_params()
+
+        state = self._lm_prefill_chunk(lm, ids, src, max_gen, max(hop + prompt_pad + la, 1))
+        toks = np.zeros(0, np.int64)  # generated tokens, as of the last fetch
+        # after a rollover, state position i >= P holds generated token gen_base + (i - P)
+        gen_base = 0
+
+        def combined(i0: int, n: int) -> np.ndarray:
+            """Tokens [i0, i0 + n) of prompt ++ generated, in state positions."""
+            i = np.arange(i0, i0 + n)
+            out = toks[np.clip(gen_base + i - P, 0, None)].astype(np.int32)
+            out[i < P] = sp[i[i < P]]
+            return out
+
+        def fetch():
+            nonlocal toks
+            n_avail, finished, toks = self._fetch(state)
+            return state.step, n_avail, finished
+
+        def feed(fstate, t0: int, n: int):
+            with self.timer.stage(f"flow_chunk[{n}]"):
+                return self._flow_feed(fstate, combined(t0, n), combined(t0 + n, la),
+                                       self._prompt_feat_chunk(prompt, t0, n), emb)
+
+        prompt_only = self._prompt_prime_len(P, hop, la)
+        t_fed = prompt_only
+        emitted_tokens = 0  # generated tokens already vocoded
+        mel_buf = torch.zeros((1, cfg.flow.output_size, 0), device=self.device)
+        this_hop = hop + prompt_pad
+        next_feed = (P - prompt_only) + prompt_pad + hop  # prompt remainder + the first hop
+        step, n_avail, finished = fetch()
+
+        # first chunk by recompute (one flow call over prompt + the first hop);
+        # the cached state catches up behind the audio already yielded.  A
+        # decode round can spend steps on special tokens without emitting,
+        # so it repeats until the hop is there, the LM ends or max_gen.
+        need = this_hop + la
+        while n_avail < need and not finished and step < max_gen:
+            state = self._lm_chunk(lm, state, step + (need - n_avail))
+            step, n_avail, finished = fetch()
+        if n_avail >= need:
+            with self.timer.stage("first_chunk_recompute"):
+                audio = self._token2wav(toks[:need], prompt, 0, session, True, False,
+                                        hift_draws=hift_draws)
+            yield audio
+            fstate, _ = self._primed_flow_state(prompt)
+            _, fstate = feed(fstate, t_fed, next_feed)
+            t_fed += next_feed
+            emitted_tokens, this_hop, next_feed = this_hop, hop, hop
+        else:
+            # shorter than one hop: the final recompute vocodes it all, and
+            # the cached state is never fed
+            fstate = self._init_stream_state()
+
+        def rollover(t_fed_old: int):
+            """Re-prime a fresh state over prompt + the last
+            ``stream_rollover_window`` generated tokens, aligned so the feed
+            decomposes into PRIME_SIZES; returns (fstate, t_fed)."""
+            nonlocal gen_base
+            g_fed = gen_base + (t_fed_old - P)  # generated tokens fed so far
+            w = self.stream_rollover_window
+            w += (-((P - prompt_only) + w)) % hop
+            j0 = max(0, g_fed - w)
+            fstate, _ = self._primed_flow_state(prompt)
+            gen_base = j0
+            t, total = prompt_only, P + (g_fed - j0)
+            with self.timer.stage("stream_rollover"):
+                for n in self._decompose_feed(total - prompt_only):
+                    _, fstate = feed(fstate, t, n)
+                    t += n
+            return fstate, total
+
+        can_roll = (self.stream_rollover
+                    and P + self.stream_rollover_window + 2 * hop <= self.stream_max_tokens)
+        stale = False  # the fetched values predate a speculative decode
+        while True:
+            if stale:
+                step, n_avail, finished = fetch()
+                stale = False
+            need_gen = gen_base + t_fed + next_feed + la - P  # generated tokens the feed needs
+            if need_gen > 0 and n_avail < need_gen and not finished:
+                state = self._lm_chunk(lm, state, step + (need_gen - n_avail))
+                step, n_avail, finished = fetch()
+            at_cap = t_fed + next_feed > self.stream_max_tokens
+            remaining = n_avail - (gen_base + t_fed - P)  # generated, not yet fed
+            if at_cap and can_roll and (not finished or remaining > 2 * hop):
+                fstate, t_fed = rollover(t_fed)
+                continue
+            if P + n_avail - gen_base < t_fed + next_feed + la or at_cap:
+                if finished or step >= max_gen or at_cap:
+                    break  # the final partial chunk by (window-bounded) recompute
+                continue
+            tok, ctx = combined(t_fed, next_feed), combined(t_fed + next_feed, la)
+            cond = self._prompt_feat_chunk(prompt, t_fed, next_feed)
+            if emitted_tokens == 0 and session["hift_cache"] is None and mel_buf.shape[2] == 0:
+                # first emission when the recompute did not make it
+                with self.timer.stage(f"first_chunk_fused[{next_feed}]"):
+                    fstate, audio, source, emit = self._first_chunk_fused(
+                        fstate, tok, ctx, cond, emb, this_hop * ratio, hift_draws)
+                    audio = audio[0].cpu().numpy()
+                session["hift_cache"] = {"mel": emit[:, :, -self.mel_cache_len:],
+                                         "source": source[:, :, -self.source_cache_len:],
+                                         "speech": audio[-self.source_cache_len:]}
+                t_fed += next_feed
+                next_feed = hop
+                emitted_tokens += this_hop
+                this_hop = hop
+                yield audio[: -self.source_cache_len]
+                continue
+            if (next_feed == hop and this_hop == hop and mel_buf.shape[2] == 0 and t_fed >= P
+                    and self._fused_cache_ok(session)):
+                # steady state: flow + HiFT + crossfade + cache rotation, the
+                # vocoder cache kept on the device
+                with self.timer.stage(f"stream_chunk_fused[{next_feed}]"):
+                    fstate, audio, session["hift_cache"] = self._stream_chunk_fused(
+                        fstate, tok, ctx, cond, emb, session["hift_cache"], hift_draws)
+                # decode the next hop ahead (a no-op once the LM has finished)
+                if not finished and step < max_gen:
+                    state = self._lm_chunk(lm, state, step + hop + la)
+                    stale = True
+                t_fed += next_feed
+                emitted_tokens += this_hop
+                yield audio
+                continue
+            with self.timer.stage(f"flow_chunk[{next_feed}]"):
+                mel, fstate = self._flow_feed(fstate, tok, ctx, cond, emb)
+            start = max(0, prompt_mel - t_fed * ratio)  # keep the generated region's mel
+            mel_buf = torch.cat([mel_buf, mel[:, :, start:]], dim=2)
+            t_fed += next_feed
+            next_feed = hop
+            while mel_buf.shape[2] >= this_hop * ratio:
+                chunk_mel = mel_buf[:, :, : this_hop * ratio]
+                mel_buf = mel_buf[:, :, this_hop * ratio:]
+                audio = self._hift_chunk(chunk_mel, session, False, hift_draws=hift_draws)
+                emitted_tokens += this_hop
+                this_hop = hop
+                yield audio
+
+        self.last_n_tokens, self.last_decode_steps = n_avail, state.step
+        # after a rollover the finalize recompute starts at gen_base too
+        yield self._token2wav(toks[gen_base: n_avail], prompt, emitted_tokens - gen_base,
+                              session, False, True, speed, hift_draws)
 
     def tts_batch(
         self,
@@ -268,11 +742,12 @@ class TTSModel:
             ids[i, : pi.shape[1]], src[i, : si.shape[1]] = pi[0], si[0]
             prompt_len[i], min_len[i], max_len[i] = total, mn, mx
         max_gen = min(((int(max_len.max()) + 63) // 64) * 64, cfg.llm.max_seq_len - p_bucket)
+        own_draws = self._lm_draws(n)  # drawn in every call, as in tts
         with self.timer.stage("lm_decode"):
             tokens, lengths, self.last_decode_steps = llm_mod.lm_decode(
                 self.params["llm"], cfg.llm, self._tensor(ids), self._tensor(src),
                 self._tensor(prompt_len), self._tensor(min_len), self._tensor(max_len),
-                max_gen, generator=self.generator, draws=lm_draws,
+                max_gen, draws=lm_draws or own_draws,
             )
             tokens, lengths = tokens.cpu().numpy(), lengths.cpu().numpy()
         self.last_batch_tokens = [int(x) for x in lengths]
@@ -319,20 +794,15 @@ class TTSModel:
             mel_g = mel_in[lo:hi]
             if hi - lo < sub:
                 mel_g = torch.cat([mel_g, mel_g[-1:].expand(sub - (hi - lo), -1, -1)])
-            draws = None
-            if hift_draws is not None:
-                draws = hift_draws(sub, h_bucket * hcfg.upsample_scale, hcfg.nb_harmonics + 1)
             with self.timer.stage("hift"):
-                audio, _ = hift_inference(self.params["hift"], hcfg, mel_g,
-                                          generator=self.generator, draws=draws,
-                                          cache_source=cache, cache_len=0)
+                audio, _ = self._vocode(mel_g, hift_draws, cache, 0)
                 out.extend(audio[i - lo, : mel_lens[i] * hcfg.upsample_scale].cpu().numpy()
                            for i in range(lo, hi))
         return out
 
 
 def _fade_in_out(fade_in: np.ndarray, fade_out: np.ndarray, window: np.ndarray) -> np.ndarray:
-    """Hamming crossfade of chunk boundaries (used by streaming, ROADMAP item 7)."""
+    """Hamming crossfade of chunk boundaries (streaming's vocoder cache)."""
     ov = window.shape[0] // 2
     out = fade_in.copy()
     out[:ov] = fade_in[:ov] * window[:ov] + fade_out[-ov:] * window[ov:]

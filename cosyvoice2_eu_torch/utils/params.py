@@ -132,7 +132,7 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     """
     if "weight_q_xla" in p:
         raise NotImplementedError(
-            "tensor-parallel int8 weights are not ported yet: ROADMAP item 13b")
+            "tensor-parallel int8 weights are not ported yet: ROADMAP item 8g")
     if "weight_q" in p:
         from cosyvoice2_eu_torch.ops.int8_matmul import int8_matmul
 

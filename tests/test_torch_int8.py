@@ -125,7 +125,7 @@ def test_dense_int8_matches_jax(lead):
 def test_dense_tensor_parallel_int8_raises():
     """The JAX package's tensor-parallel key stays unported and says where it waits."""
     pq = port_params.quantize_dense({k: t(v) for k, v in _dense_params(1).items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 13b"):
+    with pytest.raises(NotImplementedError, match="ROADMAP item 8g"):
         port_params.dense({"weight_q_xla": pq["weight_q"], "scale": pq["scale"]}, torch.ones(2, 80))
 
 

@@ -118,16 +118,14 @@ def test_cuda_device_turns_tf32_off(monkeypatch):
     assert not torch.backends.cuda.matmul.allow_tf32
 
 
-@pytest.mark.parametrize("what", ["stream", "model_dir", "tp", "long", "wav_prompt", "instruct2"])
+@pytest.mark.parametrize("what", ["model_dir", "tp", "long", "wav_prompt", "instruct2"])
 def test_paths_not_in_this_slice_raise(what):
     """Paths of the JAX package that this slice lacks raise and name their
     ROADMAP item; they never do something else."""
     model = port.load(config=PCFG, seed=0, device="cpu", compute_dtype="float32")
     inputs = _inputs(port_model.PromptInputs)
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        if what == "stream":
-            next(model._model.tts(inputs, stream=True))
-        elif what == "model_dir":
+        if what == "model_dir":
             port.load(config=PCFG, device="cpu", model_dir="/nonexistent")
         elif what == "tp":
             port.load(config=PCFG, device="cpu", tp=2)
