@@ -50,15 +50,16 @@ Phases (any failure ends the run with a non-zero exit code):
   5b. stream phase: on a small config, streams on the card against the
      plain CPU path (the chunk-cached path, the recompute path and a
      rollover past a 100-token cap: equal chunks, audio within 1e-3) and
-     the cached flow's mel against the recompute on the card; at the
-     published widths one ``Cosy2EU.stream`` request per path
+     the cached flow's mel against the recompute on the card for 5 seeds;
+     at the published widths one ``Cosy2EU.stream`` request per path
      (``cached_stream=False``, then the default) and one ``Cosy2EU.tts``,
      each on a fresh ``load(seed=0)``, which must give the same tokens,
      tokens x 960 samples in finite, non-silent chunks and 560 K1 launches
      per flow call (recompute: one per chunk; cached: 2), with time to
      first audio, each chunk's wall time, the steady chunk's median, RTF,
-     LM ms/token, session bytes (held equal to the state's tensors) and
-     peak memory; one int8 cached stream (K2 168 + 169 x steps, each launch
+     LM ms/token, session bytes (held equal to what the allocator is
+     asked for across a session's allocation on the card) and peak
+     memory; one int8 cached stream (K2 168 + 169 x steps, each launch
      on its design); then K1 checked at every (lengths, T, chunk) the
      phase gave it;
   6. training path: 8 flow-matching steps at the published widths through
@@ -1063,11 +1064,22 @@ def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str
     steady = f", steady chunk median {between[len(between) // 2]:.1f} ms" if between else ""
     session = ""
     if stream and tm.cached_stream:
-        (state,) = tm._primed_cache.values()
-        held = state.nbytes()
-        ok = ok and held == tm.stream_session_bytes()
-        session = (f"; stream_session_bytes {tm.stream_session_bytes()} (the session's tensors "
-                   f"hold {held} bytes)")
+        # the card's memory a session takes: what the caching allocator was
+        # asked for across ``_init_stream_state`` must be the bytes
+        # ``stream_session_bytes`` sizes on the meta device; what it handed
+        # out rounds each tensor up (512-byte granules, and a large block
+        # left unsplit when at most 1 MiB would remain)
+        want = tm.stream_session_bytes()
+        stats0, alloc0 = torch.cuda.memory_stats(), torch.cuda.memory_allocated()
+        probe = tm._init_stream_state()
+        asked = torch.cuda.memory_stats()["requested_bytes.all.current"] \
+            - stats0["requested_bytes.all.current"]
+        held = torch.cuda.memory_allocated() - alloc0
+        n_tensors = len(probe.tensors())
+        del probe
+        ok = ok and asked == want and want <= held <= want + n_tensors * 2**21
+        session = (f"; stream_session_bytes {want}, on the card {asked} bytes requested and "
+                   f"{held} allocated over {n_tensors} tensors")
     print(f"{what}: {len(text.encode())} text bytes -> {n_tok} tokens in {tm.last_decode_steps} "
           f"decode steps, {audio_s:.2f} s audio in {len(chunks)} chunks of "
           f"{[c.shape[1] for c in chunks]} samples; flow calls {len(calls)} (expected "
@@ -1164,13 +1176,13 @@ def int8_stream_path(card: str) -> tuple[list, int, tuple, int]:
 
 
 # Tolerance of the chunk-cached mel against the full-prefix recompute on the
-# card (small config, fp32).  The CPU holds the two to 1e-4
-# (tests/test_torch_flow_streaming.py); on the card the recompute attends
-# through K1's 3xTF32 products (within K1's own fp32 tolerance of 1e-4 of
-# the plain version) where the cached flow uses fp32 einsums, and each of
-# the 10 Euler steps carries that difference through the estimator's
-# attention: 10x the CPU's tolerance.
-STREAM_MEL_TOL = 1e-3
+# card (small config, fp32).  The two differ only where the recompute
+# attends through K1's 3xTF32 products and the cached flow through fp32
+# einsums.  On an H100 (80GB HBM3, 700 W) these seeds read 1.281e-6,
+# 1.401e-6, 1.311e-6, 1.483e-6 and 1.073e-6; the tolerance is ~10x the
+# largest.
+STREAM_MEL_SEEDS = (4, 5, 6, 7, 8)
+STREAM_MEL_TOL = 1.5e-5
 
 
 @_uncounted
@@ -1180,7 +1192,8 @@ def check_small_stream() -> None:
     the chunk-cached path, the recompute path and a cached stream past a
     100-token cap (rollover); equal chunk counts and lengths, audio within
     1e-3.  Then, on the card, the cached flow's mel against the recompute
-    (K1 at chunk 50) within ``STREAM_MEL_TOL``."""
+    (K1 at chunk 50) for each of ``STREAM_MEL_SEEDS``, within
+    ``STREAM_MEL_TOL``."""
     import numpy as np
     import torch
 
@@ -1239,33 +1252,38 @@ def check_small_stream() -> None:
         if not ok:
             raise SystemExit(f"the card's {what} stream disagrees with the plain CPU path")
 
-    # cached mel against the full-prefix recompute, on the card
+    # cached mel against the full-prefix recompute, on the card, for a few seeds
     flow = tree_map(lambda x: x.to("cuda"), params["flow"])
     sparams = fs.prepare_stream_params(flow, cfg.flow, 128)
-    state = fs.init_flow_stream_state(cfg.flow, 128, dtype=torch.float32, device="cuda")
-    rng = np.random.default_rng(4)
     hop, la = cfg.flow.encoder.static_chunk_size, cfg.flow.pre_lookahead_len
-    tokens = torch.as_tensor(rng.integers(0, cfg.flow.vocab_size, (1, 3 * hop + la)),
-                             device="cuda")
-    xvec = torch.as_tensor(rng.standard_normal((1, cfg.flow.spk_embed_dim)), device="cuda",
-                           dtype=torch.float32)
-    worst = 0.0
-    for c in range(3):
-        o = c * hop
-        got, state = fs.flow_chunk(sparams, cfg.flow, state, tokens[:, o:o + hop],
-                                   tokens[:, o + hop:o + hop + la], xvec,
-                                   torch.zeros((1, 2 * hop, cfg.flow.output_size), device="cuda"))
-        upto = o + hop + la
-        mel = flow_inference(flow, cfg.flow, tokens[:, :upto],
-                             torch.tensor([upto], device="cuda"),
-                             torch.zeros((1, 8, cfg.flow.output_size), device="cuda"),
-                             torch.tensor([0], device="cuda"), xvec, streaming=True,
-                             finalize=False)
-        worst = max(worst, (got - mel[:, :, 2 * o:2 * (o + hop)]).abs().max().item())
-    ok = math.isfinite(worst) and worst <= STREAM_MEL_TOL
+    errs = []
+    for seed in STREAM_MEL_SEEDS:
+        state = fs.init_flow_stream_state(cfg.flow, 128, dtype=torch.float32, device="cuda")
+        rng = np.random.default_rng(seed)
+        tokens = torch.as_tensor(rng.integers(0, cfg.flow.vocab_size, (1, 3 * hop + la)),
+                                 device="cuda")
+        xvec = torch.as_tensor(rng.standard_normal((1, cfg.flow.spk_embed_dim)), device="cuda",
+                               dtype=torch.float32)
+        worst = 0.0
+        for c in range(3):
+            o = c * hop
+            got, state = fs.flow_chunk(sparams, cfg.flow, state, tokens[:, o:o + hop],
+                                       tokens[:, o + hop:o + hop + la], xvec,
+                                       torch.zeros((1, 2 * hop, cfg.flow.output_size),
+                                                   device="cuda"))
+            upto = o + hop + la
+            mel = flow_inference(flow, cfg.flow, tokens[:, :upto],
+                                 torch.tensor([upto], device="cuda"),
+                                 torch.zeros((1, 8, cfg.flow.output_size), device="cuda"),
+                                 torch.tensor([0], device="cuda"), xvec, streaming=True,
+                                 finalize=False)
+            worst = max(worst, (got - mel[:, :, 2 * o:2 * (o + hop)]).abs().max().item())
+        errs.append(worst)
+    ok = all(math.isfinite(e) and e <= STREAM_MEL_TOL for e in errs)
     print(f"stream mel check (small config, fp32, on the card): 3 chunk-cached flow chunks "
-          f"against the full-prefix recompute (K1 at chunk 50), max_abs_err={worst:.3e} "
-          f"(tol {STREAM_MEL_TOL:g}) {'ok' if ok else 'FAIL'}")
+          f"against the full-prefix recompute (K1 at chunk 50), seeds {list(STREAM_MEL_SEEDS)}: "
+          f"max_abs_err {', '.join(f'{e:.3e}' for e in errs)} (tol {STREAM_MEL_TOL:g}) "
+          f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the chunk-cached flow disagrees with the recompute on the card")
 

@@ -186,6 +186,10 @@ class TTSModel:
         then reaches only the final chunk)."""
         if len(p.flow_prompt_speech_tokens) + len(tokens) <= FLOW_TOKEN_BUCKETS[-1]:
             return self._token2wav(tokens, p, 0, session, False, True, speed, hift_draws)
+        if self.cached_stream:
+            raise NotImplementedError(
+                "synthesis past the largest flow bucket under cached_stream=True runs through "
+                "the serving engine's StreamSession, which is not ported yet: ROADMAP item 6")
         return np.concatenate(list(self._wav_from_token_gen(iter(tokens), p, True, speed,
                                                             hift_draws)))
 
@@ -393,49 +397,6 @@ class TTSModel:
         self._primed_cache[key] = fstate.clone()
         return fstate, prompt_only
 
-    def _fused_cache_ok(self, session: dict) -> bool:
-        """The vocoder cache has the steady state's full-size tails."""
-        cache = session.get("hift_cache")
-        return (cache is not None and cache["mel"].shape[2] == self.mel_cache_len
-                and cache["source"].shape[2] == self.source_cache_len
-                and cache["speech"].shape[0] == self.source_cache_len)
-
-    def _first_chunk_fused(self, fstate, tok, ctx, cond, embedding, emit_frames: int,
-                           hift_draws: Optional[HiftDraws]):
-        """Boundary feed + the session's first HiFT chunk (no vocoder cache
-        yet): the feed's last ``emit_frames`` mel frames are the emission.
-        Returns (fstate, audio (1, n), source (1, 1, n), emitted mel)."""
-        mel, fstate = self._flow_feed(fstate, tok, ctx, cond, embedding)
-        emit = mel[:, :, mel.shape[2] - emit_frames:]
-        h_bucket = bucket_for(emit_frames, buckets=(64, 128, 256, 512))
-        mel_in = torch.cat([emit, emit[:, :, -1:].expand(-1, -1, h_bucket - emit_frames)], dim=2)
-        audio, source = self._vocode(mel_in, hift_draws)
-        n_samples = emit_frames * self.cfg.hift.upsample_scale
-        return fstate, audio[:, :n_samples], source[:, :, :n_samples], emit
-
-    def _stream_chunk_fused(self, fstate, tok, ctx, cond, embedding, cache: dict,
-                            hift_draws: Optional[HiftDraws]):
-        """Steady-state chunk: flow feed + HiFT with the vocoder cache +
-        crossfade + cache rotation, on the device (the same math as a feed
-        and ``_hift_chunk``, with the window in fp32 as the JAX package's
-        fused program has it).  Returns (fstate, audio (n,) on the host, new
-        cache)."""
-        mc, sc = self.mel_cache_len, self.source_cache_len
-        mel, fstate = self._flow_feed(fstate, tok, ctx, cond, embedding)
-        tts_mel = torch.cat([cache["mel"], mel], dim=2)  # (1, 80, T_mel)
-        t_mel = tts_mel.shape[2]
-        h_bucket = bucket_for(t_mel, buckets=HIFT_MEL_BUCKETS)
-        mel_in = torch.cat([tts_mel, tts_mel[:, :, -1:].expand(-1, -1, h_bucket - t_mel)], dim=2)
-        audio, source = self._vocode(mel_in, hift_draws, cache["source"], sc)
-        n_samples = t_mel * self.cfg.hift.upsample_scale
-        audio, source = audio[0, :n_samples], source[:, :, :n_samples]
-        win = torch.as_tensor(self.speech_window, dtype=torch.float32, device=self.device)
-        speech = torch.as_tensor(cache["speech"], device=self.device)
-        audio = torch.cat([audio[:sc] * win[:sc] + speech * win[sc:], audio[sc:]]).cpu().numpy()
-        new_cache = {"mel": tts_mel[:, :, -mc:], "source": source[:, :, -sc:],
-                     "speech": audio[-sc:]}
-        return fstate, audio[:-sc], new_cache
-
     # ------------------------------------------------------------------
     # public API
     # ------------------------------------------------------------------
@@ -461,7 +422,6 @@ class TTSModel:
         ids, src, prompt_len, p_bucket, min_len, max_len = self._pack_lm_prompt(prompt)
         # round up to a multiple of 64, capped by the KV-cache capacity
         max_gen = min(((max_len + 63) // 64) * 64, self.cfg.llm.max_seq_len - p_bucket)
-        session: dict = {"hift_cache": None}
         own_draws = self._lm_draws(1)  # drawn in every call, injected draws or not
         lm = {"prompt_len": self._tensor([prompt_len]), "min_len": self._tensor([min_len]),
               "max_len": self._tensor([max_len]), "draws": lm_draws or own_draws}
@@ -474,48 +434,35 @@ class TTSModel:
                 n = int(lengths[0])
                 tokens = tokens[0, :n].cpu().numpy()
             self.last_n_tokens = n
-            yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
+            yield self._finalize_full(tokens, prompt, {"hift_cache": None}, speed, hift_draws)
             return
         run = self._tts_stream_cached if self.cached_stream else self._tts_stream_recompute
-        yield from run(prompt, lm, ids, src, max_gen, session, speed, hift_draws)
+        yield from run(prompt, lm, ids, src, max_gen, speed, hift_draws)
 
     def _tts_stream_recompute(self, prompt: PromptInputs, lm: dict, ids, src, max_gen: int,
-                              session: dict, speed: float,
+                              speed: float,
                               hift_draws: Optional[HiftDraws]) -> Generator[np.ndarray, None, None]:
-        """The reference's streaming schedule: each chunk recomputes the flow
-        over prompt + every generated token so far (a rolling window keeps
-        the span within the largest flow bucket)."""
+        """The reference's streaming schedule (``_wav_from_token_gen``) over
+        the chunked decode: the prefill decodes the first chunk's tokens, and
+        each time the schedule has used up the tokens decoded so far, a hop
+        more steps are decoded."""
         hop, la = self.token_hop_len, self.pre_lookahead_len
-        prompt_sp = len(prompt.flow_prompt_speech_tokens)
-        prompt_pad = int(np.ceil(prompt_sp / hop) * hop - prompt_sp)
-        token_offset = 0
-        cap = FLOW_TOKEN_BUCKETS[-1]
-        window = max(hop, min(self.stream_rollover_window, cap - prompt_sp - 2 * (hop + la)))
-        base = 0  # generated tokens dropped from the recompute context
+        n_prompt = len(prompt.flow_prompt_speech_tokens)
+        prompt_pad = int(np.ceil(n_prompt / hop) * hop - n_prompt)
 
-        # prefill + the first chunk's decode before the first audio
-        state = self._lm_prefill_chunk(lm, ids, src, max_gen, hop + prompt_pad + la)
-        while True:
-            this_hop = hop + prompt_pad if token_offset == 0 else hop
-            need = token_offset + this_hop + la
-            n_avail, finished, toks = self._fetch(state)
-            if n_avail < need and not finished:
-                state = self._lm_chunk(lm, state, state.step + (need - n_avail))
+        def tokens():
+            state = self._lm_prefill_chunk(lm, ids, src, max_gen, hop + prompt_pad + la)
+            done = 0
+            while True:
                 n_avail, finished, toks = self._fetch(state)
-            done = finished or state.step >= max_gen
-            rel = token_offset - base
-            if prompt_sp + rel + this_hop + la > cap and rel > window:
-                base, rel = token_offset - window, window
-            if n_avail - token_offset >= this_hop + la:
-                audio = self._token2wav(toks[base: token_offset + this_hop + la], prompt, rel,
-                                        session, True, False, hift_draws=hift_draws)
-                token_offset += this_hop
-                yield audio
-            elif done:
-                break
-        self.last_n_tokens, self.last_decode_steps = n_avail, state.step
-        yield self._token2wav(toks[base: n_avail], prompt, token_offset - base, session, False,
-                              True, speed, hift_draws)
+                self.last_n_tokens, self.last_decode_steps = n_avail, state.step
+                yield from toks[done:n_avail]
+                done = n_avail
+                if finished or state.step >= max_gen:
+                    return
+                state = self._lm_chunk(lm, state, state.step + hop)
+
+        yield from self._wav_from_token_gen(tokens(), prompt, True, speed, hift_draws)
 
     def _wav_from_token_gen(self, token_gen, prompt: PromptInputs, stream: bool,
                             speed: float = 1.0, hift_draws: Optional[HiftDraws] = None
@@ -528,10 +475,6 @@ class TTSModel:
             tokens = np.fromiter(token_gen, np.int32)
             yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
             return
-        if self.cached_stream:
-            raise NotImplementedError(
-                "streaming a token stream through the cached flow runs through the serving "
-                "engine's StreamSession, which is not ported yet: ROADMAP item 6")
         hop, la = self.token_hop_len, self.pre_lookahead_len
         n_prompt = len(prompt.flow_prompt_speech_tokens)
         prompt_pad = int(np.ceil(n_prompt / hop) * hop - n_prompt)
@@ -555,25 +498,22 @@ class TTSModel:
                               session, False, True, speed, hift_draws)
 
     def _tts_stream_cached(self, prompt: PromptInputs, lm: dict, ids, src, max_gen: int,
-                           session: dict, speed: float,
+                           speed: float,
                            hift_draws: Optional[HiftDraws]) -> Generator[np.ndarray, None, None]:
         """Streaming through the chunk-cached flow: [prompt ++ generated]
-        feeds the flow in 25-token chunks at O(1) each; the emitted mel
-        follows the reference's hop schedule; the first chunk is a recompute
-        (the cached state catches up behind it), and the final chunk the
+        feeds the flow in 25-token chunks at O(1) each, and each chunk's mel
+        goes through ``_hift_chunk``; the first chunk is a recompute (the
+        cached state catches up behind it), and the final chunk the
         reference's full-recompute finalize, bounded by the window after a
         rollover."""
-        cfg = self.cfg
         hop, la = self.token_hop_len, self.pre_lookahead_len
-        ratio = cfg.flow.token_mel_ratio
         P = len(prompt.flow_prompt_speech_tokens)
         prompt_pad = int(np.ceil(P / hop) * hop - P)
-        prompt_mel = P * ratio
         sp = prompt.flow_prompt_speech_tokens.astype(np.int32)
-        emb = prompt.embedding
+        session: dict = {"hift_cache": None}
         self._get_stream_params()
 
-        state = self._lm_prefill_chunk(lm, ids, src, max_gen, max(hop + prompt_pad + la, 1))
+        state = self._lm_prefill_chunk(lm, ids, src, max_gen, hop + prompt_pad + la)
         toks = np.zeros(0, np.int64)  # generated tokens, as of the last fetch
         # after a rollover, state position i >= P holds generated token gen_base + (i - P)
         gen_base = 0
@@ -593,37 +533,30 @@ class TTSModel:
         def feed(fstate, t0: int, n: int):
             with self.timer.stage(f"flow_chunk[{n}]"):
                 return self._flow_feed(fstate, combined(t0, n), combined(t0 + n, la),
-                                       self._prompt_feat_chunk(prompt, t0, n), emb)
+                                       self._prompt_feat_chunk(prompt, t0, n), prompt.embedding)
 
         prompt_only = self._prompt_prime_len(P, hop, la)
-        t_fed = prompt_only
-        emitted_tokens = 0  # generated tokens already vocoded
-        mel_buf = torch.zeros((1, cfg.flow.output_size, 0), device=self.device)
-        this_hop = hop + prompt_pad
-        next_feed = (P - prompt_only) + prompt_pad + hop  # prompt remainder + the first hop
+        first = hop + prompt_pad  # generated tokens of the first chunk
         step, n_avail, finished = fetch()
 
-        # first chunk by recompute (one flow call over prompt + the first hop);
-        # the cached state catches up behind the audio already yielded.  A
-        # decode round can spend steps on special tokens without emitting,
-        # so it repeats until the hop is there, the LM ends or max_gen.
-        need = this_hop + la
-        while n_avail < need and not finished and step < max_gen:
-            state = self._lm_chunk(lm, state, step + (need - n_avail))
+        # first chunk by recompute (one flow call over prompt + the first
+        # chunk); the cached state catches up behind the audio already
+        # yielded.  A decode round can spend steps on special tokens without
+        # emitting, so it repeats until the chunk is there, the LM ends or max_gen.
+        while n_avail < first + la and not finished and step < max_gen:
+            state = self._lm_chunk(lm, state, step + (first + la - n_avail))
             step, n_avail, finished = fetch()
-        if n_avail >= need:
+        # a stream shorter than the first chunk needs no state: the final
+        # recompute vocodes it all
+        fstate, t_fed = None, P  # t_fed: the next state position to feed
+        if n_avail >= first + la:
             with self.timer.stage("first_chunk_recompute"):
-                audio = self._token2wav(toks[:need], prompt, 0, session, True, False,
+                audio = self._token2wav(toks[:first + la], prompt, 0, session, True, False,
                                         hift_draws=hift_draws)
             yield audio
             fstate, _ = self._primed_flow_state(prompt)
-            _, fstate = feed(fstate, t_fed, next_feed)
-            t_fed += next_feed
-            emitted_tokens, this_hop, next_feed = this_hop, hop, hop
-        else:
-            # shorter than one hop: the final recompute vocodes it all, and
-            # the cached state is never fed
-            fstate = self._init_stream_state()
+            _, fstate = feed(fstate, prompt_only, P - prompt_only + first)
+            t_fed = P + first
 
         def rollover(t_fed_old: int):
             """Re-prime a fresh state over prompt + the last
@@ -646,73 +579,36 @@ class TTSModel:
         can_roll = (self.stream_rollover
                     and P + self.stream_rollover_window + 2 * hop <= self.stream_max_tokens)
         stale = False  # the fetched values predate a speculative decode
-        while True:
+        while fstate is not None:
             if stale:
                 step, n_avail, finished = fetch()
                 stale = False
-            need_gen = gen_base + t_fed + next_feed + la - P  # generated tokens the feed needs
-            if need_gen > 0 and n_avail < need_gen and not finished:
+            need_gen = gen_base + t_fed + hop + la - P  # generated tokens the feed needs
+            if n_avail < need_gen and not finished:
                 state = self._lm_chunk(lm, state, step + (need_gen - n_avail))
                 step, n_avail, finished = fetch()
-            at_cap = t_fed + next_feed > self.stream_max_tokens
+            at_cap = t_fed + hop > self.stream_max_tokens
             remaining = n_avail - (gen_base + t_fed - P)  # generated, not yet fed
             if at_cap and can_roll and (not finished or remaining > 2 * hop):
                 fstate, t_fed = rollover(t_fed)
                 continue
-            if P + n_avail - gen_base < t_fed + next_feed + la or at_cap:
+            if n_avail < need_gen or at_cap:
                 if finished or step >= max_gen or at_cap:
                     break  # the final partial chunk by (window-bounded) recompute
                 continue
-            tok, ctx = combined(t_fed, next_feed), combined(t_fed + next_feed, la)
-            cond = self._prompt_feat_chunk(prompt, t_fed, next_feed)
-            if emitted_tokens == 0 and session["hift_cache"] is None and mel_buf.shape[2] == 0:
-                # first emission when the recompute did not make it
-                with self.timer.stage(f"first_chunk_fused[{next_feed}]"):
-                    fstate, audio, source, emit = self._first_chunk_fused(
-                        fstate, tok, ctx, cond, emb, this_hop * ratio, hift_draws)
-                    audio = audio[0].cpu().numpy()
-                session["hift_cache"] = {"mel": emit[:, :, -self.mel_cache_len:],
-                                         "source": source[:, :, -self.source_cache_len:],
-                                         "speech": audio[-self.source_cache_len:]}
-                t_fed += next_feed
-                next_feed = hop
-                emitted_tokens += this_hop
-                this_hop = hop
-                yield audio[: -self.source_cache_len]
-                continue
-            if (next_feed == hop and this_hop == hop and mel_buf.shape[2] == 0 and t_fed >= P
-                    and self._fused_cache_ok(session)):
-                # steady state: flow + HiFT + crossfade + cache rotation, the
-                # vocoder cache kept on the device
-                with self.timer.stage(f"stream_chunk_fused[{next_feed}]"):
-                    fstate, audio, session["hift_cache"] = self._stream_chunk_fused(
-                        fstate, tok, ctx, cond, emb, session["hift_cache"], hift_draws)
-                # decode the next hop ahead (a no-op once the LM has finished)
-                if not finished and step < max_gen:
-                    state = self._lm_chunk(lm, state, step + hop + la)
-                    stale = True
-                t_fed += next_feed
-                emitted_tokens += this_hop
-                yield audio
-                continue
-            with self.timer.stage(f"flow_chunk[{next_feed}]"):
-                mel, fstate = self._flow_feed(fstate, tok, ctx, cond, emb)
-            start = max(0, prompt_mel - t_fed * ratio)  # keep the generated region's mel
-            mel_buf = torch.cat([mel_buf, mel[:, :, start:]], dim=2)
-            t_fed += next_feed
-            next_feed = hop
-            while mel_buf.shape[2] >= this_hop * ratio:
-                chunk_mel = mel_buf[:, :, : this_hop * ratio]
-                mel_buf = mel_buf[:, :, this_hop * ratio:]
-                audio = self._hift_chunk(chunk_mel, session, False, hift_draws=hift_draws)
-                emitted_tokens += this_hop
-                this_hop = hop
-                yield audio
+            mel, fstate = feed(fstate, t_fed, hop)
+            t_fed += hop
+            audio = self._hift_chunk(mel, session, False, hift_draws=hift_draws)
+            # decode the next hop ahead (a no-op once the LM has finished)
+            if not finished and step < max_gen:
+                state = self._lm_chunk(lm, state, step + hop + la)
+                stale = True
+            yield audio
 
         self.last_n_tokens, self.last_decode_steps = n_avail, state.step
         # after a rollover the finalize recompute starts at gen_base too
-        yield self._token2wav(toks[gen_base: n_avail], prompt, emitted_tokens - gen_base,
-                              session, False, True, speed, hift_draws)
+        yield self._token2wav(toks[gen_base: n_avail], prompt, t_fed - P, session, False,
+                              True, speed, hift_draws)
 
     def tts_batch(
         self,

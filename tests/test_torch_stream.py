@@ -1,8 +1,9 @@
 """Streaming synthesis of the port against the JAX package (tiny config,
 fp32, CPU): the LM's resumable decode, the vocoder cache, ``tts(stream=True)``
 on the cached and the recompute path, and the streaming runtime's own
-properties (rollover, primed prompts, the fused chunks, windowing past the
-largest flow bucket, one seed's tokens with and without streaming)."""
+properties (rollover, primed prompts, streams shorter than one chunk,
+windowing past the largest flow bucket, one seed's tokens with and without
+streaming)."""
 
 import jax
 import jax.numpy as jnp
@@ -166,7 +167,10 @@ def test_hift_chunk_tiny_first_chunk_matches_jax(params):
 def test_tts_stream_matches_jax(params, cached):
     """``tts(stream=True)`` on one path in both packages, the LM draws from
     the first key JAX's ``_next_rng`` hands out and each HiFT call's from the
-    ones after: the same chunks (count and lengths) and audio, atol 1e-3."""
+    ones after: the same chunks (count and lengths) and audio, atol 1e-3.
+    On the cached path JAX's steady chunks run its fused program (flow, HiFT,
+    crossfade and cache rotation in one dispatch); the port's run a flow
+    feed and ``_hift_chunk``, and give the same audio."""
     jm = jax_model.TTSModel(CFG, params, seed=7, compute_dtype=None, cached_stream=cached)
     pm = _port(params, cached_stream=cached)
     jm._rng = jax.random.key(21)
@@ -180,8 +184,11 @@ def test_tts_stream_matches_jax(params, cached):
     assert len(got) >= 4 and sum(len(c) for c in got) == pm.last_n_tokens * SCALE
     for g, w in zip(got, want):
         np.testing.assert_allclose(g, w, atol=1e-3)
-    if cached:  # the steady state ran the fused chunk
-        assert pm.timer.counts.get(f"stream_chunk_fused[{pm.token_hop_len}]", 0) >= 1
+    if cached:  # steady chunks on both sides
+        hop = pm.token_hop_len
+        assert jm.timer.counts.get(f"stream_chunk_fused[{hop}]", 0) >= 2
+        assert pm.timer.counts.get(f"flow_chunk[{hop}]", 0) == jm.timer.counts[
+            f"stream_chunk_fused[{hop}]"]
 
 
 def test_stream_session_bytes_matches_jax(params):
@@ -268,47 +275,19 @@ def test_stream_rollover_long_utterance(params):
         np.testing.assert_array_equal(a, b)
 
 
-def test_fused_stream_chunk_matches_unfused(params, monkeypatch):
-    """The steady-state fused chunk (flow + HiFT + crossfade + cache
-    rotation on the device) emits the unfused feed + ``_hift_chunk``'s audio,
-    chunk for chunk (the fused window is fp32, the unfused fp64: atol 2e-3)."""
-    pm = _port(params)
-    inputs = _inputs(port_model.PromptInputs, 5, n_text=40)
-    hop = pm.token_hop_len
-    pm.generator.manual_seed(33)
-    fused = list(pm.tts(inputs, stream=True))
-    assert pm.timer.counts.get(f"stream_chunk_fused[{hop}]", 0) >= 2
-    monkeypatch.setattr(port_model.TTSModel, "_fused_cache_ok", lambda self, s: False)
-    pm.timer.reset()
-    pm.generator.manual_seed(33)
-    plain = list(pm.tts(inputs, stream=True))
-    assert pm.timer.counts.get(f"stream_chunk_fused[{hop}]", 0) == 0
-    assert [len(a) for a in fused] == [len(b) for b in plain]
-    for a, b in zip(fused, plain):
-        np.testing.assert_allclose(a, b, atol=2e-3)
-
-
-def test_first_chunk_fused_matches_feed_and_hift_chunk(params):
-    """The fused first emission (flow feed + HiFT without a cache) equals a
-    feed followed by ``_hift_chunk``, the withheld tail included, under the
-    same HiFT draws."""
-    pm = _port(params)
-    inputs = _inputs(port_model.PromptInputs, 7)
-    sp = inputs.flow_prompt_speech_tokens
-    tok = np.concatenate([sp, np.arange(50) % 80]).astype(np.int32)
-    args = (tok[:50], tok[50:53], pm._prompt_feat_chunk(inputs, 0, 50), inputs.embedding)
-    draws = hift_key_chain(jax.random.key(2))
-    _, audio, source, emit = pm._first_chunk_fused(pm._init_stream_state(), *args, 88,
-                                                   draws)
-    mel, _ = pm._flow_feed(pm._init_stream_state(), *args)
-    session = {"hift_cache": None}
-    head = pm._hift_chunk(mel[:, :, -88:], session, False,
-                          hift_draws=hift_key_chain(jax.random.key(2)))
-    np.testing.assert_array_equal(emit.numpy(), mel[:, :, -88:].numpy())
-    np.testing.assert_allclose(np.concatenate([head, session["hift_cache"]["speech"]]),
-                               audio[0].numpy(), atol=1e-6)
-    np.testing.assert_allclose(session["hift_cache"]["source"].numpy(),
-                               source[:, :, -pm.source_cache_len:].numpy(), atol=1e-6)
+@pytest.mark.parametrize("cached", [True, False])
+def test_stream_shorter_than_first_chunk(params, cached):
+    """An utterance shorter than the first chunk (1 text token: at most 20
+    speech tokens, against 6 + 19 + 25 + 3) streams as one final recompute:
+    the same audio as ``tts(stream=False)`` on a fresh model of one seed, and
+    the cached path allocates no flow state."""
+    inputs = _inputs(port_model.PromptInputs, 4, n_text=1)
+    full = list(_port(params, seed=5).tts(inputs))
+    pm = _port(params, seed=5, cached_stream=cached)
+    chunks = list(pm.tts(inputs, stream=True))
+    assert len(chunks) == 1 and 0 < pm.last_n_tokens <= 20
+    np.testing.assert_array_equal(chunks[0], full[0])
+    assert not pm._primed_cache and not any(k.startswith("flow_chunk") for k in pm.timer.counts)
 
 
 def test_wav_from_token_gen_windows_past_flow_bucket(params, monkeypatch):
