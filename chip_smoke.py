@@ -62,6 +62,23 @@ Phases (any failure ends the run with a non-zero exit code):
      memory; one int8 cached stream (K2 168 + 169 x steps, each launch
      on its design); then K1 checked at every (lengths, T, chunk) the
      phase gave it;
+  5c. the checkpoint, long-utterance and vc paths, each with the counts set
+     to 0 before it and read
+     after it (K1 560 times a flow call, each launch of its bf16 design, no
+     K2, K3 or K4), then K1 checked at every shape each gave it (T up to
+     2048): a small-config check first (``StreamSession`` through
+     ``_finalize_full`` past a flow bucket cut to 128 tokens, rolling over
+     and escalating; a session drained at its cap; ``vc`` with and without
+     streaming; card vs CPU, equal chunks, audio within 1e-3); the
+     checkpoint round trip (the seed-0 model written as reference state
+     dicts and a speaker store, ``load(model_dir=...)``: equal LM and flow
+     parameters, HiFT within 1e-6, the stored prompt, equal tokens and
+     audio within 1e-3 of the in-memory model); the long utterance (a
+     48-byte text, ~960 tokens past the largest flow bucket: ``Cosy2EU.tts``
+     through the ``StreamSession`` fallback with a rollover and an escalated
+     chunk, ``Cosy2EU.stream`` rolling over, and the recompute path over the
+     same tokens; equal tokens, tokens x 960 samples); ``vc`` of the stream
+     phase's 280 tokens with and without streaming;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -81,10 +98,11 @@ Phases (any failure ends the run with a non-zero exit code):
      before), K2's time summed over one prefill beside ``lm_prefill``'s,
      and summed over one decode step at M = 1 and 4 beside the FMA
      design's, ``F.linear``'s and the bound.
-The line before the last is the kernels JSON (K1, K2, K3, K4): K1's times
-are means per launch over the paths (each path's under ``by_path``, each
-design's under ``by_dtype``: bf16 on the TTS, int8 and stream paths, fp32
-on the training path), K2's over the shapes of the int8 path and the int8
+The line before that prints the run's seconds.  The line before the last
+is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
+the paths (each path's under ``by_path``, each design's under ``by_dtype``:
+bf16 on the TTS, int8, stream, checkpoint, long and vc paths, fp32 on the
+training path), K2's over the shapes of the int8 path and the int8
 stream (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
@@ -101,6 +119,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -618,6 +637,159 @@ def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, 
     return _weighted([(launches // len(rows), r) for r in rows]), [r["ms"] for r in rows]
 
 
+def reference_state_dicts(params: dict, weight_norm: str = "parametrizations",
+                          hift_prefix: str = "") -> dict:
+    """The inverse of ``cosyvoice2_eu_torch/runtime/checkpoint.py``'s
+    converters: each of "llm", "flow" and "hift" that ``params`` holds (trees
+    of numpy arrays) as the reference's ``llm.pt``, ``flow.pt`` or
+    ``hift.pt`` state dict (numpy values).  HiFT's convs are stored under
+    weight norm with g = ||v|| over every axis but the first, spelled
+    ``parametrizations.weight.original0/1`` as released checkpoints are or,
+    with ``weight_norm="weight_g"``, as ``weight_g/weight_v``;
+    ``hift_prefix="generator."`` nests them as a GAN-trained checkpoint
+    does.  Keys the converters ignore are written too: the LM's tied
+    ``lm_head``, the flow's ``rand_noise`` buffer and HiFT's ``stft_window``."""
+    out = {}
+    if "llm" in params:
+        out["llm"] = _reference_llm_state(params["llm"])
+    if "flow" in params:
+        out["flow"] = _reference_flow_state(params["flow"])
+    if "hift" in params:
+        out["hift"] = {hift_prefix + k: v
+                       for k, v in _reference_hift_state(params["hift"], weight_norm).items()}
+    return out
+
+
+def _linear(sd: dict, prefix: str, p: dict) -> None:
+    sd[f"{prefix}.weight"] = p["weight"]
+    if "bias" in p:
+        sd[f"{prefix}.bias"] = p["bias"]
+
+
+def _reference_llm_state(llm: dict) -> dict:
+    base, sd = "llm.model.model", {}
+    bb = llm["backbone"]
+    sd[f"{base}.embed_tokens.weight"] = bb["embed_tokens"]["weight"]
+    sd[f"{base}.norm.weight"] = bb["norm"]["weight"]
+    sd["llm.model.lm_head.weight"] = bb["embed_tokens"]["weight"]
+    for i, layer in enumerate(bb["layers"]):
+        pre = f"{base}.layers.{i}"
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{pre}.{n}.weight"] = layer[n]["weight"]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            _linear(sd, f"{pre}.self_attn.{n}", layer[n])
+        for n in ("q_norm", "k_norm"):  # qwen3 backbones
+            if n in layer:
+                sd[f"{pre}.self_attn.{n}.weight"] = layer[n]["weight"]
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            _linear(sd, f"{pre}.mlp.{n}", layer[n])
+    for n in ("llm_embedding", "speech_embedding"):
+        sd[f"{n}.weight"] = llm[n]["weight"]
+    _linear(sd, "llm_decoder", llm["llm_decoder"])
+    return sd
+
+
+def _reference_flow_state(flow: dict) -> dict:
+    sd = {}
+
+    def norm(prefix, p):
+        sd[f"{prefix}.weight"], sd[f"{prefix}.bias"] = p["weight"], p["bias"]
+
+    def conformer(pre, p):
+        for n in ("linear_q", "linear_k", "linear_v", "linear_out", "linear_pos"):
+            _linear(sd, f"{pre}.self_attn.{n}", p["self_attn"][n])
+        for n in ("pos_bias_u", "pos_bias_v"):
+            sd[f"{pre}.self_attn.{n}"] = p["self_attn"][n]
+        _linear(sd, f"{pre}.feed_forward.w_1", p["ffn_w1"])
+        _linear(sd, f"{pre}.feed_forward.w_2", p["ffn_w2"])
+        norm(f"{pre}.norm_mha", p["norm_mha"])
+        norm(f"{pre}.norm_ff", p["norm_ff"])
+
+    def block(pre, p):
+        _linear(sd, f"{pre}.block.0", p["conv"])
+        norm(f"{pre}.block.2", p["norm"])
+
+    def stage(pre, p, conv: bool):
+        block(f"{pre}.0.block1", p["resnet"]["block1"])
+        block(f"{pre}.0.block2", p["resnet"]["block2"])
+        _linear(sd, f"{pre}.0.mlp.1", p["resnet"]["mlp"])
+        _linear(sd, f"{pre}.0.res_conv", p["resnet"]["res_conv"])
+        for j, tb in enumerate(p["transformer"]):
+            tp = f"{pre}.1.{j}"
+            norm(f"{tp}.norm1", tb["norm1"])
+            for n in ("to_q", "to_k", "to_v"):
+                _linear(sd, f"{tp}.attn1.{n}", tb[n])
+            _linear(sd, f"{tp}.attn1.to_out.0", tb["to_out"])
+            norm(f"{tp}.norm3", tb["norm3"])
+            _linear(sd, f"{tp}.ff.net.0.proj", tb["ff_in"])
+            _linear(sd, f"{tp}.ff.net.2", tb["ff_out"])
+        if conv:
+            _linear(sd, f"{pre}.2", p["conv"])
+
+    sd["input_embedding.weight"] = flow["input_embedding"]["weight"]
+    _linear(sd, "spk_embed_affine_layer", flow["spk_embed_affine_layer"])
+    _linear(sd, "encoder_proj", flow["encoder_proj"])
+    enc = flow["encoder"]
+    for e in ("embed", "up_embed"):
+        _linear(sd, f"encoder.{e}.out.0", enc[e]["linear"])
+        norm(f"encoder.{e}.out.1", enc[e]["norm"])
+    _linear(sd, "encoder.pre_lookahead_layer.conv1", enc["pre_lookahead"]["conv1"])
+    _linear(sd, "encoder.pre_lookahead_layer.conv2", enc["pre_lookahead"]["conv2"])
+    for e in ("encoders", "up_encoders"):
+        for i, layer in enumerate(enc[e]):
+            conformer(f"encoder.{e}.{i}", layer)
+    _linear(sd, "encoder.up_layer.conv", enc["up_layer"])
+    norm("encoder.after_norm", enc["after_norm"])
+    est, dec = flow["estimator"], "decoder.estimator"
+    _linear(sd, f"{dec}.time_mlp.linear_1", est["time_mlp"]["linear_1"])
+    _linear(sd, f"{dec}.time_mlp.linear_2", est["time_mlp"]["linear_2"])
+    stage(f"{dec}.down_blocks.0", est["down"], True)
+    for i, mid in enumerate(est["mid"]):
+        stage(f"{dec}.mid_blocks.{i}", mid, False)
+    stage(f"{dec}.up_blocks.0", est["up"], True)
+    block(f"{dec}.final_block", est["final_block"])
+    _linear(sd, f"{dec}.final_proj", est["final_proj"])
+    sd["decoder.rand_noise"] = flow["rand_noise"]
+    return sd
+
+
+def _reference_hift_state(hift: dict, weight_norm: str) -> dict:
+    import numpy as np
+
+    sd = {}
+    names = (("parametrizations.weight.original0", "parametrizations.weight.original1")
+             if weight_norm == "parametrizations" else ("weight_g", "weight_v"))
+
+    def wn(prefix, p):
+        v = p["weight"]
+        sd[f"{prefix}.{names[0]}"] = np.sqrt(np.sum(v * v, axis=tuple(range(1, v.ndim)),
+                                                    keepdims=True))
+        sd[f"{prefix}.{names[1]}"] = v
+        if "bias" in p:
+            sd[f"{prefix}.bias"] = p["bias"]
+
+    for i, conv in enumerate(hift["f0_predictor"]["convs"]):
+        wn(f"f0_predictor.condnet.{2 * i}", conv)
+    _linear(sd, "f0_predictor.classifier", hift["f0_predictor"]["classifier"])
+    _linear(sd, "m_source.l_linear", hift["m_source"]["l_linear"])
+    wn("conv_pre", hift["conv_pre"])
+    wn("conv_post", hift["conv_post"])
+    for n in ("ups", "source_downs"):
+        for i, conv in enumerate(hift[n]):
+            wn(f"{n}.{i}", conv)
+    for n in ("source_resblocks", "resblocks"):
+        for i, rb in enumerate(hift[n]):
+            for c in ("convs1", "convs2"):
+                for j, conv in enumerate(rb[c]):
+                    wn(f"{n}.{i}.{c}.{j}", conv)
+            for a, act in (("alpha1", "activations1"), ("alpha2", "activations2")):
+                for j, alpha in enumerate(rb[a]):
+                    sd[f"{n}.{i}.{act}.{j}.alpha"] = alpha
+    n_fft = hift["conv_post"]["weight"].shape[0] - 2  # conv_post: (n_fft + 2, ch, k)
+    sd["stft_window"] = np.hanning(n_fft + 1)[:-1].astype(np.float32)
+    return sd
+
+
 def _prompt(cfg, seconds: float, seed: int = 0) -> dict:
     import numpy as np
 
@@ -757,6 +929,13 @@ def _record_launches(fa) -> None:
     fa._fn = recorded
 
 
+def _reset_counts() -> None:
+    """Set every kernel's launch count to 0 and forget the K1 designs seen."""
+    for f in _counters():
+        f.launches = 0
+    LAUNCHED.clear()
+
+
 def _k1_design() -> str:
     """The K1 design the path launched since ``LAUNCHED`` was cleared, as
     seen at each launch.  Raises unless every launch was of the bf16 one."""
@@ -794,9 +973,7 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     n_prompt = len(prompt["speech_tokens"])
     shapes, flow_ms = [], []
     torch.cuda.reset_peak_memory_stats()
-    for f in _counters():
-        f.launches = 0
-    LAUNCHED.clear()
+    _reset_counts()
     for i, text in enumerate(texts):
         before = fa.flash_attention.launches
         model._model.timer.reset()
@@ -920,9 +1097,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
                    "Je voudrais un café, merci.", "Wo ist der Bahnhof, bitte?"]
     decodes, shapes = [], []
     torch.cuda.reset_peak_memory_stats()
-    for f in _counters():
-        f.launches = 0
-    LAUNCHED.clear()
+    _reset_counts()
     K2_LAUNCHED.clear()
 
     def run(what, call, inputs):
@@ -1016,6 +1191,54 @@ def _record_flow_calls(tm, calls: list) -> None:
     tm._token2wav = recorded
 
 
+def _by_path(tree, prefix: str = "") -> dict:
+    """{path: leaf} of a dict/list parameter tree."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _by_path(sub, f"{prefix}/{key}").items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree) for k, v in _by_path(sub, f"{prefix}/{i}").items()}
+    return {prefix: tree}
+
+
+def _record_tokens(tm, out: dict) -> None:
+    """Note in ``out["tokens"]`` the generated tokens ``tm``'s non-streaming
+    synthesis hands to ``_finalize_full``."""
+    import numpy as np
+
+    inner = tm._finalize_full
+
+    def recorded(tokens, *args, **kwargs):
+        out["tokens"] = np.asarray(tokens).copy()
+        return inner(tokens, *args, **kwargs)
+
+    tm._finalize_full = recorded
+
+
+def _timed_chunks(chunks, walls: list, lens: list):
+    """Yield from the iterable ``chunks``, noting each chunk's wall ms (since
+    the previous one, the first since this call) and its samples."""
+    t_prev = time.perf_counter()
+    for chunk in chunks:
+        now = time.perf_counter()
+        walls.append((now - t_prev) * 1e3)
+        lens.append(int(chunk.size))
+        t_prev = now
+        yield chunk
+
+
+def _reset_peak() -> None:
+    """Free what earlier requests left (a model whose wrapped methods form a
+    reference cycle outlives its last name until the collector runs), then
+    reset the card's peak-memory count, so that the next peak is this
+    request's own."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+
 def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str) -> dict:
     """One request through ``Cosy2EU.stream`` (or ``.tts``) on a fresh model,
     timed chunk by chunk on the host clock, with its checks: tokens x 960
@@ -1032,17 +1255,12 @@ def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str
     calls: list = []
     _record_flow_calls(tm, calls)
     before = fa.flash_attention.launches
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    _reset_peak()
     tm.timer.reset()
     chunks, walls = [], []
-    t0 = t_prev = time.perf_counter()
+    t0 = time.perf_counter()
     if stream:
-        for chunk in model.stream(text, prompt):
-            now = time.perf_counter()
-            walls.append((now - t_prev) * 1e3)
-            t_prev = now
-            chunks.append(chunk)
+        chunks = list(_timed_chunks(model.stream(text, prompt), walls, []))
     else:
         chunks.append(model.tts(text, prompt)[0])
         walls.append((time.perf_counter() - t0) * 1e3)
@@ -1096,13 +1314,13 @@ def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str
             "launches": launched}
 
 
-def stream_path(card: str) -> tuple[list, int]:
+def stream_path(card: str) -> tuple[list, int, object]:
     """Streaming at the published widths (bf16): one request of a 14-byte
     text through ``Cosy2EU.stream`` on the recompute path
     (``cached_stream=False``) and one on the chunk-cached flow (the
     default), then the same text through ``Cosy2EU.tts``, each on a fresh
     ``load(seed=0)``; all three must give the same tokens.  Returns each
-    flow call's K1 shape and the phase's K1 launches."""
+    flow call's K1 shape, the phase's K1 launches and the tokens."""
     import numpy as np
     import torch
 
@@ -1112,9 +1330,7 @@ def stream_path(card: str) -> tuple[list, int]:
     cfg = TTSConfig()
     prompt = _prompt(cfg, 3.0)
     text = "Bonjour, Paris"  # 14 bytes: ~280 tokens, 10-12 chunks
-    for f in _counters():
-        f.launches = 0
-    LAUNCHED.clear()
+    _reset_counts()
     runs = {}
     for what, stream, cached in (("stream recompute", True, False),
                                  ("stream cached", True, True), ("non-stream", False, True)):
@@ -1133,7 +1349,283 @@ def stream_path(card: str) -> tuple[list, int]:
     if launches[0] != sum(r["launches"] for r in runs.values()) or any(launches[1:]):
         raise SystemExit("stream phase: K1 launches do not match its flow calls, or a "
                          "backward kernel or K2 ran")
-    return [s for r in runs.values() for s in r["shapes"]], launches[0]
+    return ([s for r in runs.values() for s in r["shapes"]], launches[0],
+            runs["non-stream"]["tokens"])
+
+
+def _path_launches(what: str, card: str, flow_calls: int) -> int:
+    """Read the counts after a path: K1 launched 560 times a flow call, each
+    launch of its bf16 design, and no K2, K3 or K4; returns K1's launches."""
+    import cosyvoice2_eu_torch.config as config
+
+    launches = [f.launches for f in _counters()]
+    want = _k1_per_flow(config.TTSConfig()) * flow_calls
+    print(f"{what}: K1/K3/K4/K2 launches {launches} (K1 expected {want} = 560 x {flow_calls} "
+          f"flow calls; {_k1_design()}) [{card}]")
+    if launches[0] != want or any(launches[1:]):
+        raise SystemExit(f"{what}: K1 launches do not match its flow calls, or a backward "
+                         "kernel or K2 ran")
+    return launches[0]
+
+
+def checkpoint_path(card: str) -> tuple[list, int]:
+    """Loading a reference model dir at the published widths: the seed-0
+    model's fp32 parameters written as ``llm.pt``, ``flow.pt`` and
+    ``hift.pt`` by ``reference_state_dicts`` (HiFT under weight norm, as
+    released checkpoints store it, and the keys the converters ignore) with
+    a one-speaker ``spk2info.pt``, then ``load(model_dir=..., device="cuda")``.
+    Every LM and flow parameter must equal the in-memory ``load(seed=0)``'s,
+    HiFT's within 1e-6 of each leaf's largest value; the store must give
+    back the written prompt; the stream phase's text through ``Cosy2EU.tts``
+    with the store's prompt must give the in-memory model's tokens and its
+    audio within 1e-3.  The directory is deleted.  Returns the two flow
+    calls' K1 shapes and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    cfg = TTSConfig()
+    prompt = _prompt(cfg, 3.0)
+    text = "Bonjour, Paris"
+    gen = torch.Generator(device="cuda")  # the weights load(seed=0) draws
+    gen.manual_seed(0)
+    params = tree_map(lambda t: t.cpu().numpy(), {
+        "llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
+        "hift": init_hift(gen, cfg.hift)})
+    spk = {"spk0": {"speech_feat": torch.from_numpy(prompt["prompt_feat"][None]),
+                    "speech_token": torch.from_numpy(prompt["speech_tokens"][None]),
+                    "llm_embedding": torch.from_numpy(prompt["embedding"][None]),
+                    "flow_embedding": torch.from_numpy(prompt["embedding"][None])}}
+    with tempfile.TemporaryDirectory(prefix="cosy_model_dir_") as model_dir:
+        t0 = time.perf_counter()
+        for name, sd in reference_state_dicts(params).items():
+            torch.save({k: torch.from_numpy(np.array(v)) for k, v in sd.items()},
+                       os.path.join(model_dir, f"{name}.pt"))
+        torch.save(spk, os.path.join(model_dir, "spk2info.pt"))
+        save_s = time.perf_counter() - t0
+        nbytes = {f: os.path.getsize(os.path.join(model_dir, f)) for f in sorted(os.listdir(model_dir))}
+        del params
+
+        _reset_counts()
+        calls, tokens_ref, tokens_got = [], {}, {}
+        ref = cosy.load(config=cfg, seed=0, device="cuda")
+        _record_flow_calls(ref._model, calls)
+        _record_tokens(ref._model, tokens_ref)
+        want = ref.tts(text, prompt)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_api = cosy.load(config=cfg, model_dir=model_dir, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got_p, ref_p = (_by_path(m._model.params) for m in (got_api, ref))
+        exact = sorted(got_p) == sorted(ref_p) and all(
+            got_p[k].dtype == ref_p[k].dtype and torch.equal(got_p[k], ref_p[k])
+            for k in ref_p if not k.startswith("/hift/"))
+        hift_rel = max(((got_p[k] - ref_p[k]).abs().max()
+                        / ref_p[k].abs().max().clamp_min(1e-30)).item()
+                       for k in ref_p if k.startswith("/hift/"))
+        stored = got_api._frontend.get_spk("spk0")
+        store_ok = all(np.array_equal(stored[k], prompt[k])
+                       for k in ("prompt_feat", "speech_tokens", "embedding"))
+        _record_flow_calls(got_api._model, calls)
+        _record_tokens(got_api._model, tokens_got)
+        got = got_api.tts(text, stored)[0]
+    n_tok = got_api._model.last_n_tokens
+    same_tokens = np.array_equal(tokens_ref["tokens"], tokens_got["tokens"])
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    ok = (exact and hift_rel <= 1e-6 and store_ok and same_tokens and err <= 1e-3
+          and got.shape == (1, n_tok * 960) and np.isfinite(got).all()
+          and not os.path.exists(model_dir))
+    print(f"checkpoint: wrote {nbytes} bytes ({sum(nbytes.values())} in all) in {save_s:.2f} s; "
+          f"load(model_dir=..., device='cuda') {load_s:.2f} s; LM and flow parameters equal the "
+          f"in-memory model's: {exact}; HiFT max relative error {hift_rel:.3e} (tol 1e-6); the "
+          f"store gives back the written prompt: {store_ok}; tts of {len(text.encode())} text "
+          f"bytes: the same {n_tok} tokens as the in-memory model: {same_tokens}, audio "
+          f"max_abs_err={err:.3e} (tol 1e-3); directory deleted [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the checkpoint round trip failed its checks")
+    launches = _path_launches("checkpoint", card, len(calls))
+    del ref, got_api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [_k1_shape(cfg, *c[:3]) for c in calls], launches
+
+
+def long_path(card: str) -> tuple[list, int]:
+    """Past the largest flow bucket at the published widths: the 3 s prompt
+    and a 48-byte text (~960 tokens, so prompt + tokens pass 1024 and the
+    cached session passes ``stream_max_tokens`` = 768), each request on a
+    fresh ``load(seed=0)``: ``Cosy2EU.tts`` under the default
+    ``cached_stream=True`` (the fallback through ``StreamSession``, with
+    rollover and escalated chunks), ``Cosy2EU.stream`` under the default
+    (``_tts_stream_cached``, rolling over), and the recompute path over the
+    first request's tokens through ``_wav_from_token_gen(stream=True)`` with
+    ``cached_stream=False`` (no third LM decode).  Gates: equal tokens of the
+    two decoded requests; tokens x 960 samples on each path, every chunk
+    finite and not silent; K1 560 times a recompute flow call; at least one
+    rollover and one escalated steady chunk in the fallback, whose waveform
+    must join its session's chunks; no K2, K3 or K4.  Returns the flow
+    calls' K1 shapes and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, TTSModel
+
+    cfg = TTSConfig()
+    prompt = _prompt(cfg, 3.0)
+    text = "Bonjour Paris, guten Morgen Berlin, hallo Welt!!"  # 48 bytes: ~960 tokens
+    n_prompt = len(prompt["speech_tokens"])
+    _reset_counts()
+    runs, shapes, model = {}, [], None
+    for what in ("long tts (StreamSession fallback)", "long stream (cached)",
+                 "long recompute stream"):
+        if what != "long recompute stream":  # the recompute path reuses the cached run's model
+            model = tm = None
+            gc.collect()
+            model = cosy.load(config=cfg, seed=0, device="cuda")
+        tm = model._model
+        calls: list = []
+        _record_flow_calls(tm, calls)
+        fetched = {}
+        if what == "long stream (cached)":  # the whole generated row, at the last fetch
+
+            def fetch(state, inner=TTSModel._fetch):
+                n_avail, finished, toks = inner(state)
+                fetched["tokens"] = toks[:n_avail].copy()
+                return n_avail, finished, toks
+
+            tm._fetch = fetch
+        _reset_peak()
+        tm.timer.reset()
+        walls, lens, chunks = [], [], []
+        t0 = time.perf_counter()
+        if what == "long tts (StreamSession fallback)":
+            _record_tokens(tm, fetched)
+            inner_hift = tm._hift_chunk
+            t_prev, parts = [t0], []
+
+            def hift_chunk(*args, **kwargs):  # one call per emitted chunk
+                audio = inner_hift(*args, **kwargs)
+                now = time.perf_counter()
+                walls.append((now - t_prev[0]) * 1e3)
+                lens.append(int(audio.size))
+                parts.append(audio[None])
+                t_prev[0] = now
+                return audio
+
+            tm._hift_chunk = hift_chunk
+            wav = model.tts(text, prompt)[0]
+            # the session's chunks, which the waveform joins
+            chunks = parts if np.array_equal(np.concatenate(parts, axis=1), wav) else [wav[:, :0]]
+        elif what == "long stream (cached)":
+            chunks = list(_timed_chunks(model.stream(text, prompt), walls, lens))
+        else:
+            tm.cached_stream = False
+            inputs = model._frontend.frontend_cross_lingual(text, prompt)
+            fetched["tokens"] = runs["long tts (StreamSession fallback)"]["tokens"]
+            chunks = [c[None] for c in _timed_chunks(
+                tm._wav_from_token_gen(iter(fetched["tokens"]), inputs, True), walls, lens)]
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        stages = tm.timer.summary()
+        counts = tm.timer.counts
+        n_tok = len(fetched["tokens"])
+        samples = sum(c.shape[1] for c in chunks)
+        audio_s = samples / cfg.sample_rate
+        rollovers = counts.get("stream_rollover", 0)
+        escalated = {n: counts.get(f"stream_chunk[{n}]", 0) for n in (25, 50, 100)}
+        ok = (all(c.ndim == 2 and c.shape[0] == 1 and c.shape[1] > 0 and np.isfinite(c).all()
+                  and float(np.abs(c).max()) > 1e-3 for c in chunks)
+              and samples == n_tok * 960 and n_prompt + n_tok > FLOW_TOKEN_BUCKETS[-1])
+        if what == "long tts (StreamSession fallback)":
+            ok = ok and rollovers >= 1 and escalated[50] + escalated[100] >= 1 \
+                and counts.get("first_chunk_recompute", 0) == 1
+        if what == "long stream (cached)":
+            ok = ok and rollovers >= 1
+        between = sorted(walls[1:-1])
+        steady = (f", time to first audio {walls[0]:.1f} ms, steady chunk median "
+                  f"{between[len(between) // 2]:.1f} ms" if what != "long tts (StreamSession "
+                  "fallback)" and between else "")
+        session = (f"; rollovers {rollovers}; session steady chunks by size {escalated}; "
+                   f"session bytes {tm.stream_session_bytes()}" if tm.cached_stream else "")
+        print(f"{what}: {len(text.encode())} text bytes -> {n_tok} tokens (+ {n_prompt} prompt "
+              f"= {n_tok + n_prompt}, past the largest flow bucket {FLOW_TOKEN_BUCKETS[-1]}), "
+              f"{audio_s:.2f} s audio in {len(chunks)} chunks; wall {wall:.2f} s, RTF "
+              f"{wall / audio_s:.3f}{steady}; recompute flow calls {len(calls)}{session}; peak "
+              f"memory {peak / 2**30:.2f} GiB [{card}] {'ok' if ok else 'FAIL'}")
+        print(f"{what} chunks (wall ms, samples): "
+              + ", ".join(f"{w:.1f}/{n}" for w, n in zip(walls, lens)))
+        print(f"{what} stages (ms total / count): "
+              + ", ".join(f"{k} {v['total_s'] * 1e3:.1f}/{v['count']}" for k, v in stages.items()))
+        if not ok:
+            raise SystemExit(f"{what} failed its checks")
+        runs[what] = {"tokens": fetched["tokens"], "calls": len(calls)}
+        shapes += [_k1_shape(cfg, *c[:3]) for c in calls]
+    del model, tm
+    gc.collect()
+    torch.cuda.empty_cache()
+    same = np.array_equal(runs["long tts (StreamSession fallback)"]["tokens"],
+                          runs["long stream (cached)"]["tokens"])
+    print(f"long phase: the fallback and the cached stream decode the same tokens: {same} "
+          f"[{card}]")
+    if not same:
+        raise SystemExit("the long requests of one seed decoded different tokens")
+    return shapes, _path_launches("long phase", card, sum(r["calls"] for r in runs.values()))
+
+
+def vc_path(card: str, source) -> tuple[list, int]:
+    """``TTSModel.vc`` at the published widths on a fresh ``load(seed=0)``:
+    the stream phase's tokens as the source, the 3 s prompt, without and
+    with streaming.  Gates: tokens x 960 samples each, every chunk finite
+    and not silent, K1 560 times a flow call (one, or one a chunk).
+    Returns the flow calls' K1 shapes and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    model = cosy.load(config=cfg, seed=0, device="cuda")
+    tm = model._model
+    inputs = model._frontend.frontend_cross_lingual("", _prompt(cfg, 3.0))
+    _reset_counts()
+    calls, n_calls = [], 0
+    _record_flow_calls(tm, calls)
+    for stream in (False, True):
+        tm.timer.reset()
+        before = len(calls)
+        walls, lens = [], []
+        t0 = time.perf_counter()
+        chunks = list(_timed_chunks(tm.vc(source, inputs, stream=stream), walls, lens))
+        wall = time.perf_counter() - t0
+        samples = sum(lens)
+        flows = len(calls) - before
+        ok = (all(c.size > 0 and np.isfinite(c).all() and float(np.abs(c).max()) > 1e-3
+                  for c in chunks) and samples == len(source) * 960
+              and flows == (len(chunks) if stream else 1))
+        audio_s = samples / cfg.sample_rate
+        print(f"vc (stream={stream}): {len(source)} source tokens -> {audio_s:.2f} s audio in "
+              f"{len(chunks)} chunks; flow calls {flows}; wall {wall:.2f} s, RTF "
+              f"{wall / audio_s:.3f}, first chunk {walls[0]:.1f} ms; chunks (wall ms, samples) "
+              + ", ".join(f"{w:.1f}/{n}" for w, n in zip(walls, lens)) + f" [{card}] "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"vc (stream={stream}) failed its checks")
+        n_calls += flows
+    launches = _path_launches("vc phase", card, n_calls)
+    del model, tm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [_k1_shape(cfg, *c[:3]) for c in calls], launches
 
 
 def int8_stream_path(card: str) -> tuple[list, int, tuple, int]:
@@ -1154,9 +1646,7 @@ def int8_stream_path(card: str) -> tuple[list, int, tuple, int]:
     tm = model._model
     prompt = _prompt(cfg, 3.0)
     text = "Bonjour!"
-    for f in _counters():
-        f.launches = 0
-    LAUNCHED.clear()
+    _reset_counts()
     K2_LAUNCHED.clear()
     run = _stream_request(model, text, prompt, True, card, "int8 stream cached")
     launches = [f.launches for f in _counters()]
@@ -1185,6 +1675,36 @@ STREAM_MEL_SEEDS = (4, 5, 6, 7, 8)
 STREAM_MEL_TOL = 1.5e-5
 
 
+def _small_stream_setup() -> tuple:
+    """The small config of the card-vs-CPU streaming checks (K1 takes the
+    estimator's 64-wide heads), its weights from a seed, and
+    ``hift_draws(device)``: a fresh sequence of per-call HiFT draws, the
+    same on every device."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import tiny_test_config
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+
+    cfg = tiny_test_config()
+    cfg = dataclasses.replace(cfg, flow=dataclasses.replace(
+        cfg.flow, estimator=dataclasses.replace(cfg.flow.estimator, attention_head_dim=64,
+                                                num_heads=2)))
+    gen = torch.Generator(device="cpu")
+    gen.manual_seed(1)
+    params = {"llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
+              "hift": init_hift(gen, cfg.hift)}
+
+    def hift_draws(dev):
+        g = torch.Generator(device="cpu")
+        g.manual_seed(3)
+        return lambda b, length, h: (torch.rand((b, h), generator=g).to(dev),
+                                     torch.randn((b, length, h), generator=g).to(dev))
+
+    return cfg, params, hift_draws
+
+
 @_uncounted
 def check_small_stream() -> None:
     """Streaming on the card against the plain CPU path on a small config
@@ -1197,35 +1717,18 @@ def check_small_stream() -> None:
     import numpy as np
     import torch
 
-    from cosyvoice2_eu_torch.config import tiny_test_config
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
     from cosyvoice2_eu_torch.models import flow_streaming as fs
-    from cosyvoice2_eu_torch.models.flow import flow_inference, init_flow
-    from cosyvoice2_eu_torch.models.hift import init_hift
-    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.models.flow import flow_inference
     from cosyvoice2_eu_torch.ops.sampling import gumbel
     from cosyvoice2_eu_torch.runtime.model import TTSModel
     from cosyvoice2_eu_torch.utils.params import tree_map
 
-    cfg = tiny_test_config()
-    cfg = dataclasses.replace(cfg, flow=dataclasses.replace(
-        cfg.flow, estimator=dataclasses.replace(cfg.flow.estimator, attention_head_dim=64,
-                                                num_heads=2)))
-    gen = torch.Generator(device="cpu")
-    gen.manual_seed(1)
-    params = {"llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
-              "hift": init_hift(gen, cfg.hift)}
+    cfg, params, hift_draws = _small_stream_setup()
     g_lm = torch.Generator(device="cpu")
     g_lm.manual_seed(2)
     lm_noise = [(gumbel((1, cfg.llm.top_k), g_lm), gumbel((1, cfg.llm.full_vocab), g_lm))
                 for _ in range(256)]
-
-    def hift_draws(dev):
-        """A fresh sequence of per-call HiFT draws, the same on every device."""
-        g = torch.Generator(device="cpu")
-        g.manual_seed(3)
-        return lambda b, length, h: (torch.rand((b, h), generator=g).to(dev),
-                                     torch.randn((b, length, h), generator=g).to(dev))
 
     # 60 bytes: min_len 120 tokens, past the rollover case's 100-token cap
     text = "Bonjour tout le monde, il fait beau aujourd'hui a Paris. Oui"
@@ -1286,6 +1789,80 @@ def check_small_stream() -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("the chunk-cached flow disagrees with the recompute on the card")
+
+
+@_uncounted
+def check_small_session() -> None:
+    """The serving path's ``StreamSession`` and ``vc`` on the card against
+    the plain CPU path, small config, fp32, the same weights and injected
+    HiFT draws, with the largest flow bucket cut to 128 tokens: 400 tokens
+    through ``_finalize_full`` past that bucket under a 256-token cached
+    window (first emission, steady chunks escalating to 50 and 100 tokens,
+    a rollover, the windowed finalize), then 150 tokens through a session
+    whose 48-token cap the first feed does not fit (the finalize drains
+    them in recompute chunks), then ``vc`` of 80 tokens with and without
+    streaming.  Equal chunk counts and lengths (for ``_finalize_full``:
+    equal stage counts, one HiFT call a chunk, and equal length), audio
+    within 1e-3."""
+    import numpy as np
+
+    from cosyvoice2_eu_torch.frontend.frontend import Frontend
+    from cosyvoice2_eu_torch.runtime import model as rt
+    from cosyvoice2_eu_torch.serving.engine import StreamSession
+
+    cfg, params, hift_draws = _small_stream_setup()
+    prompt = Frontend(cfg).frontend_zero_shot("Bonjour.", _prompt(cfg, 0.24, 4))
+    rng = np.random.default_rng(9)
+    long_tokens, cap_tokens, source = (rng.integers(0, cfg.flow.vocab_size, n).astype(np.int32)
+                                       for n in (400, 150, 80))
+    stages = ("first_chunk_recompute", "stream_rollover", "stream_chunk[25]",
+              "stream_chunk[50]", "stream_chunk[100]", "flow", "hift")
+    cases = {
+        "finalize_full past the bucket": (
+            {"stream_max_tokens": 256, "stream_rollover_window": 50},
+            lambda tm, d: [tm._finalize_full(long_tokens, prompt, {"hift_cache": None},
+                                             hift_draws=d)]),
+        "session drained at the cap": (
+            {"stream_max_tokens": 48},
+            lambda tm, d: StreamSession(tm, prompt, hift_draws=d).feed(cap_tokens, True)),
+        "vc": ({}, lambda tm, d: list(tm.vc(source, prompt, hift_draws=d))),
+        "vc stream": ({}, lambda tm, d: list(tm.vc(source, prompt, stream=True, hift_draws=d))),
+    }
+    saved = rt.FLOW_TOKEN_BUCKETS
+    rt.FLOW_TOKEN_BUCKETS = (64, 128)
+    try:
+        for what, (kw, run) in cases.items():
+            out = {}
+            for dev in ("cpu", "cuda"):
+                tm = rt.TTSModel(cfg, params, seed=0, compute_dtype=None, device=dev, **kw)
+                chunks = run(tm, hift_draws(dev))
+                out[dev] = (chunks, [tm.timer.counts.get(k, 0) for k in stages])
+            (c_cpu, s_cpu), (c_gpu, s_gpu) = out["cpu"], out["cuda"]
+            lens = [len(c) for c in c_gpu]
+            same = lens == [len(c) for c in c_cpu] and s_gpu == s_cpu
+            err = max(float(np.abs(a - b).max(initial=0.0)) for a, b in zip(c_gpu, c_cpu)) \
+                if same else float("inf")
+            n_tok = {"vc": 80, "vc stream": 80, "session drained at the cap": 150}.get(what, 400)
+            counts = dict(zip(stages, s_gpu))
+            happened = {
+                "finalize_full past the bucket": counts["first_chunk_recompute"] == 1
+                and counts["stream_rollover"] >= 1 and counts["stream_chunk[50]"] >= 1
+                and counts["stream_chunk[100]"] >= 1,
+                "session drained at the cap": counts["first_chunk_recompute"] == 0
+                and counts["flow"] == len(lens) >= 3,
+                "vc": counts["flow"] == len(lens) == 1,
+                "vc stream": counts["flow"] == len(lens) == 4,
+            }[what]
+            ok = (same and happened and err <= 1e-3 and sum(lens) == n_tok * 960
+                  and all(np.isfinite(c).all() for c in c_gpu))
+            print(f"session reference check (small config, fp32, {what}, card vs CPU plain "
+                  f"path): {len(c_gpu)} vs {len(c_cpu)} chunks of {lens} samples, stage counts "
+                  f"{counts} (CPU {dict(zip(stages, s_cpu))}), audio max_abs_err={err:.3e} "
+                  f"(tol 1e-3) {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the card's {what} disagrees with the plain CPU path")
+    finally:
+        rt.FLOW_TOKEN_BUCKETS = saved
 
 
 def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
@@ -1768,6 +2345,7 @@ def _sass_count(library, opcode: str) -> int:
 def main() -> None:
     import torch
 
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py needs an NVIDIA GPU: torch.cuda.is_available() is false")
     if not os.path.isdir(os.path.join(REPO, "cosyvoice2_eu_torch")):
@@ -1823,12 +2401,13 @@ def main() -> None:
     check_small_reference(lm_quant="int8")
     check_small_train_reference()
     check_small_stream()
+    check_small_session()
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
     decodes, int8_shapes, int8_launches, prefill_ms = int8_path(card, bf16_llm)
     del bf16_llm
-    stream_shapes, stream_launches = stream_path(card)
+    stream_shapes, stream_launches, stream_tokens = stream_path(card)
     int8_stream_shapes, int8_stream_launches, int8_stream_decode, int8_stream_k2 = \
         int8_stream_path(card)
     stream_shapes += int8_stream_shapes
@@ -1837,6 +2416,14 @@ def main() -> None:
     stream_cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in stream_shapes})
     worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
                                                " stream") for lens, t, chunk in stream_cases]))
+    # checkpoint loading, past the largest flow bucket, vc: each path read on
+    # its own
+    new_paths = {"checkpoint": checkpoint_path(card), "long": long_path(card),
+                 "vc": vc_path(card, stream_tokens)}
+    for name, (shapes_, _) in new_paths.items():
+        cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
+        worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
+                                                   f" {name}") for lens, t, chunk in cases]))
     steps, train_launches = train_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
@@ -1847,6 +2434,8 @@ def main() -> None:
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
     k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
     k1_stream, _ = time_flash_attention(stream_shapes, stream_launches, card)
+    k1_new = {name: time_flash_attention(shapes_, launches_, card)[0]
+              for name, (shapes_, launches_) in new_paths.items()}
     # K2 at the int8 path's shapes and the int8 stream's (its prefill at M = 64)
     k2_times = time_int8_matmul(decodes + [int8_stream_decode],
                                 int8_launches[3] + int8_stream_k2, card)
@@ -1860,12 +2449,12 @@ def main() -> None:
     if [k3["launches"], k4["launches"]] != train_launches[1:3]:
         raise SystemExit("K3/K4 launches do not match the training path")
     # K1's times are means per launch over the paths; each path's stand beside them
-    paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, "train": k1_train}
+    paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, **k1_new, "train": k1_train}
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
     keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
             "library_ms")
     # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (3xTF32) in training
-    serving = _weighted([(p["launches"], p) for p in (k1_tts, k1_int8, k1_stream)])
+    serving = _weighted([(p["launches"], p) for name, p in paths.items() if name != "train"])
     designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}
     k1 = _kernel_row("flash_attention_fwd", fa.SM90_SOURCE, "flash_attention.py:71",
                      _weighted([(p["launches"], p) for p in paths.values()]),
@@ -1880,6 +2469,7 @@ def main() -> None:
         print(f"train step {r['step']}: K1+K3+K4 at lengths={r['lens']} chunk={r['chunk']} x "
               f"{per_step} launches is an estimated {per_step * kern_ms:.1f} ms "
               f"({100 * per_step * kern_ms / r['ms']:.0f}%) of {r['ms']:.1f} ms [{card}]")
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s [{card}]")
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -10,6 +10,8 @@ caller asks for the CPU:
     for chunk in model.stream("Bonjour !", prompt):  # (1, t) float32 chunks
         ...
     int8 = cosy.load(seed=0, lm_quant="int8")     # int8 LM projections (kernel K2)
+    model = cosy.load(model_dir="CosyVoice2-EU")  # reference llm.pt/flow.pt/hift.pt
+    wav, sr = model.tts("Bonjour !", model._frontend.get_spk("speaker"))  # spk2info.pt
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False: HiFT's fp32 phase math
@@ -18,6 +20,7 @@ does not tolerate TF32.
 
 from __future__ import annotations
 
+import os
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -26,9 +29,49 @@ import torch
 from cosyvoice2_eu_torch.config import TTSConfig
 
 __version__ = "0.1.0"
-__all__ = ["load", "Cosy2EU", "TTSConfig", "__version__"]
+__all__ = ["load", "Cosy2EU", "TTSConfig", "resolve_checkpoint_files", "__version__"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, "none": None}
+
+
+def resolve_checkpoint_files(
+    model_dir: str,
+    setting: str = "llm_flow_hifigan",
+    llm_run_id: Optional[str] = None,
+    flow_run_id: Optional[str] = None,
+    hifigan_run_id: Optional[str] = None,
+    final: bool = True,
+) -> dict:
+    """The checkpoint-selection matrix, setting x run id x final -> paths.
+
+    As the reference: ``final`` loads {llm,flow,hift}.pt; otherwise each
+    component named in ``setting`` that has a run id loads
+    ``{key}-{run_id}.pt`` and the rest ``{key}-original.pt``.  Where the
+    ``.pt`` file is missing but a directory of the same stem exists (the
+    JAX package's training output, extracted for inference), the directory
+    is resolved; ``load`` cannot read one yet (ROADMAP item 10).
+    """
+    if final:
+        tokens = {"llm", "flow", "hifigan"}
+    elif setting == "original":
+        tokens = set()
+    else:
+        tokens = set(setting.split("_"))
+        if tokens - {"llm", "flow", "hifigan"}:
+            raise ValueError('setting must be "original" or underscore-joined subset of '
+                             f"{{llm,flow,hifigan}}, got {setting!r}")
+    chosen = {}
+    for key, run_id in (("llm", llm_run_id), ("flow", flow_run_id), ("hift", hifigan_run_id)):
+        token = "hifigan" if key == "hift" else key
+        if final or (token in tokens and run_id is not None):
+            suffix = "" if final else f"-{run_id}"
+        else:
+            suffix = "-original"
+        path = os.path.join(model_dir, f"{key}{suffix}.pt")
+        if not os.path.exists(path) and os.path.isdir(path[: -len(".pt")]):
+            path = path[: -len(".pt")]  # a native checkpoint directory
+        chosen[key] = path
+    return chosen
 
 
 class Cosy2EU:
@@ -99,6 +142,11 @@ class Cosy2EU:
         for seg in segments:
             yield from self._model.tts(build(seg, prompt_art), stream=stream, speed=speed)
 
+    def add_zero_shot_spk(self, prompt_text: str, prompt, spk_id: str) -> bool:
+        """Store a prompt's artifacts under ``spk_id`` in the frontend's
+        speaker store (``_frontend.get_spk(spk_id)`` gives them back)."""
+        return self._frontend.add_zero_shot_spk(spk_id, self._prepare(prompt, prompt_text))
+
 
 def load(
     *,
@@ -108,22 +156,36 @@ def load(
     compute_dtype="bfloat16",
     device: str | torch.device = "cuda",
     model_dir: Optional[str] = None,
+    setting: str = "llm_flow_hifigan",
+    llm_run_id: Optional[str] = None,
+    flow_run_id: Optional[str] = None,
+    hifigan_run_id: Optional[str] = None,
+    final: Optional[bool] = None,
     backbone: Optional[str] = None,
     lm_quant: Optional[str] = None,
     tp: int = 0,
 ) -> Cosy2EU:
     """Build the model once and reuse it for many calls.
 
-    With ``params`` (a {"llm", "flow", "hift"} tree of numpy arrays or
-    tensors, e.g. the JAX package's parameters through ``np.asarray``) those
-    weights are used; otherwise the weights are random, drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``.  ``config``
-    defaults to the published widths.  ``device`` defaults to "cuda" and
-    raises when there is no GPU; pass "cpu" for the plain PyTorch path.
-    ``lm_quant="int8"`` stores the LM's projections as per-channel int8
-    (kernel K2 on the card); any value but None and "int8" raises.
-    Batched synthesis is ``load(...)._model.tts_batch(prompts)`` over the
-    frontend's ``PromptInputs``.
+    The weights, in this order: ``params`` (a {"llm", "flow", "hift"} tree
+    of numpy arrays or tensors, e.g. the JAX package's parameters through
+    ``np.asarray``); else the reference checkpoints in ``model_dir``
+    (``llm.pt``, ``flow.pt``, ``hift.pt``, picked by ``setting``, the run
+    ids and ``final`` as ``resolve_checkpoint_files`` says, and converted by
+    ``runtime/checkpoint.py``); else random weights drawn from a
+    ``torch.Generator`` seeded with ``seed`` on ``device``.  With
+    ``model_dir`` the tokenizer comes from its tokenizer files (the byte
+    tokenizer, with a warning, when it has none) and its speaker store
+    (``spk2info.pt``, else ``spk2info.npz``) fills ``_frontend.spk_info``; a
+    store that does not load raises.  ONNX files in ``model_dir`` are not
+    read: wav prompts are not ported yet (ROADMAP item 5).
+
+    ``config`` defaults to the published widths.  ``device`` defaults to
+    "cuda" and raises when there is no GPU; pass "cpu" for the plain
+    PyTorch path.  ``lm_quant="int8"`` stores the LM's projections as
+    per-channel int8 (kernel K2 on the card); any value but None and "int8"
+    raises.  Batched synthesis is ``load(...)._model.tts_batch(prompts)``
+    over the frontend's ``PromptInputs``.
     """
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
     from cosyvoice2_eu_torch.frontend.tokenizer import get_tokenizer
@@ -131,13 +193,29 @@ def load(
     from cosyvoice2_eu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    if model_dir is not None:
-        raise NotImplementedError("loading checkpoints is not ported yet: ROADMAP item 3")
     if backbone is not None:
         raise NotImplementedError(
             "alternative backbones (the v1 family) are not ported yet: ROADMAP item 9")
     cfg = config or TTSConfig()
-    if params is None:
+    if params is None and model_dir is not None:
+        from cosyvoice2_eu_torch.runtime.checkpoint import (
+            convert_flow,
+            convert_hift,
+            convert_llm,
+            load_torch_state,
+        )
+
+        files = resolve_checkpoint_files(model_dir, setting, llm_run_id, flow_run_id,
+                                         hifigan_run_id, final=True if final is None else final)
+        native = sorted(p for p in files.values() if os.path.isdir(p))
+        if native:
+            raise NotImplementedError(
+                f"native checkpoint directories {native} (the JAX package's training output) "
+                "cannot be read yet: ROADMAP item 10")
+        params = {"llm": convert_llm(load_torch_state(files["llm"]), cfg.llm),
+                  "flow": convert_flow(load_torch_state(files["flow"]), cfg.flow),
+                  "hift": convert_hift(load_torch_state(files["hift"]), cfg.hift)}
+    elif params is None:
         from cosyvoice2_eu_torch.models.flow import init_flow
         from cosyvoice2_eu_torch.models.hift import init_hift
         from cosyvoice2_eu_torch.models.llm import init_lm
@@ -150,4 +228,12 @@ def load(
         compute_dtype = _DTYPES[compute_dtype]
     model = TTSModel(cfg, params, seed=seed, compute_dtype=compute_dtype, device=dev,
                      lm_quant=lm_quant, tp=tp)
-    return Cosy2EU(model, Frontend(cfg, tokenizer=get_tokenizer("")), cfg)
+    frontend = Frontend(cfg, tokenizer=get_tokenizer(model_dir or ""))
+    if model_dir is not None:
+        # the cached-speaker store (the reference's spk2info.pt)
+        for name in ("spk2info.pt", "spk2info.npz"):
+            spk_path = os.path.join(model_dir, name)
+            if os.path.exists(spk_path):
+                frontend.load_spk_info(spk_path)
+                break
+    return Cosy2EU(model, frontend, cfg)

@@ -122,7 +122,7 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
     if kv is not None:
         if not isinstance(write_at, int):
             raise NotImplementedError(
-                "per-row cache writes (slot decode) are not ported yet: ROADMAP item 6")
+                "per-row cache writes (slot decode) are not ported yet: ROADMAP item 6b")
         kv.k[layer_idx, :, :, write_at:write_at + t] = k.to(kv.k.dtype)
         kv.v[layer_idx, :, :, write_at:write_at + t] = v.to(kv.v.dtype)
         n = kv.k.shape[3] if attn_len is None else attn_len

@@ -18,11 +18,14 @@ feeds the chunk-cached flow (``models/flow_streaming.py``, O(T) per chunk);
 ``cached_stream=False`` recomputes the whole prefix per chunk, as the
 reference does.  The final chunk is a full recompute on either path.
 
-Not ported yet, and raising ``NotImplementedError``: synthesis past the
-largest flow bucket under ``cached_stream=True`` (the JAX package routes it
-through the serving engine's ``StreamSession``, ROADMAP item 6), bistream
-decode (item 7) and tensor-parallel decode (item 8g).  ``vc`` (item 6) has
-no counterpart yet.
+Past the largest flow bucket, synthesis runs the streaming schedule and
+joins its chunks: under ``cached_stream=True`` through the serving path's
+``StreamSession`` (``serving/engine.py``), otherwise through the windowed
+recompute loop.  ``vc`` re-synthesizes source speech tokens in the prompt's
+voice without the LM.
+
+Not ported yet, and raising ``NotImplementedError``: bistream decode
+(ROADMAP item 7) and tensor-parallel decode (item 8g).
 """
 
 from __future__ import annotations
@@ -182,14 +185,13 @@ class TTSModel:
     def _finalize_full(self, tokens: np.ndarray, p: PromptInputs, session: dict,
                        speed: float = 1.0, hift_draws: Optional[HiftDraws] = None) -> np.ndarray:
         """One-shot non-streaming synthesis; past the largest flow bucket it
-        runs the windowed streaming loop and joins its chunks (``speed``
-        then reaches only the final chunk)."""
+        runs the streaming schedule (``StreamSession`` under
+        ``cached_stream=True``, else the windowed recompute loop) and joins
+        its chunks.  With ``speed != 1.0`` the recompute loop stretches only
+        the final chunk, and the session renders everything in one flow call,
+        which raises past the largest bucket (as in the JAX package)."""
         if len(p.flow_prompt_speech_tokens) + len(tokens) <= FLOW_TOKEN_BUCKETS[-1]:
             return self._token2wav(tokens, p, 0, session, False, True, speed, hift_draws)
-        if self.cached_stream:
-            raise NotImplementedError(
-                "synthesis past the largest flow bucket under cached_stream=True runs through "
-                "the serving engine's StreamSession, which is not ported yet: ROADMAP item 6")
         return np.concatenate(list(self._wav_from_token_gen(iter(tokens), p, True, speed,
                                                             hift_draws)))
 
@@ -339,6 +341,65 @@ class TTSModel:
                           self._tensor(np.asarray(embedding)[None], torch.float32),
                           self._tensor(cond[None], torch.float32))
 
+    @staticmethod
+    def _combined(sp: np.ndarray, gen: np.ndarray, gen_base: int, i0: int, n: int) -> np.ndarray:
+        """Tokens [i0, i0 + n) of prompt ``sp`` ++ generated ``gen``, in state
+        positions: after a rollover, position i >= P holds gen[gen_base + i - P]."""
+        i = np.arange(i0, i0 + n)
+        in_prompt = i < len(sp)
+        out = np.empty(n, np.int32)
+        out[in_prompt] = sp[i[in_prompt]]
+        out[~in_prompt] = gen[gen_base + i[~in_prompt] - len(sp)]
+        return out
+
+    def _feed_tokens(self, fstate: FlowStreamState, prompt: PromptInputs, gen: np.ndarray,
+                     gen_base: int, t0: int, n: int):
+        """Feed state positions [t0, t0 + n) of prompt ++ generated, with the
+        lookahead tokens after them as context; returns (mel, fstate)."""
+        sp, la = prompt.flow_prompt_speech_tokens, self.pre_lookahead_len
+        with self.timer.stage(f"flow_chunk[{n}]"):
+            return self._flow_feed(fstate, self._combined(sp, gen, gen_base, t0, n),
+                                   self._combined(sp, gen, gen_base, t0 + n, la),
+                                   self._prompt_feat_chunk(prompt, t0, n), prompt.embedding)
+
+    def _rollover(self, prompt: PromptInputs, gen: np.ndarray, g_fed: int):
+        """Re-prime a fresh state over the prompt and the last
+        ``stream_rollover_window`` of the ``g_fed`` generated tokens fed so
+        far, the window aligned so that the catch-up decomposes into
+        PRIME_SIZES feeds.  Returns (fstate, gen_base, t_fed)."""
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        P = len(prompt.flow_prompt_speech_tokens)
+        prompt_only = self._prompt_prime_len(P, hop, la)
+        w = self.stream_rollover_window
+        w += (-((P - prompt_only) + w)) % hop
+        gen_base = max(0, g_fed - w)
+        fstate, _ = self._primed_flow_state(prompt)
+        t, t_fed = prompt_only, P + (g_fed - gen_base)
+        with self.timer.stage("stream_rollover"):
+            for n in self._decompose_feed(t_fed - prompt_only):
+                _, fstate = self._feed_tokens(fstate, prompt, gen, gen_base, t, n)
+                t += n
+        return fstate, gen_base, t_fed
+
+    def _fused_cache_ok(self, session: dict) -> bool:
+        """The session's vocoder cache is full size, as the steady chunk of
+        ``StreamSession`` needs (the JAX package's fused chunk program takes
+        only such a cache; the port keeps the guard, which also decides when
+        the steady chunk size escalates)."""
+        cache = session.get("hift_cache")
+        return (cache is not None
+                and cache["mel"].shape[2] == self.mel_cache_len
+                and cache["source"].shape[2] == self.source_cache_len
+                and cache["speech"].shape[0] == self.source_cache_len)
+
+    def _recompute_window(self, n_prompt: int) -> tuple:
+        """(cap, window) of a windowed recompute: the largest flow bucket,
+        read when called, and the generated tokens kept as context once
+        prompt + generated would pass it."""
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        cap = FLOW_TOKEN_BUCKETS[-1]
+        return cap, max(hop, min(self.stream_rollover_window, cap - n_prompt - 2 * (hop + la)))
+
     def _decompose_feed(self, n: int) -> list:
         out = []
         for s in self.PRIME_SIZES:
@@ -468,18 +529,30 @@ class TTSModel:
                             speed: float = 1.0, hift_draws: Optional[HiftDraws] = None
                             ) -> Generator[np.ndarray, None, None]:
         """Vocode an incremental speech-token stream on the reference's hop
-        schedule, recomputing the prefix per chunk within a rolling window
-        that keeps the span inside the largest flow bucket."""
+        schedule.  Under ``cached_stream=True`` the serving path's
+        ``StreamSession`` takes the tokens one by one (the chunk-cached
+        flow, with rollover); otherwise each chunk recomputes the prefix
+        within a rolling window that keeps the span inside the largest flow
+        bucket."""
         session: dict = {"hift_cache": None}
         if not stream:
             tokens = np.fromiter(token_gen, np.int32)
             yield self._finalize_full(tokens, prompt, session, speed, hift_draws)
             return
+        if self.cached_stream:
+            from cosyvoice2_eu_torch.serving.engine import StreamSession
+
+            sess = StreamSession(self, prompt, speed=speed, hift_draws=hift_draws)
+            toks: list = []
+            for t in token_gen:
+                toks.append(int(t))
+                yield from sess.feed(toks, False)
+            yield from sess.feed(toks, True)
+            return
         hop, la = self.token_hop_len, self.pre_lookahead_len
         n_prompt = len(prompt.flow_prompt_speech_tokens)
         prompt_pad = int(np.ceil(n_prompt / hop) * hop - n_prompt)
-        cap = FLOW_TOKEN_BUCKETS[-1]
-        window = max(hop, min(self.stream_rollover_window, cap - n_prompt - 2 * (hop + la)))
+        cap, window = self._recompute_window(n_prompt)
         base = 0  # generated tokens dropped from the recompute context
         token_offset = 0
         buf: list = []
@@ -509,7 +582,6 @@ class TTSModel:
         hop, la = self.token_hop_len, self.pre_lookahead_len
         P = len(prompt.flow_prompt_speech_tokens)
         prompt_pad = int(np.ceil(P / hop) * hop - P)
-        sp = prompt.flow_prompt_speech_tokens.astype(np.int32)
         session: dict = {"hift_cache": None}
         self._get_stream_params()
 
@@ -518,22 +590,10 @@ class TTSModel:
         # after a rollover, state position i >= P holds generated token gen_base + (i - P)
         gen_base = 0
 
-        def combined(i0: int, n: int) -> np.ndarray:
-            """Tokens [i0, i0 + n) of prompt ++ generated, in state positions."""
-            i = np.arange(i0, i0 + n)
-            out = toks[np.clip(gen_base + i - P, 0, None)].astype(np.int32)
-            out[i < P] = sp[i[i < P]]
-            return out
-
         def fetch():
             nonlocal toks
             n_avail, finished, toks = self._fetch(state)
             return state.step, n_avail, finished
-
-        def feed(fstate, t0: int, n: int):
-            with self.timer.stage(f"flow_chunk[{n}]"):
-                return self._flow_feed(fstate, combined(t0, n), combined(t0 + n, la),
-                                       self._prompt_feat_chunk(prompt, t0, n), prompt.embedding)
 
         prompt_only = self._prompt_prime_len(P, hop, la)
         first = hop + prompt_pad  # generated tokens of the first chunk
@@ -555,26 +615,9 @@ class TTSModel:
                                         hift_draws=hift_draws)
             yield audio
             fstate, _ = self._primed_flow_state(prompt)
-            _, fstate = feed(fstate, prompt_only, P - prompt_only + first)
+            _, fstate = self._feed_tokens(fstate, prompt, toks, gen_base, prompt_only,
+                                          P - prompt_only + first)
             t_fed = P + first
-
-        def rollover(t_fed_old: int):
-            """Re-prime a fresh state over prompt + the last
-            ``stream_rollover_window`` generated tokens, aligned so the feed
-            decomposes into PRIME_SIZES; returns (fstate, t_fed)."""
-            nonlocal gen_base
-            g_fed = gen_base + (t_fed_old - P)  # generated tokens fed so far
-            w = self.stream_rollover_window
-            w += (-((P - prompt_only) + w)) % hop
-            j0 = max(0, g_fed - w)
-            fstate, _ = self._primed_flow_state(prompt)
-            gen_base = j0
-            t, total = prompt_only, P + (g_fed - j0)
-            with self.timer.stage("stream_rollover"):
-                for n in self._decompose_feed(total - prompt_only):
-                    _, fstate = feed(fstate, t, n)
-                    t += n
-            return fstate, total
 
         can_roll = (self.stream_rollover
                     and P + self.stream_rollover_window + 2 * hop <= self.stream_max_tokens)
@@ -590,13 +633,13 @@ class TTSModel:
             at_cap = t_fed + hop > self.stream_max_tokens
             remaining = n_avail - (gen_base + t_fed - P)  # generated, not yet fed
             if at_cap and can_roll and (not finished or remaining > 2 * hop):
-                fstate, t_fed = rollover(t_fed)
+                fstate, gen_base, t_fed = self._rollover(prompt, toks, gen_base + (t_fed - P))
                 continue
             if n_avail < need_gen or at_cap:
                 if finished or step >= max_gen or at_cap:
                     break  # the final partial chunk by (window-bounded) recompute
                 continue
-            mel, fstate = feed(fstate, t_fed, hop)
+            mel, fstate = self._feed_tokens(fstate, prompt, toks, gen_base, t_fed, hop)
             t_fed += hop
             audio = self._hift_chunk(mel, session, False, hift_draws=hift_draws)
             # decode the next hop ahead (a no-op once the LM has finished)
@@ -651,7 +694,8 @@ class TTSModel:
         ratio = cfg.flow.token_mel_ratio
         totals = [len(p.flow_prompt_speech_tokens) + int(lengths[i]) for i, p in enumerate(prompts)]
         if max(totals) > FLOW_TOKEN_BUCKETS[-1]:
-            # per-row synthesis, which raises past the largest flow bucket
+            # per-row synthesis: the long rows through the streaming
+            # schedule (``_finalize_full``), the rest one-shot
             return [self._finalize_full(tokens[i, : lengths[i]], prompts[i], {"hift_cache": None},
                                         speed, hift_draws) for i in range(n)]
         tok_bucket = bucket_for(max(totals), buckets=FLOW_TOKEN_BUCKETS)
@@ -695,6 +739,28 @@ class TTSModel:
                 out.extend(audio[i - lo, : mel_lens[i] * hcfg.upsample_scale].cpu().numpy()
                            for i in range(lo, hi))
         return out
+
+    def vc(self, source_speech_tokens: np.ndarray, prompt: PromptInputs, stream: bool = False,
+           speed: float = 1.0, hift_draws: Optional[HiftDraws] = None
+           ) -> Generator[np.ndarray, None, None]:
+        """Voice conversion: re-synthesize source speech tokens in the
+        prompt speaker's voice, without the LM.  Without streaming one flow
+        and HiFT call; with it, recompute chunks over the growing prefix (a
+        hop and the lookahead each, then the final chunk).  As in the JAX
+        package, neither windows: past the largest flow bucket
+        ``bucket_for`` raises ``ValueError``.  ``hift_draws`` as in ``tts``."""
+        session: dict = {"hift_cache": None}
+        tokens = np.asarray(source_speech_tokens, np.int32)
+        if not stream:
+            yield self._token2wav(tokens, prompt, 0, session, False, True, speed, hift_draws)
+            return
+        hop, la = self.token_hop_len, self.pre_lookahead_len
+        offset = 0
+        while len(tokens) - offset >= hop + la:
+            yield self._token2wav(tokens[: offset + hop + la], prompt, offset, session, True,
+                                  False, hift_draws=hift_draws)
+            offset += hop
+        yield self._token2wav(tokens, prompt, offset, session, False, True, speed, hift_draws)
 
 
 def _fade_in_out(fade_in: np.ndarray, fade_out: np.ndarray, window: np.ndarray) -> np.ndarray:

@@ -315,19 +315,27 @@ def test_recompute_tts_windows_past_flow_bucket(params, monkeypatch):
 @pytest.mark.parametrize("cached", [False, True])
 def test_nonstream_finalize_windows_past_flow_bucket(params, monkeypatch, cached):
     """Non-streaming synthesis past the largest flow bucket joins the
-    windowed recompute loop's chunks into one waveform; under
-    ``cached_stream=True`` that loop is the serving engine's, not ported yet."""
+    streaming schedule's chunks into one waveform: the windowed recompute
+    loop, or under ``cached_stream=True`` the serving path's
+    ``StreamSession``, which equals the JAX package's (HiFT draws rebuilt
+    from its key chain, atol 1e-3)."""
     monkeypatch.setattr(port_model, "FLOW_TOKEN_BUCKETS", (64, 128))
     pm = _port(params, cached_stream=cached)
     tokens = np.random.default_rng(11).integers(0, CFG.flow.vocab_size, 150).astype(np.int32)
     inputs = _inputs(port_model.PromptInputs)
+    draws = None
     if cached:
-        with pytest.raises(NotImplementedError, match="ROADMAP item 6"):
-            pm._finalize_full(tokens, inputs, {"hift_cache": None})
-        return
-    chunks = list(pm._wav_from_token_gen(iter(tokens), inputs, stream=False))
+        monkeypatch.setattr(jax_model, "FLOW_TOKEN_BUCKETS", (64, 128))
+        jm = jax_model.TTSModel(CFG, params, seed=7, compute_dtype=None)
+        draws = hift_key_chain(jm._rng)
+        want = list(jm._wav_from_token_gen(iter(tokens), _inputs(jax_model.PromptInputs),
+                                           stream=False))
+    chunks = list(pm._wav_from_token_gen(iter(tokens), inputs, stream=False, hift_draws=draws))
     assert len(chunks) == 1 and len(chunks[0]) == 150 * SCALE
     assert np.isfinite(chunks[0]).all()
+    if cached:
+        assert pm.timer.counts["first_chunk_recompute"] == 1  # through the session
+        np.testing.assert_allclose(chunks[0], want[0], atol=1e-3)
 
 
 def test_load_stream_on_cpu():
