@@ -79,6 +79,18 @@ Phases (any failure ends the run with a non-zero exit code):
      chunk, ``Cosy2EU.stream`` rolling over, and the recompute path over the
      same tokens; equal tokens, tokens x 960 samples); ``vc`` of the stream
      phase's 280 tokens with and without streaming;
+  5d. the prompt frontend (counts set to 0 before its requests, read after):
+     16-bit PCM prompts written from a seeded signal (16 kHz mono 3 s and
+     30 s, 48 kHz stereo 3 s); the FSQ speech tokenizer and CAM++ at the
+     published widths from a seeded generator on the card, held against
+     the CPU on the 3 s prompt (prompt mel, whisper log-mel, z, codes
+     differing only within ``FSQ_EPS`` of a rounding boundary, x-vector);
+     ``extract_prompt`` timed per stage at each prompt (first call, median
+     of 5 warm); then ``Cosy2EU(load(seed=0, download=False)...)`` on the
+     3 s wav: a zero-shot ``tts`` with ``text_frontend=True`` and an
+     instruct2 ``stream`` that must hit the prompt cache, each with tokens,
+     RTF, the stage split and the frontend's share, time to first audio,
+     peak memory and K1 560 times a flow call;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -101,7 +113,7 @@ Phases (any failure ends the run with a non-zero exit code):
 The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
-bf16 on the TTS, int8, stream, checkpoint, long and vc paths, fp32 on the
+bf16 on the TTS, int8, stream, checkpoint, long, vc and frontend paths, fp32 on the
 training path), K2's over the shapes of the int8 path and the int8
 stream (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
@@ -1628,6 +1640,256 @@ def vc_path(card: str, source) -> tuple[list, int]:
     return [_k1_shape(cfg, *c[:3]) for c in calls], launches
 
 
+# card vs CPU tolerances of the frontend phase (full widths, fp32, TF32 off)
+FEAT_REL_TOL = 1e-5  # the 24 kHz prompt mel, compared linearly, relative to its peak
+WHISPER_TOL = 1e-3  # the whisper log-mel ((log10 + 4) / 4; bins 8 decades down are clamped)
+Z_TOL = 1e-3  # the tokenizer's z before the FSQ head
+FSQ_EPS = Z_TOL  # a code may differ only where a digit's pre-rounding value lies within
+#                  FSQ_EPS of +-0.5 (|d tanh(z) * 0.999 / dz| <= 1, so z_err bounds the move)
+EMB_REL_TOL = 1e-4  # the CAM++ x-vector, relative to its largest value
+
+
+def write_prompt_wavs(directory: str) -> dict:
+    """16-bit PCM prompts from a seeded signal (a harmonic glide plus noise):
+    16 kHz mono of 3 s and 30 s (the limit: 3000 whisper frames, 750
+    codes) and 48 kHz stereo of 3 s (``load_wav``'s channel mean and
+    resampling).  Returns {name: (path, seconds)}."""
+    import wave
+
+    import numpy as np
+
+    out = {}
+    for name, seconds, sr, channels in (("3s", 3.0, 16000, 1), ("30s", 30.0, 16000, 1),
+                                        ("3s_48k_stereo", 3.0, 48000, 2)):
+        rng = np.random.default_rng(len(out))
+        t = np.arange(int(seconds * sr)) / sr
+        f0 = 120.0 + 80.0 * (t / seconds)
+        phase = 2 * np.pi * np.cumsum(f0) / sr
+        sig = sum(0.3 / k * np.sin(k * phase) for k in (1, 2, 3, 4))
+        sig = np.stack([sig * (1.0 - 0.2 * c) for c in range(channels)], axis=1)
+        sig = np.clip(sig + 0.01 * rng.standard_normal(sig.shape), -1, 1)
+        path = os.path.join(directory, f"prompt_{name}.wav")
+        with wave.open(path, "wb") as w:
+            w.setnchannels(channels)
+            w.setsampwidth(2)
+            w.setframerate(sr)
+            w.writeframes((sig * 32767).astype(np.int16).tobytes())
+        out[name] = (path, seconds)
+    return out
+
+
+def _perturbed_norms(tree, gen):
+    """CAM++'s BatchNorm statistics drawn from ``gen`` away from init's
+    (mean 0, var 1, weight 1, bias 0), so the card's norms do real work."""
+    import torch
+
+    if isinstance(tree, dict):
+        if set(tree) == {"weight", "bias", "mean", "var"}:
+            c, dev = tree["weight"].shape, tree["weight"].device
+            return {"weight": 0.5 + torch.rand(c, generator=gen, device=dev),
+                    "bias": 0.2 * torch.randn(c, generator=gen, device=dev),
+                    "mean": 0.3 * torch.randn(c, generator=gen, device=dev),
+                    "var": 0.3 + 1.5 * torch.rand(c, generator=gen, device=dev)}
+        return {k: _perturbed_norms(v, gen) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_perturbed_norms(v, gen) for v in tree]
+    return tree
+
+
+def _check_frontend_on_card(st_params, cam_params, wav, card: str) -> None:
+    """The 3 s prompt through the frontend's stages on the card and on the
+    CPU (parameters copied there), each held to its tolerance: the prompt
+    mel, the whisper log-mel, z, the codes (a differing code only where its
+    digit lies within ``FSQ_EPS`` of a rounding boundary) and the x-vector."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.frontend import frontend as fe_mod
+    from cosyvoice2_eu_torch.models import campplus as cam
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+    from cosyvoice2_eu_torch.ops.mel import whisper_log_mel
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    cfg, st_cfg, cam_cfg = TTSConfig(), st.SpeechTokenizerConfig(), cam.CAMPPlusConfig()
+    out = {}
+    for dev, sp, cp in (("cuda", st_params, cam_params),
+                        ("cpu", tree_map(lambda t: t.cpu(), st_params),
+                         tree_map(lambda t: t.cpu(), cam_params))):
+        fe = fe_mod.Frontend(cfg, device=dev)
+        with torch.inference_mode():
+            mel = whisper_log_mel(torch.tensor(wav, device=dev)[None], n_mels=st_cfg.n_mels)
+            t = mel.shape[-1] - mel.shape[-1] % st_cfg.downsample
+            z, _, _ = st.encode_z(sp, st_cfg, mel[:, :, :t], torch.tensor([t], device=dev))
+            emb = cam.campplus_forward(cp, cam_cfg, cam.kaldi_fbank_cmn(
+                torch.tensor(wav, device=dev)[None], cam_cfg.feat_dim))
+        out[dev] = {"feat": fe.mel_fn(fe_mod.resample(wav, 16000, 24000)),
+                    "mel": mel.cpu().numpy(), "z": z.float().cpu(), "emb": emb.cpu().numpy()}
+    g, c = out["cuda"], out["cpu"]
+    lin_g, lin_c = np.exp(g["feat"].astype(np.float64)), np.exp(c["feat"].astype(np.float64))
+    feat_rel = float(np.abs(lin_g - lin_c).max() / lin_c.max())
+    feat_log = float(np.abs(g["feat"] - c["feat"]).max())
+    whisper_err = float(np.abs(g["mel"] - c["mel"]).max())
+    z_err = float((g["z"] - c["z"]).abs().max())
+    codes_g, codes_c = (st.fsq_quantize(x["z"], st_cfg.fsq_levels)[0] for x in (g, c))
+    bounded = torch.tanh(c["z"]) * st.FSQ_TANH_SCALE  # levels 3: half = 1
+    digits_differ = torch.round(torch.tanh(g["z"]) * st.FSQ_TANH_SCALE) != torch.round(bounded)
+    margins = ((bounded.abs() - 0.5).abs())[digits_differ]
+    n_codes = int((codes_g != codes_c).sum())
+    worst_margin = float(margins.max()) if n_codes else 0.0
+    emb_rel = float(np.abs(g["emb"] - c["emb"]).max() / np.abs(c["emb"]).max())
+    ok = (feat_rel <= FEAT_REL_TOL and whisper_err <= WHISPER_TOL and z_err <= Z_TOL
+          and worst_margin < FSQ_EPS and emb_rel <= EMB_REL_TOL
+          and codes_g.shape == codes_c.shape == (1, 75))
+    print(f"frontend card vs CPU, 3 s prompt, published widths: prompt_feat relative error "
+          f"{feat_rel:.3e} (linear, tol {FEAT_REL_TOL:g}; log-domain max_abs_err {feat_log:.3e}), "
+          f"whisper log-mel max_abs_err {whisper_err:.3e} (tol {WHISPER_TOL:g}), z max_abs_err "
+          f"{z_err:.3e} (tol {Z_TOL:g}), codes differing {n_codes} of {codes_c.numel()} (largest "
+          f"margin among their digits {worst_margin:.3e}, must be < {FSQ_EPS:g}), embedding "
+          f"relative error {emb_rel:.3e} (tol {EMB_REL_TOL:g}) [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the frontend on the card disagrees with the CPU")
+
+
+def _time_extraction(fe, path: str, seconds: float, card: str, runs: int = 6) -> dict:
+    """``load_wav`` + ``extract_prompt`` of one prompt ``runs`` times, each
+    stage synchronised: the first call and the median of the warm ones."""
+    import numpy as np
+
+    from cosyvoice2_eu_torch.frontend.frontend import load_wav
+
+    names = {"load_wav": "load_wav+resample", "prompt_mel": "mel_fn",
+             "prompt_speech_tokens": "whisper+encode", "prompt_embedding": "fbank+CAM++"}
+    times = []
+    for _ in range(runs):
+        fe.timer.reset()
+        t0 = time.perf_counter()
+        wav = load_wav(path, 16000)
+        load_s = time.perf_counter() - t0
+        art = fe.extract_prompt(wav)
+        stages = {"load_wav": load_s, **{k: v["total_s"] for k, v in fe.timer.summary().items()}}
+        times.append({k: stages[k] * 1e3 for k in names})
+    n_tok = int(seconds * fe.cfg.flow.input_frame_rate)
+    ok = (len(art["speech_tokens"]) == n_tok
+          and art["prompt_feat"].shape == (2 * n_tok, fe.cfg.mel.num_mels)
+          and np.isfinite(art["prompt_feat"]).all() and np.isfinite(art["embedding"]).all()
+          and art["speech_tokens"].min() >= 0 and art["speech_tokens"].max() < 6561)
+    warm = {k: float(np.median([t[k] for t in times[1:]])) for k in names}
+    fmt = lambda d: ", ".join(f"{names[k]} {d[k]:.2f}" for k in names)  # noqa: E731
+    print(f"extract_prompt {os.path.basename(path)} ({seconds:g} s, {n_tok} codes, "
+          f"{2 * n_tok} mel frames): first call ms {fmt(times[0])}, total "
+          f"{sum(times[0].values()):.2f}; warm median of {runs - 1} ms {fmt(warm)}, total "
+          f"{sum(warm.values()):.2f}; warm ms per prompt second "
+          f"{sum(warm.values()) / seconds:.2f} [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"extract_prompt of {path} failed its checks")
+    return {"first": times[0], "warm": warm}
+
+
+def frontend_path(card: str) -> tuple[list, int]:
+    """The prompt frontend at the published widths on the card: the FSQ
+    speech tokenizer (123,476,488 parameters) and CAM++ (6,931,104, its
+    norms perturbed) drawn from a seeded ``torch.Generator``, checked
+    against the CPU (``_check_frontend_on_card``), ``extract_prompt`` timed
+    per stage at 3 s, 30 s and a 48 kHz stereo 3 s wav, then the user's
+    call: a fresh ``load(seed=0, download=False)`` wrapped in
+    ``Cosy2EU(model, frontend, cfg)``, a zero-shot ``tts`` on the 3 s wav
+    with ``text_frontend=True`` (a number spelled out) and an instruct2
+    ``stream`` on the same wav, which must hit the prompt cache.  Gates:
+    tokens x 960 samples, finite non-silent audio, K1 560 times a flow call.
+    Returns the flow calls' K1 shapes and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.frontend import frontend as fe_mod
+    from cosyvoice2_eu_torch.models import campplus as cam
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    st_cfg, cam_cfg = st.SpeechTokenizerConfig(), cam.CAMPPlusConfig()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    st_params = st.init_speech_tokenizer(gen, st_cfg)
+    cam_params = _perturbed_norms(cam.init_campplus(gen, cam_cfg), gen)
+    n_st, n_cam = (sum(t.numel() for t in tree_leaves(p)) for p in (st_params, cam_params))
+    print(f"frontend: speech tokenizer {n_st:,} parameters, CAM++ {n_cam:,}, fp32 on the card")
+    if (n_st, n_cam) != (123_476_488, 6_931_104):
+        raise SystemExit("the frontend models are not at the published widths")
+    model = cosy.load(seed=0, download=False, device="cuda")
+    cfg = model._cfg
+    fe = fe_mod.Frontend(cfg, tokenizer=model._frontend.tokenizer,
+                         speech_tokenizer_fn=fe_mod.make_speech_tokenizer_fn(
+                             st_params, st_cfg, device="cuda"),
+                         spk_embedding_fn=fe_mod.make_spk_embedding_fn(
+                             cam_params, cam_cfg, device="cuda"),
+                         device="cuda")
+    api = cosy.Cosy2EU(model._model, fe, cfg)
+    tm = model._model
+    with tempfile.TemporaryDirectory(prefix="cosy_prompts_") as d:
+        wavs = write_prompt_wavs(d)
+        _check_frontend_on_card(st_params, cam_params, fe_mod.load_wav(wavs["3s"][0], 16000),
+                                card)
+        for name in ("3s", "30s", "3s_48k_stereo"):
+            _time_extraction(fe, *wavs[name], card)
+        prompt_text = "Bonjour, je m'appelle Claire."
+        requests = (("zero_shot tts", "Il y a 3 chats.", False,
+                     dict(mode="zero_shot", text_frontend=True)),
+                    ("instruct2 stream", "Bonjour !", True,
+                     dict(mode="instruct2", instruct_text="Parle lentement.",
+                          text_frontend=True)))
+        _reset_counts()
+        calls: list = []
+        _record_flow_calls(tm, calls)
+        for i, (what, text, stream, kw) in enumerate(requests):
+            segments = fe.normalize_text(text)
+            fe.timer.reset()
+            tm.timer.reset()
+            _reset_peak()
+            before = (len(calls), _counters()[0].launches)
+            walls, lens = [], []
+            t0 = time.perf_counter()
+            if stream:
+                chunks = list(_timed_chunks(api.stream(text, wavs["3s"][0],
+                                                       prompt_text=prompt_text, **kw),
+                                            walls, lens))
+            else:
+                chunks = [api.tts(text, wavs["3s"][0], prompt_text=prompt_text, **kw)[0]]
+                walls.append((time.perf_counter() - t0) * 1e3)
+            wall = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            n_tok, samples = tm.last_n_tokens, sum(c.shape[1] for c in chunks)
+            flows = len(calls) - before[0]
+            launched = _counters()[0].launches - before[1]
+            front = {k: v["total_s"] for k, v in fe.timer.summary().items()}
+            stages = {k: v["total_s"] for k, v in tm.timer.summary().items()}
+            audio_s = samples / cfg.sample_rate
+            cached = i > 0
+            ok = (samples == n_tok * 960 and all(np.isfinite(c).all() for c in chunks)
+                  and max(float(np.abs(c).max()) for c in chunks) > 1e-3
+                  and launched == _k1_per_flow(cfg) * flows and flows >= 1
+                  and len(api._prompt_cache) == 1 and (not front if cached else
+                                                        {"prompt_load_wav", "prompt_mel",
+                                                         "prompt_speech_tokens",
+                                                         "prompt_embedding"} <= set(front)))
+            print(f"{what}: {len(text.encode())} text bytes normalised to {segments} -> {n_tok} "
+                  f"tokens, {audio_s:.2f} s audio in {len(chunks)} chunks; prompt cache "
+                  f"{'hit (no extraction)' if cached else 'miss (extracted)'}; wall "
+                  f"{wall:.2f} s, RTF {wall / audio_s:.3f}, time to first audio {walls[0]:.1f} ms; "
+                  f"stage ms: " + ", ".join(f"{k} {v * 1e3:.1f}" for k, v in {**front,
+                                                                              **stages}.items())
+                  + f"; frontend share {100 * sum(front.values()) / wall:.1f}%; peak memory "
+                  f"{peak / 2**30:.2f} GiB; flow calls {flows}, K1 launches {launched} (expected "
+                  f"{_k1_per_flow(cfg)} x {flows}) [{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"the frontend phase's {what} failed its checks")
+    launches = _path_launches("frontend phase", card, len(calls))
+    del model, api, tm, fe, st_params, cam_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [_k1_shape(cfg, *c[:3]) for c in calls], launches
+
+
 def int8_stream_path(card: str) -> tuple[list, int, tuple, int]:
     """One shorter request through ``Cosy2EU.stream`` on the chunk-cached
     flow with ``lm_quant="int8"``: K2 launched 168 + 169 x decode steps
@@ -2416,10 +2678,10 @@ def main() -> None:
     stream_cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in stream_shapes})
     worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
                                                " stream") for lens, t, chunk in stream_cases]))
-    # checkpoint loading, past the largest flow bucket, vc: each path read on
-    # its own
+    # checkpoint loading, past the largest flow bucket, vc, the prompt
+    # frontend: each path read on its own
     new_paths = {"checkpoint": checkpoint_path(card), "long": long_path(card),
-                 "vc": vc_path(card, stream_tokens)}
+                 "vc": vc_path(card, stream_tokens), "frontend": frontend_path(card)}
     for name, (shapes_, _) in new_paths.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
         worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),

@@ -5,13 +5,15 @@ imports neither JAX nor that package.  Entry points run on the GPU unless the
 caller asks for the CPU:
 
     import cosyvoice2_eu_torch as cosy
-    model = cosy.load(seed=0)                     # random weights, on "cuda"
-    wav, sr = model.tts("Bonjour !", prompt)      # prompt: dict of artifacts
-    for chunk in model.stream("Bonjour !", prompt):  # (1, t) float32 chunks
+    model = cosy.load(model_dir="CosyVoice2-EU")  # reference checkpoints + ONNX frontend
+    wav, sr = model.tts("Bonjour !", "prompt.wav")   # a wav prompt, cloned on the card
+    for chunk in model.stream("Bonjour !", "prompt.wav"):  # (1, t) float32 chunks
         ...
-    int8 = cosy.load(seed=0, lm_quant="int8")     # int8 LM projections (kernel K2)
-    model = cosy.load(model_dir="CosyVoice2-EU")  # reference llm.pt/flow.pt/hift.pt
-    wav, sr = model.tts("Bonjour !", model._frontend.get_spk("speaker"))  # spk2info.pt
+    wav, sr = model.tts("Bonjour !", "prompt.wav", mode="instruct2",
+                        instruct_text="Parle lentement.")
+    model = cosy.load(seed=0, download=False)      # random weights, on "cuda"
+    wav, sr = model.tts("Bonjour !", prompt)       # prompt: dict of artifacts
+    int8 = cosy.load(seed=0, download=False, lm_quant="int8")  # int8 LM (kernel K2)
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False: HiFT's fp32 phase math
@@ -76,26 +78,45 @@ def resolve_checkpoint_files(
 
 class Cosy2EU:
     """High-level inference wrapper: ``tts`` returns the whole waveform,
-    ``stream`` yields it chunk by chunk."""
+    ``stream`` yields it chunk by chunk.
+
+    A prompt is a wav path (read at 16 kHz and extracted once per (path,
+    prompt text): the cache never evicts and does not notice a file
+    rewritten in place, as the reference's), a 16 kHz waveform array, or a
+    dict of artifacts (``prompt_feat``, ``speech_tokens``, ``embedding``).
+    Modes: ``cross_lingual`` (default), ``zero_shot`` and ``instruct2``
+    (with ``instruct_text``)."""
 
     def __init__(self, model, frontend, cfg: TTSConfig):
         self._model = model
         self._frontend = frontend
         self._cfg = cfg
+        self._prompt_cache: dict = {}
 
     @property
     def sample_rate(self) -> int:
         return self._cfg.sample_rate
 
     def _prepare(self, prompt, prompt_text: str = "", **precomputed):
+        if isinstance(prompt, str):
+            key = (prompt, prompt_text)
+            if key not in self._prompt_cache:
+                from cosyvoice2_eu_torch.frontend.frontend import load_wav
+
+                with self._frontend.timer.stage("prompt_load_wav"):
+                    wav = load_wav(prompt, self._cfg.frontend.prompt_sr)
+                self._prompt_cache[key] = self._frontend.extract_prompt(
+                    wav, prompt_text, **precomputed)
+            return self._prompt_cache[key]
         if isinstance(prompt, dict):
             missing = {"prompt_feat", "speech_tokens", "embedding"} - prompt.keys()
             if missing:
                 raise ValueError(
                     f"prompt dict is missing {sorted(missing)}; expected the artifact keys "
-                    "prompt_feat, speech_tokens, embedding (and optionally prompt_text)")
+                    "prompt_feat, speech_tokens, embedding (and optionally prompt_text) as "
+                    "produced by Frontend.extract_prompt")
             return prompt
-        return self._frontend.extract_prompt(prompt, prompt_text, **precomputed)
+        return self._frontend.extract_prompt(np.asarray(prompt), prompt_text, **precomputed)
 
     def tts(
         self,
@@ -106,11 +127,12 @@ class Cosy2EU:
         speed: float = 1.0,
         text_frontend: bool = False,
         mode: str = "cross_lingual",
+        instruct_text: str = "",
         **precomputed,
     ) -> Tuple[np.ndarray, int]:
         """Synthesize; returns (waveform (1, T) float32, sample_rate)."""
         chunks = list(self._generate(text, prompt, prompt_text, False, speed, text_frontend,
-                                     mode, **precomputed))
+                                     mode, instruct_text, **precomputed))
         return np.concatenate(chunks)[None], self.sample_rate
 
     def stream(
@@ -122,40 +144,77 @@ class Cosy2EU:
         speed: float = 1.0,
         text_frontend: bool = False,
         mode: str = "cross_lingual",
+        instruct_text: str = "",
         **precomputed,
     ) -> Iterator[np.ndarray]:
         """Yield waveform chunks (1, t) float32 for streaming playback."""
         for chunk in self._generate(text, prompt, prompt_text, True, speed, text_frontend, mode,
-                                    **precomputed):
+                                    instruct_text, **precomputed):
             yield chunk[None]
 
     def _generate(self, text, prompt, prompt_text, stream, speed, text_frontend, mode,
-                  **precomputed):
+                  instruct_text="", **precomputed):
         prompt_art = self._prepare(prompt, prompt_text, **precomputed)
         segments = (self._frontend.normalize_text(text, split=True) if text_frontend
                     else [text])
         if mode == "instruct2":
-            raise NotImplementedError("instruct2 mode is not ported yet: ROADMAP item 5")
-        if mode not in ("zero_shot", "cross_lingual"):
+            def build(seg, art):
+                return self._frontend.frontend_instruct2(seg, instruct_text, art)
+        elif mode in ("zero_shot", "cross_lingual"):
+            build = getattr(self._frontend, f"frontend_{mode}")
+        else:
             raise ValueError(f"unknown mode {mode!r}")
-        build = getattr(self._frontend, f"frontend_{mode}")
         for seg in segments:
             yield from self._model.tts(build(seg, prompt_art), stream=stream, speed=speed)
 
     def add_zero_shot_spk(self, prompt_text: str, prompt, spk_id: str) -> bool:
-        """Store a prompt's artifacts under ``spk_id`` in the frontend's
-        speaker store (``_frontend.get_spk(spk_id)`` gives them back)."""
+        """Store a prompt's artifacts (from a wav path, a waveform or a dict)
+        under ``spk_id`` in the frontend's speaker store
+        (``_frontend.get_spk(spk_id)`` gives them back)."""
         return self._frontend.add_zero_shot_spk(spk_id, self._prepare(prompt, prompt_text))
+
+
+def _snapshot_download(repo_id: str, required: bool = False) -> Optional[str]:
+    """The hub snapshot of ``repo_id`` in ``$COSY2EU_CACHE`` (default
+    ~/.cache/cosyvoice2-eu), as the reference's install-and-run path.
+    Returns the local dir, or None when ``huggingface_hub`` or the network
+    is missing and the download was only opportunistic (a snapshot cached
+    earlier is still used offline); with ``required`` it raises instead."""
+    target = os.path.expanduser(os.environ.get("COSY2EU_CACHE", "~/.cache/cosyvoice2-eu"))
+    try:
+        from huggingface_hub import snapshot_download
+    except ImportError:
+        if required:
+            raise ImportError("load(download=True) needs huggingface_hub; pass model_dir= "
+                              "with a local checkout instead") from None
+        return None
+    try:
+        snapshot_download(repo_id=repo_id, local_dir=target, etag_timeout=10)
+        return target
+    except Exception:
+        if required:
+            raise
+        if os.path.exists(os.path.join(target, "llm.pt")) or os.path.isdir(
+                os.path.join(target, "original")):
+            return target
+        import logging
+
+        logging.getLogger(__name__).warning(
+            "snapshot_download(%s) failed and no cached copy at %s; building a "
+            "random-initialized model (pass model_dir= for real weights)", repo_id, target)
+        return None
 
 
 def load(
     *,
+    model_dir: Optional[str] = None,
+    repo_id: str = "hi-paris/CosyVoice2-0.5B-EU",
+    download: Optional[bool] = None,
     config: Optional[TTSConfig] = None,
     seed: int = 0,
     params: Optional[dict] = None,
     compute_dtype="bfloat16",
     device: str | torch.device = "cuda",
-    model_dir: Optional[str] = None,
     setting: str = "llm_flow_hifigan",
     llm_run_id: Optional[str] = None,
     flow_run_id: Optional[str] = None,
@@ -173,18 +232,25 @@ def load(
     (``llm.pt``, ``flow.pt``, ``hift.pt``, picked by ``setting``, the run
     ids and ``final`` as ``resolve_checkpoint_files`` says, and converted by
     ``runtime/checkpoint.py``); else random weights drawn from a
-    ``torch.Generator`` seeded with ``seed`` on ``device``.  With
-    ``model_dir`` the tokenizer comes from its tokenizer files (the byte
-    tokenizer, with a warning, when it has none) and its speaker store
-    (``spk2info.pt``, else ``spk2info.npz``) fills ``_frontend.spk_info``; a
-    store that does not load raises.  ONNX files in ``model_dir`` are not
-    read: wav prompts are not ported yet (ROADMAP item 5).
+    ``torch.Generator`` seeded with ``seed`` on ``device``.  With no
+    ``model_dir``, ``config`` or ``params``, the hub snapshot ``repo_id`` is
+    fetched first (``_snapshot_download``: ``download=True`` requires it,
+    ``download=False`` skips it, None tries it and goes on without).
+
+    With ``model_dir`` the tokenizer comes from its tokenizer files (the
+    byte tokenizer, with a warning, when it has none), its speaker store
+    (``spk2info.pt``, else ``spk2info.npz``) fills ``_frontend.spk_info`` (a
+    store that does not load raises), and its ``speech_tokenizer_v2.onnx``
+    and ``campplus.onnx`` become the frontend's speech tokenizer and speaker
+    embedding on ``device`` (``runtime/onnx_fallback.py``; a graph the
+    converter cannot map raises), so wav prompts work.
 
     ``config`` defaults to the published widths.  ``device`` defaults to
     "cuda" and raises when there is no GPU; pass "cpu" for the plain
     PyTorch path.  ``lm_quant="int8"`` stores the LM's projections as
     per-channel int8 (kernel K2 on the card); any value but None and "int8"
-    raises.  Batched synthesis is ``load(...)._model.tts_batch(prompts)``
+    raises.  ``backbone`` takes None or "blanken" (the default Qwen2
+    backbone).  Batched synthesis is ``load(...)._model.tts_batch(prompts)``
     over the frontend's ``PromptInputs``.
     """
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
@@ -193,9 +259,11 @@ def load(
     from cosyvoice2_eu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    if backbone is not None:
+    if backbone not in (None, "blanken"):
         raise NotImplementedError(
             "alternative backbones (the v1 family) are not ported yet: ROADMAP item 9")
+    if model_dir is None and config is None and params is None and download is not False:
+        model_dir = _snapshot_download(repo_id, required=download is True)
     cfg = config or TTSConfig()
     if params is None and model_dir is not None:
         from cosyvoice2_eu_torch.runtime.checkpoint import (
@@ -228,7 +296,16 @@ def load(
         compute_dtype = _DTYPES[compute_dtype]
     model = TTSModel(cfg, params, seed=seed, compute_dtype=compute_dtype, device=dev,
                      lm_quant=lm_quant, tp=tp)
-    frontend = Frontend(cfg, tokenizer=get_tokenizer(model_dir or ""))
+    speech_tokenizer_fn = spk_embedding_fn = None
+    if model_dir is not None:
+        from cosyvoice2_eu_torch.runtime.onnx_fallback import load_frontend_fns
+
+        speech_tokenizer_fn, spk_embedding_fn = load_frontend_fns(
+            os.path.join(model_dir, "speech_tokenizer_v2.onnx"),
+            os.path.join(model_dir, "campplus.onnx"), device=dev)
+    frontend = Frontend(cfg, tokenizer=get_tokenizer(model_dir or ""),
+                        speech_tokenizer_fn=speech_tokenizer_fn,
+                        spk_embedding_fn=spk_embedding_fn, device=dev)
     if model_dir is not None:
         # the cached-speaker store (the reference's spk2info.pt)
         for name in ("spk2info.pt", "spk2info.npz"):

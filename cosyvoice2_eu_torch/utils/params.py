@@ -46,14 +46,15 @@ def tree_leaves(tree) -> list:
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = torch.float32):
-    """Numpy (or array-like) parameter tree -> tensors on ``device``.
+    """Numpy (or array-like, or tensor) parameter tree -> tensors on ``device``.
 
     Floating leaves are cast to ``dtype`` (kept as they are when None);
     integer leaves keep their type.
     """
 
     def leaf(a):
-        t = torch.tensor(np.asarray(a))  # a copy: JAX's host views are read-only
+        # numpy leaves are copied: JAX's host views are read-only
+        t = a if torch.is_tensor(a) else torch.tensor(np.asarray(a))
         if t.is_floating_point() and dtype is not None:
             t = t.to(dtype)
         return t.to(device)

@@ -252,7 +252,7 @@ def test_reference_speaker_store_loads_like_jax(model_dir, jax_api):
     """``spk2info.pt`` in the reference's layout (speech_feat, speech_token,
     llm/flow_embedding, batch dims of 1) loads to the JAX package's artifacts;
     ``load(model_dir=...)`` reads it."""
-    fe = Frontend(PCFG)
+    fe = Frontend(PCFG, device="cpu")
     fe.load_spk_info(os.path.join(model_dir, "spk2info.pt"))
     _same_store(fe.spk_info, jax_api._frontend.spk_info)
     art = fe.get_spk("spk0")
@@ -284,7 +284,7 @@ def test_speaker_store_round_trip_matches_jax(tmp_path, fmt):
                               "speech_token": torch.from_numpy(prompt["speech_tokens"][None]),
                               "flow_embedding": torch.from_numpy(prompt["embedding"][None])}},
                    path)
-    fe, jfe = Frontend(PCFG), JaxFrontend(CFG)
+    fe, jfe = Frontend(PCFG, device="cpu"), JaxFrontend(CFG)
     fe.load_spk_info(path)
     jfe.load_spk_info(path)
     _same_store(fe.spk_info, jfe.spk_info)

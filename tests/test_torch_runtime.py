@@ -119,24 +119,53 @@ def test_cuda_device_turns_tf32_off(monkeypatch):
 
 
 @pytest.mark.parametrize("what", ["model_dir", "tp", "wav_prompt", "instruct2"])
-def test_paths_not_in_this_slice_raise(what, tmp_path):
+def test_paths_not_in_this_slice_raise(what, tmp_path, models, monkeypatch):
     """Paths of the JAX package that this slice lacks raise and name their
     ROADMAP item; they never do something else.  ``model_dir``: a model dir
     whose checkpoints are the JAX package's native directories (its
-    training output), which the port cannot read yet."""
+    training output), which the port cannot read yet.  The two cases that
+    were here before the prompt frontend was ported now hold it to the JAX
+    package: a wav prompt on a model without a speech tokenizer raises its
+    ``ValueError``, and ``mode="instruct2"`` gives JAX's audio (atol 1e-3)
+    under JAX's draws."""
     model = port.load(config=PCFG, seed=0, device="cpu", compute_dtype="float32")
+    if what == "wav_prompt":
+        with pytest.raises(ValueError, match="no speech tokenizer available"):
+            model.tts("x", np.zeros(16000, np.float32))
+        return
+    if what == "instruct2":
+        from cosyvoice2_eu_tpu import Cosy2EU as JaxCosy2EU
+        from cosyvoice2_eu_tpu.frontend.frontend import Frontend as JaxFrontend
+
+        jm, pm = models
+        japi = JaxCosy2EU(jm, JaxFrontend(CFG), CFG)
+        papi = port.Cosy2EU(pm, model._frontend, PCFG)
+        art = _inputs(dict)  # the prompt artifacts
+        prompt = {"prompt_feat": art["prompt_feat"], "speech_tokens": art["flow_prompt_speech_tokens"],
+                  "embedding": art["embedding"]}
+        jm._rng = jax.random.key(5)
+        r1, k_lm = jax.random.split(jm._rng)
+        _, k_hift = jax.random.split(r1)
+        inputs = model._frontend.frontend_instruct2("Bonjour.", "Parle lentement.", prompt)
+        _, _, _, p_bucket, _, max_len = pm._pack_lm_prompt(inputs)
+        max_gen = min(((max_len + 63) // 64) * 64, CFG.llm.max_seq_len - p_bucket)
+        real = pm.tts
+        monkeypatch.setattr(pm, "tts", lambda p, **kw: real(p, lm_draws=lm_draws_from_key(
+            k_lm, 1, max_gen, CFG.llm.top_k, CFG.llm.full_vocab),
+            hift_draws=hift_draws_from_key(k_hift), **kw))
+        kw = dict(mode="instruct2", instruct_text="Parle lentement.")
+        want, _ = japi.tts("Bonjour.", prompt, **kw)
+        got, _ = papi.tts("Bonjour.", prompt, **kw)
+        assert got.shape == want.shape == (1, pm.last_n_tokens * 960)
+        np.testing.assert_allclose(got, want, atol=1e-3)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
         if what == "model_dir":
             for key in ("llm", "flow", "hift"):
                 (tmp_path / key).mkdir()
             port.load(config=PCFG, device="cpu", model_dir=str(tmp_path))
-        elif what == "tp":
-            port.load(config=PCFG, device="cpu", tp=2)
-        elif what == "wav_prompt":
-            model.tts("x", np.zeros(16000, np.float32))
         else:
-            model.tts("x", {"prompt_feat": 0, "speech_tokens": 0, "embedding": 0},
-                      mode="instruct2")
+            port.load(config=PCFG, device="cpu", tp=2)
 
 
 def test_fade_in_out_matches_jax():
