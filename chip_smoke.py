@@ -91,6 +91,23 @@ Phases (any failure ends the run with a non-zero exit code):
      instruct2 ``stream`` that must hit the prompt cache, each with tokens,
      RTF, the stage split and the frontend's share, time to first audio,
      peak memory and K1 560 times a flow call;
+  5e. the serving engine (counts set to 0 before the phase, read after):
+     on a small config, ``slots_decode`` over 4 slots and the batched
+     steady chunk ``_stream_chunk_batch`` over two sessions at different
+     cursors on the card against the CPU; at the published widths
+     ``TTSEngine(n_slots=4, chunk_steps=25, max_cache=1024, max_gen=640)``
+     takes 5 bf16 requests at once (one waits staged for a slot), then
+     ``serve_stdlib`` over ``EngineAPI`` on 127.0.0.1 answers a zero-shot
+     POST of the 3 s wav, then a fresh int8 model's engine takes 2 requests
+     on 4 slots (every batched group padded): per request time to first
+     audio, steady chunk median, wall and tokens, per run aggregate RTF,
+     ms per 4-row decode step, stage totals, batched rounds and peak
+     memory; gates: tokens x 960 samples of finite, non-silent audio, a
+     batched first and a batched steady round in each run, PCM of whole
+     tokens, K1 560 times a flow call (the batched first emissions on 4
+     rows), K2 168 times a ``prefill_row`` and 169 a decode step at M = 4;
+     then one ``tts_batch`` of 6 short prompts (HiFT on one sub-batch of 6
+     rows): tokens x 960 samples, K1 560 times; K1 checked at every shape;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -113,9 +130,9 @@ Phases (any failure ends the run with a non-zero exit code):
 The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
-bf16 on the TTS, int8, stream, checkpoint, long, vc and frontend paths, fp32 on the
-training path), K2's over the shapes of the int8 path and the int8
-stream (each under ``by_shape``,
+bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine and
+tts_batch6 paths, fp32 on the training path), K2's over the shapes of the
+int8 path, the int8 stream and the int8 engine (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
 and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
@@ -2127,6 +2144,381 @@ def check_small_session() -> None:
         rt.FLOW_TOKEN_BUCKETS = saved
 
 
+def _fed_state(tm, n_chunks: int, rng):
+    """A flow state of ``tm`` fed ``n_chunks`` hops of seeded random tokens
+    (its cursor at n_chunks x 25 tokens)."""
+    import numpy as np
+
+    cfg = tm.cfg
+    hop, la = tm.token_hop_len, tm.pre_lookahead_len
+    st = tm._init_stream_state()
+    tokens = rng.integers(0, cfg.flow.vocab_size, n_chunks * hop + la).astype(np.int32)
+    xvec = rng.standard_normal(cfg.flow.spk_embed_dim).astype(np.float32)
+    cond = np.zeros((2 * hop, cfg.flow.output_size), np.float32)
+    for c in range(n_chunks):
+        o = c * hop
+        _, st = tm._flow_feed(st, tokens[o:o + hop], tokens[o + hop:o + hop + la], cond, xvec)
+    return st
+
+
+@_uncounted
+def check_small_engine() -> None:
+    """The engine's batched steps on the card against the plain CPU path,
+    small config, fp32, the same weights and draws: ``slots_decode`` on 4
+    slots (two prompts in slots 0 and 2, slot 1 empty, slot 3 ending at a
+    ``max_len`` of 10), two calls of 16 steps, must give equal tokens,
+    lengths and ``finished`` after each; ``_stream_chunk_batch`` over two
+    sessions at cursors 50 and 75, padded to 4 rows with the empty state,
+    audio and the rotated caches within 1e-3, cursors equal."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.frontend.frontend import Frontend
+    from cosyvoice2_eu_torch.models import llm as llm_mod
+    from cosyvoice2_eu_torch.ops.sampling import gumbel
+    from cosyvoice2_eu_torch.runtime.model import TTSModel
+
+    cfg, params, hift_draws = _small_stream_setup()
+    g = torch.Generator(device="cpu")
+    g.manual_seed(6)
+    noise = [(gumbel((4, cfg.llm.top_k), g), gumbel((4, cfg.llm.full_vocab), g))
+             for _ in range(32)]
+    fe = Frontend(cfg)
+    prompts = [fe.frontend_zero_shot(text, _prompt(cfg, 0.24, seed))
+               for seed, text in ((4, "Bonjour tout le monde."), (5, "Guten Tag."))]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tm = TTSModel(cfg, params, seed=0, compute_dtype=None, device=dev, stream_max_tokens=128)
+        llm = tm.params["llm"]
+        st = llm_mod.slots_init(cfg.llm, 4, 256, 128, dtype=torch.float32, device=tm.device)
+        for slot, p, cap in ((0, prompts[0], None), (2, prompts[1], None), (3, prompts[1], 10)):
+            ids, src, prompt_len, _, min_len, max_len = tm._pack_lm_prompt(p)
+            st = llm_mod.slot_prefill(llm, cfg.llm, st, slot, tm._tensor(ids), tm._tensor(src),
+                                      prompt_len, min_len, cap or max_len)
+        decoded = []
+        for _ in range(2):
+            st = llm_mod.slots_decode(llm, cfg.llm, st, 16,
+                                      lambda s: tuple(x.to(tm.device) for x in noise[s]))
+            decoded.append([x.cpu().numpy() for x in (st.tokens, st.lengths, st.finished)])
+        rng = np.random.default_rng(7)
+        states = [_fed_state(tm, n, rng) for n in (2, 3)] + [tm._init_stream_state()] * 2
+        mc, sc, hop, la = tm.mel_cache_len, tm.source_cache_len, tm.token_hop_len, \
+            tm.pre_lookahead_len
+        tok = rng.integers(0, cfg.flow.vocab_size, (4, hop)).astype(np.int32)
+        ctx = rng.integers(0, cfg.flow.vocab_size, (4, la)).astype(np.int32)
+        emb = rng.standard_normal((4, cfg.flow.spk_embed_dim)).astype(np.float32)
+        cond = np.zeros((4, 2 * hop, cfg.flow.output_size), np.float32)
+        c_mel = rng.standard_normal((4, cfg.flow.output_size, mc)).astype(np.float32)
+        c_src = (0.1 * rng.standard_normal((4, 1, sc))).astype(np.float32)
+        c_sp = (0.1 * rng.standard_normal((4, sc))).astype(np.float32)
+        tok[2:], ctx[2:], emb[2:] = tok[0], ctx[0], emb[0]
+        c_mel[2:], c_src[2:], c_sp[2:] = 0.0, 0.0, 0.0
+        new, audio, mel2, src2, sp2 = tm._stream_chunk_batch(
+            hop, states, tok, ctx, emb, cond, tm._tensor(c_mel, torch.float32),
+            tm._tensor(c_src, torch.float32), c_sp, hift_draws=hift_draws(tm.device))
+        out[dev] = (decoded, [s.t_tok for s in new], audio,
+                    [mel2.cpu().numpy(), src2.cpu().numpy(), sp2])
+    (d_cpu, t_cpu, a_cpu, c_cpu), (d_gpu, t_gpu, a_gpu, c_gpu) = out["cpu"], out["cuda"]
+    same_tokens = all(np.array_equal(x, y) for call_c, call_g in zip(d_cpu, d_gpu)
+                      for x, y in zip(call_c, call_g))
+    lengths, finished = d_gpu[-1][1], d_gpu[-1][2]
+    err = max(float(np.abs(x - y).max()) for x, y in zip(a_gpu + c_gpu, a_cpu + c_cpu))
+    ok = (same_tokens and t_gpu == t_cpu == [75, 100, 25, 25] and err <= 1e-3
+          and lengths[1] == 0 and lengths[3] == 10 and bool(finished[3])
+          and all(np.isfinite(a).all() for a in a_gpu))
+    print(f"engine reference check (small config, fp32, card vs CPU plain path): slots_decode "
+          f"on 4 slots over 2 x 16 steps, tokens/lengths/finished equal {same_tokens} (lengths "
+          f"{lengths.tolist()}, finished {finished.tolist()}); _stream_chunk_batch at cursors "
+          f"50 and 75 padded to 4 rows: cursors after {t_gpu} vs {t_cpu}, audio and caches "
+          f"max_abs_err={err:.3e} (tol 1e-3) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's slot decode or batched steady chunk disagrees with the "
+                         "plain CPU path")
+
+
+def _first_batch_shapes(engine, shapes: list) -> None:
+    """Note in ``shapes`` the K1 shape of each of ``engine``'s batched first
+    emissions (one streaming flow recompute on n_slots rows, pad rows
+    repeating row 0, the CFG halves doubling them)."""
+    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, bucket_for
+
+    inner = engine._first_batch
+    cfg = engine.cfg
+    la, ratio = cfg.flow.pre_lookahead_len, cfg.token_mel_ratio
+
+    def recorded(group, tokens, lengths):
+        totals = [req.session.P + req.session.this_hop + la for _, req in group]
+        totals += [totals[0]] * (engine.n_slots - len(totals))
+        shapes.append(((bucket_for(max(totals), FLOW_TOKEN_BUCKETS) - la) * ratio,
+                       [(n - la) * ratio for n in totals] * 2,
+                       cfg.flow.estimator.static_chunk_size))
+        return inner(group, tokens, lengths)
+
+    engine._first_batch = recorded
+
+
+def _engine_requests(engine, prompts: list, card: str, what: str) -> dict:
+    """Every prompt submitted to ``engine`` at once, each request read by a
+    thread of its own that notes when each chunk arrives.  Gates: every
+    request gives finite, non-silent float32 audio of exactly its tokens x
+    960 samples, within 600 s.  Prints each request's time to first audio,
+    steady chunk median (the gaps between chunks after the first, before
+    the last), wall time and tokens, and the run's aggregate RTF, decode ms
+    per ``slots_decode`` step, stage totals, batched rounds and peak memory.
+    Returns the run's numbers."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    tm = engine.model
+    n = len(prompts)
+    arrivals, chunks, errors = [[] for _ in prompts], [[] for _ in prompts], [None] * n
+    step0 = engine.state.step
+    tm.timer.reset()
+    _reset_peak()
+    t0 = time.perf_counter()
+    handles = [engine.submit(p) for p in prompts]
+
+    def read(i):
+        try:
+            for c in handles[i]:
+                arrivals[i].append(time.perf_counter())
+                chunks[i].append(c)
+        except RuntimeError as e:
+            errors[i] = e
+
+    readers = [threading.Thread(target=read, args=(i,), daemon=True) for i in range(n)]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join(600)
+    wall = time.perf_counter() - t0
+    if any(r.is_alive() for r in readers) or any(errors):
+        raise SystemExit(f"{what}: a request failed or did not end within 600 s: {errors}")
+    peak = torch.cuda.max_memory_allocated()
+    steps = engine.state.step - step0
+    stages = tm.timer.summary()
+    counts = tm.timer.counts
+    sr = tm.cfg.sample_rate
+    ok, samples = True, 0
+    for i, (h, cs, times) in enumerate(zip(handles, chunks, arrivals)):
+        n_tok = h._req.harvested
+        audio = np.concatenate(cs)
+        samples += audio.size
+        good = (audio.dtype == np.float32 and audio.size == n_tok * 960
+                and np.isfinite(audio).all() and float(np.abs(audio).max()) > 1e-3)
+        ok = ok and good
+        gaps = sorted(b - a for a, b in zip(times[:-2], times[1:-1]))  # chunks 1 .. m-2
+        steady = f"{gaps[len(gaps) // 2] * 1e3:.1f} ms" if gaps else "n/a"
+        print(f"{what} request {i}: {n_tok} tokens, {audio.size / sr:.2f} s audio in {len(cs)} "
+              f"chunks, time to first audio {(times[0] - t0) * 1e3:.1f} ms, steady chunk median "
+              f"{steady}, wall {(times[-1] - t0):.2f} s [{card}] {'ok' if good else 'FAIL'}")
+    audio_s = samples / sr
+    rounds = {k: counts.get(k, 0) for k in ("eng_first_batch", "eng_steady_batch")}
+    decode_s = stages["eng_decode"]["total_s"]
+    print(f"{what}: {n} requests on {engine.n_slots} slots, {audio_s:.2f} s audio in {wall:.2f} s "
+          f"wall, aggregate RTF {wall / audio_s:.3f}; {steps} slots_decode steps at "
+          f"{engine.n_slots} rows, {decode_s * 1e3 / max(steps, 1):.2f} ms a step; batched "
+          f"rounds {rounds}; stage totals ms: " + ", ".join(
+              f"{k} {stages[k]['total_s'] * 1e3:.1f}/{stages[k]['count']}"
+              for k in ("eng_prefill", "eng_decode", "eng_first_batch", "eng_steady_batch",
+                        "eng_feed") if k in stages)
+          + f"; peak memory {peak / 2**30:.2f} GiB [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok or not all(rounds.values()):
+        raise SystemExit(f"{what}: a request failed its checks, or no batched first or steady "
+                         "round ran")
+    return {"steps": steps, "prefills": counts.get("eng_prefill", 0), "audio_s": audio_s,
+            "wall": wall, "rounds": rounds}
+
+
+def engine_path(card: str) -> tuple[list, int, list, int]:
+    """The continuous-batching engine at the published widths, the weights
+    of ``load(seed=0)`` and the 3 s prompt: ``TTSEngine(n_slots=4,
+    chunk_steps=25, max_cache=1024, max_gen=640)`` on the bf16 LM takes 5
+    requests at once (160 to 280 tokens: one waits staged for a slot);
+    then ``serve_stdlib`` over ``EngineAPI`` on 127.0.0.1 answers a
+    zero-shot POST of the 3 s wav (the frontend models of the frontend
+    phase, seeded), which must be non-empty, non-silent int16 PCM of whole
+    tokens (1920 bytes a token); then a fresh int8 model's engine takes 2
+    requests on 4 slots, so every batched group is padded.  Gates, with the
+    counts set to 0 before the phase and read after: K1 560 times a flow
+    call (the batched first emissions on 4 rows and each request's own
+    recomputes, all of its bf16 design), K2 168 times a ``prefill_row`` and
+    169 times a decode step (at M = 4, on its designs), no K3 or K4.
+    Returns K1's shapes and launches and K2's (batch, prompt bucket, steps)
+    and launches."""
+    import base64
+    import http.client
+    import threading
+
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.frontend import frontend as fe_mod
+    from cosyvoice2_eu_torch.models import campplus as cam
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+    from cosyvoice2_eu_torch.serving.engine import EngineAPI, TTSEngine
+    from cosyvoice2_eu_torch.serving.http_server import serve_stdlib
+
+    cfg = TTSConfig()
+    n_layers = cfg.llm.backbone.num_layers
+    per_prefill, per_step = 7 * n_layers, 7 * n_layers + 1
+    prompt = _prompt(cfg, 3.0)
+    texts = ("Bonjour!", "Hallo Welt", "Guten Tag!", "Bonjour, Paris", "Salut a tous")
+    _reset_counts()
+    K2_LAUNCHED.clear()
+    calls, shapes = [], []  # the requests' own flow calls; the batched first emissions' K1
+    model = cosy.load(config=cfg, seed=0, device="cuda")
+    tm = model._model
+    _record_flow_calls(tm, calls)
+    engine = TTSEngine(tm, n_slots=4, chunk_steps=25, max_cache=1024, max_gen=640)
+    _first_batch_shapes(engine, shapes)
+    try:
+        inputs = [model._frontend.frontend_zero_shot(t, prompt) for t in texts]
+        run = _engine_requests(engine, inputs, card, "engine bf16")
+    finally:
+        engine.close()
+
+    # HTTP: a wav prompt through the frontend models, the engine behind the server
+    st_cfg, cam_cfg = st.SpeechTokenizerConfig(), cam.CAMPPlusConfig()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    fe = fe_mod.Frontend(cfg, tokenizer=model._frontend.tokenizer,
+                         speech_tokenizer_fn=fe_mod.make_speech_tokenizer_fn(
+                             st.init_speech_tokenizer(gen, st_cfg), st_cfg, device="cuda"),
+                         spk_embedding_fn=fe_mod.make_spk_embedding_fn(
+                             _perturbed_norms(cam.init_campplus(gen, cam_cfg), gen), cam_cfg,
+                             device="cuda"), device="cuda")
+    api = EngineAPI(cosy.Cosy2EU(tm, fe, cfg), n_slots=4, chunk_steps=25, max_cache=1024,
+                    max_gen=640)
+    _first_batch_shapes(api.engine, shapes)
+    server = serve_stdlib(api, host="127.0.0.1", port=0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        with tempfile.TemporaryDirectory(prefix="cosy_http_") as d:
+            with open(write_prompt_wavs(d)["3s"][0], "rb") as f:
+                wav_b64 = base64.b64encode(f.read()).decode()
+        conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/inference_zero_shot", json.dumps(
+            {"tts_text": "Bonjour!", "prompt_text": "Bonjour, je m'appelle Claire.",
+             "prompt_wav_b64": wav_b64}))
+        resp = conn.getresponse()
+        first = resp.read(2)
+        t_first = time.perf_counter() - t0
+        body = first + resp.read()
+        wall = time.perf_counter() - t0
+        conn.close()
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(60)
+        api.close()
+    pcm = np.frombuffer(body, np.int16).astype(np.int32)
+    ok = (resp.status == 200 and len(body) > 0 and len(body) % 1920 == 0
+          and int(np.abs(pcm).max(initial=0)) > 32)
+    print(f"HTTP: serve_stdlib over EngineAPI on 127.0.0.1, one zero-shot POST of the 3 s wav: "
+          f"status {resp.status}, {len(body)} bytes = {len(body) / 1920:.1f} tokens of int16 PCM "
+          f"({len(pcm) / cfg.sample_rate:.2f} s), peak |x| {int(np.abs(pcm).max(initial=0))}, "
+          f"first bytes after {t_first * 1e3:.1f} ms, wall {wall:.2f} s [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the HTTP round trip through the engine failed its checks")
+    del model, tm, api, fe, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # int8: 2 requests on 4 slots, every group padded
+    model = cosy.load(config=cfg, seed=0, device="cuda", lm_quant="int8")
+    tm = model._model
+    _record_flow_calls(tm, calls)
+    engine = TTSEngine(tm, n_slots=4, chunk_steps=25, max_cache=1024, max_gen=640)
+    _first_batch_shapes(engine, shapes)
+    k2_before = _counters()[3].launches
+    try:
+        inputs = [model._frontend.frontend_zero_shot(t, prompt) for t in texts[1:3]]
+        run8 = _engine_requests(engine, inputs, card, "engine int8")
+    finally:
+        engine.close()
+    k2 = _counters()[3].launches - k2_before
+    want_k2 = per_prefill * run8["prefills"] + per_step * run8["steps"]
+    # K2's shapes: each prefill_row at M = its prompt bucket, each step at M = 4
+    p_buckets = [tm._pack_lm_prompt(p)[3] for p in inputs]
+    decodes = [(1, pb, 0) for pb in p_buckets] + [(engine.n_slots, 0, run8["steps"])]
+    designs = _k2_designs(set(p_buckets), _counters()[3].launches)
+    print(f"engine int8: K2 launches {k2} (expected {per_prefill} x {run8['prefills']} "
+          f"prefill_row + {per_step} x {run8['steps']} steps = {want_k2}; by M, as recorded at "
+          f"each launch: {designs}) [{card}]")
+    if k2 != want_k2:
+        raise SystemExit("engine int8: K2 launches do not match its prefills and decode steps")
+    del model, tm, engine
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    launches = [f.launches for f in _counters()]
+    flows = len(calls) + len(shapes)  # each request's own recomputes, the batched ones
+    want = _k1_per_flow(cfg) * flows
+    print(f"engine phase: K1/K3/K4/K2 launches {launches} (K1 expected {want} = 560 x {flows} "
+          f"flow calls, {len(shapes)} of them batched first emissions on 4 rows; "
+          f"{_k1_design()}) [{card}]")
+    if launches[0] != want or any(launches[1:3]):
+        raise SystemExit("engine phase: K1 launches do not match its flow calls, or a backward "
+                         "kernel ran")
+    shapes += [_k1_shape(cfg, *c[:3]) for c in calls]
+    return shapes, launches[0], decodes, launches[3]
+
+
+def batch6_path(card: str) -> tuple[list, int]:
+    """One ``tts_batch`` of 6 short zero-shot prompts (their own speakers)
+    at the published widths: one LM decode and one flow call at B=6, and
+    HiFT on one sub-batch of 6 rows, past the 4 rows earlier runs gave it.
+    Gates: tokens x 960 samples per row, finite, non-silent; K1 560 times
+    the flow call.  Returns the flow call's K1 shape and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, HIFT_MEL_BUCKETS, bucket_for
+
+    cfg = TTSConfig()
+    model = cosy.load(config=cfg, seed=0, device="cuda")
+    tm = model._model
+    texts = ("Oui.", "Non.", "Merci!", "Danke.", "Hallo!", "Salut!")
+    prompts = [model._frontend.frontend_zero_shot(t, _prompt(cfg, 3.0, seed))
+               for seed, t in enumerate(texts)]
+    _reset_counts()
+    tm.timer.reset()
+    _reset_peak()
+    t0 = time.perf_counter()
+    wavs = tm.tts_batch(prompts)
+    wall = time.perf_counter() - t0
+    n_toks = tm.last_batch_tokens
+    totals = [len(p.flow_prompt_speech_tokens) + n for p, n in zip(prompts, n_toks)]
+    h_bucket = bucket_for(max(n_toks) * cfg.token_mel_ratio, HIFT_MEL_BUCKETS)
+    sub = max(1, min(len(prompts), int(4 * 2048 / h_bucket)))
+    hift = tm.timer.summary()["hift"]
+    ok = (all(w.size == n * 960 and np.isfinite(w).all() and float(np.abs(w).max()) > 1e-3
+              for w, n in zip(wavs, n_toks)) and sub > 4 and hift["count"] == 1)
+    print(f"tts_batch of 6: tokens {n_toks}, samples {[w.size for w in wavs]}, HiFT bucket "
+          f"{h_bucket} in {hift['count']} call of {sub} rows ({hift['total_s'] * 1e3:.1f} ms), "
+          f"wall {wall:.2f} s, RTF {wall / (sum(w.size for w in wavs) / cfg.sample_rate):.3f}, "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("tts_batch of 6 failed its checks")
+    launches = _path_launches("tts_batch of 6", card, 1)
+    t_mel = bucket_for(max(totals), FLOW_TOKEN_BUCKETS) * cfg.token_mel_ratio
+    del model, tm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [(t_mel, [n * cfg.token_mel_ratio for n in totals] * 2, 0)], launches
+
+
 def _flow_batch(flow_cfg, feat_lens, seed: int, device) -> dict:
     """A flow batch in the dataset's dict form (tokens = frames / ratio),
     from a seed."""
@@ -2474,12 +2866,13 @@ def _time_k2(m: int, n: int, k: int, gen) -> dict:
 
 @_uncounted
 def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
-    """K2 at every (M, N, K) the int8 path and the int8 stream ran, weighted
-    by its launches there.
+    """K2 at every (M, N, K) the int8 path, the int8 stream and the int8
+    engine ran, weighted by its launches there.
 
     ``decodes`` holds each LM decode's (batch, prompt bucket, steps): the
     prefill runs the 7 projections of each layer at M = batch x bucket, each
-    decode step runs them and the speech head at M = batch.  Returns the
+    decode step runs them and the speech head at M = batch (the engine's
+    ``prefill_row`` is (1, bucket, 0) and its slot decode (4, 0, steps)).  Returns the
     kernels line's mean per launch, with each shape's times under by_shape
     and each design's means per launch under by_design."""
     import torch
@@ -2491,7 +2884,8 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
     counts: dict = {}
 
     def add(shape, c):
-        counts[shape] = counts.get(shape, 0) + c
+        if c and shape[0]:  # a prefill alone (steps 0) or a decode alone (bucket 0)
+            counts[shape] = counts.get(shape, 0) + c
 
     for b, p_bucket, steps in decodes:
         for n, k, per_layer in _k2_shapes(cfg):
@@ -2664,6 +3058,7 @@ def main() -> None:
     check_small_train_reference()
     check_small_stream()
     check_small_session()
+    check_small_engine()
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
@@ -2682,6 +3077,10 @@ def main() -> None:
     # frontend: each path read on its own
     new_paths = {"checkpoint": checkpoint_path(card), "long": long_path(card),
                  "vc": vc_path(card, stream_tokens), "frontend": frontend_path(card)}
+    # the serving engine (with the HTTP round trip), then tts_batch past 4 HiFT rows
+    engine_shapes, engine_launches, engine_decodes, engine_k2 = engine_path(card)
+    new_paths["engine"] = (engine_shapes, engine_launches)
+    new_paths["tts_batch6"] = batch6_path(card)
     for name, (shapes_, _) in new_paths.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
         worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
@@ -2698,9 +3097,10 @@ def main() -> None:
     k1_stream, _ = time_flash_attention(stream_shapes, stream_launches, card)
     k1_new = {name: time_flash_attention(shapes_, launches_, card)[0]
               for name, (shapes_, launches_) in new_paths.items()}
-    # K2 at the int8 path's shapes and the int8 stream's (its prefill at M = 64)
-    k2_times = time_int8_matmul(decodes + [int8_stream_decode],
-                                int8_launches[3] + int8_stream_k2, card)
+    # K2 at the int8 path's shapes, the int8 stream's (its prefill at M = 64) and
+    # the int8 engine's (each prefill_row at M = its bucket, each step at M = 4)
+    k2_times = time_int8_matmul(decodes + [int8_stream_decode] + engine_decodes,
+                                int8_launches[3] + int8_stream_k2 + engine_k2, card)
     k2 = _kernel_row("int8_matmul", i8.DECODE_SOURCE, "int8_matmul.py:31", k2_times,
                      bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
                      by_design=k2_times["by_design"])

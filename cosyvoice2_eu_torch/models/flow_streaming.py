@@ -16,9 +16,17 @@ Cache inventory of a session (``FlowStreamState``):
     tails of its 31 causal convolutions.
 
 The JAX functions return a new state; these update the state's tensors in
-place and return it (a snapshot is a ``clone()``).  Attention here is the
-JAX package's plain einsum and softmax (fp32 scores plus the ``NEG_INF``
-mask, probabilities cast back to the input dtype): no kernel.
+place and return it (a snapshot is a ``clone()``).
+
+A state's cursor (``t_tok``, ``t_mel``) is a Python int, or a (B,) tensor
+for a state that ``stack_states`` made of several sessions: each row then
+writes its K/V, builds its mask and relative positions and takes its slice
+of the fixed noise at its own cursor (the JAX package ``vmap``s
+``flow_chunk`` over such rows, ``runtime/model.py::_stream_chunk_fused_batch_fn``).
+
+Attention here is the JAX package's plain einsum and softmax (fp32 scores
+plus the ``NEG_INF`` mask, probabilities cast back to the input dtype): no
+kernel.
 """
 
 from __future__ import annotations
@@ -52,6 +60,16 @@ def causal_conv_cached(p, x_new, tail, dilation: int = 1):
     return y, (full[:, :, full.shape[2] - ctx:] if ctx else tail)
 
 
+def _at(t0, n: int):
+    """Where ``n`` new positions from cursor ``t0`` go in a (B, T, ...)
+    cache: a slice at an int cursor, per-row (rows, positions) indices at a
+    (B,) tensor cursor."""
+    if isinstance(t0, int):
+        return slice(None), slice(t0, t0 + n)
+    return (torch.arange(t0.shape[0], device=t0.device)[:, None],
+            t0[:, None] + torch.arange(n, device=t0.device))
+
+
 def _softmax_attend(scores, mask, v):
     """fp32 scores plus the NEG_INF mask (B, n, T) -> probabilities in v's dtype, times v."""
     scores = scores.float() + torch.where(mask, 0.0, NEG_INF)[:, None]
@@ -73,32 +91,37 @@ def attn_cached(q, k_new, v_new, k_cache, v_cache, t0: int, mask_new, scale: flo
     return _softmax_attend(scores, mask_new, v_cache.to(q.dtype)), k_cache, v_cache
 
 
-def _chunk_mask(t0: int, n: int, t_max: int, chunk: int, device=None) -> torch.Tensor:
+def _chunk_mask(t0, n: int, t_max: int, chunk: int, device=None) -> torch.Tensor:
     """(n, t_max) visibility of key j to query t0+i: j // chunk <= (t0+i) //
-    chunk (chunked causality) and j < t0 + n (nothing beyond what exists)."""
-    q_abs = t0 + torch.arange(n, device=device)[:, None]
+    chunk (chunked causality) and j < t0 + n (nothing beyond what exists).
+    A (B,) tensor ``t0`` gives each row's mask, (B, n, t_max)."""
+    start = t0 if isinstance(t0, int) else t0[:, None, None]
+    q_abs = start + torch.arange(n, device=device)[:, None]
     j = torch.arange(t_max, device=device)[None, :]
-    return ((j // chunk) <= (q_abs // chunk)) & (j < t0 + n)
+    return ((j // chunk) <= (q_abs // chunk)) & (j < start + n)
 
 
-def _rel_bd_cached(q_v, p_table, t0: int, t_max: int):
+def _rel_bd_cached(q_v, p_table, t0, t_max: int):
     """bd[i, j] = q_v[i] . P[(L-1) - (t0+i - j)]: a full-offset product, then
     a gather on clipped indices (the exact rel_shift of the recompute).
 
-    q_v: (B, H, n, dk); p_table: (2L-1, H, dk).  Returns (B, H, n, t_max)."""
+    q_v: (B, H, n, dk); p_table: (2L-1, H, dk); t0 an int or a (B,) tensor.
+    Returns (B, H, n, t_max)."""
     b, h, n, _ = q_v.shape
     L = t_max
     bd_all = torch.einsum("bhnd,mhd->bhnm", q_v, p_table)  # (B, H, n, 2L-1)
-    abs_i = t0 + torch.arange(n, device=q_v.device)[:, None]
+    start = t0 if isinstance(t0, int) else t0[:, None, None]
+    abs_i = start + torch.arange(n, device=q_v.device)[:, None]
     j = torch.arange(t_max, device=q_v.device)[None, :]
     idx = ((L - 1) - (abs_i - j)).clamp(0, 2 * L - 2)
-    return torch.gather(bd_all, -1, idx[None, None].expand(b, h, n, t_max))
+    return torch.gather(bd_all, -1, idx.reshape(-1, 1, n, t_max).expand(b, h, n, t_max))
 
 
-def conformer_layer_cached(lp, heads: int, x_new, p_table, cache_k, cache_v, t0: int, mask,
+def conformer_layer_cached(lp, heads: int, x_new, p_table, cache_k, cache_v, t0, mask,
                            eps: float = 1e-12):
-    """One rel-pos conformer block over n new frames at ``t0``; writes their
-    K/V into ``cache_k``/``cache_v`` (B, H, T_max, dk) in place.
+    """One rel-pos conformer block over n new frames at ``t0`` (an int or a
+    (B,) tensor); writes their K/V into ``cache_k``/``cache_v`` (B, H,
+    T_max, dk) in place.
     Returns (x (B, n, D), cache_k, cache_v)."""
     b, n, dim = x_new.shape
     dk = dim // heads
@@ -110,8 +133,9 @@ def conformer_layer_cached(lp, heads: int, x_new, p_table, cache_k, cache_v, t0:
     q_u = (q + sa["pos_bias_u"].to(x_new.dtype)).transpose(1, 2)
     q_v = (q + sa["pos_bias_v"].to(x_new.dtype)).transpose(1, 2)
 
-    cache_k[:, :, t0:t0 + n] = k.to(cache_k.dtype)
-    cache_v[:, :, t0:t0 + n] = v.to(cache_v.dtype)
+    at = _at(t0, n)
+    cache_k.transpose(1, 2)[at] = k.transpose(1, 2).to(cache_k.dtype)
+    cache_v.transpose(1, 2)[at] = v.transpose(1, 2).to(cache_v.dtype)
     ac = q_u @ cache_k.to(q_u.dtype).transpose(-1, -2)
     bd = _rel_bd_cached(q_v, p_table, t0, cache_k.shape[2])
     att = _softmax_attend((ac + bd) / math.sqrt(dk), mask, cache_v.to(x_new.dtype))
@@ -138,8 +162,8 @@ class FlowStreamState:
     # bias-free, so the history equals caching K/V, at a quarter of the bytes)
     est_h: torch.Tensor
     conv_tails: dict  # site -> (steps, 2B, C, k-1); mid sites (mid, steps, 2B, C, k-1)
-    t_tok: int = 0  # tokens cached so far
-    t_mel: int = 0
+    t_tok: int | torch.Tensor = 0  # tokens cached so far ((B,) for a stacked state)
+    t_mel: int | torch.Tensor = 0
 
     def tensors(self) -> list:
         return [self.pre_k, self.pre_v, self.lookahead_tail, self.up_conv_tail, self.up_k,
@@ -194,6 +218,55 @@ def init_flow_stream_state(cfg: FlowConfig, t_tok_max: int, dtype=torch.bfloat16
     )
 
 
+def _cfg_dim(site: str) -> int:
+    """The CFG double-batch dimension of a conv-tail site."""
+    return 2 if site.startswith("mid_") else 1
+
+
+def stack_states(states: list) -> FlowStreamState:
+    """One state over several single-session states, row i from
+    ``states[i]``, its cursors a (B,) tensor.  The estimator's caches hold
+    the B cond rows, then the B uncond rows, as a batched chunk runs them
+    (each session's own cache holds its cond row, then its uncond row)."""
+    def rows(get, dim):
+        return torch.cat([get(s) for s in states], dim=dim)
+
+    def cfg_rows(get, dim):
+        return torch.cat([get(s).narrow(dim, half, 1) for half in (0, 1) for s in states],
+                         dim=dim)
+
+    dev = states[0].pre_k.device
+    return FlowStreamState(
+        pre_k=rows(lambda s: s.pre_k, 1), pre_v=rows(lambda s: s.pre_v, 1),
+        lookahead_tail=rows(lambda s: s.lookahead_tail, 0),
+        up_conv_tail=rows(lambda s: s.up_conv_tail, 0),
+        up_k=rows(lambda s: s.up_k, 1), up_v=rows(lambda s: s.up_v, 1),
+        est_h=cfg_rows(lambda s: s.est_h, 2),
+        conv_tails={k: cfg_rows(lambda s, k=k: s.conv_tails[k], _cfg_dim(k))
+                    for k in states[0].conv_tails},
+        t_tok=torch.tensor([s.t_tok for s in states], device=dev),
+        t_mel=torch.tensor([s.t_mel for s in states], device=dev))
+
+
+def unstack_states(state: FlowStreamState) -> list:
+    """The single-session states of a ``stack_states`` state, each a copy
+    with int cursors."""
+    n = state.pre_k.shape[1]
+
+    def cfg_row(x, dim, i):
+        return torch.cat([x.narrow(dim, i, 1), x.narrow(dim, n + i, 1)], dim=dim)
+
+    return [FlowStreamState(
+        pre_k=state.pre_k[:, i:i + 1].clone(), pre_v=state.pre_v[:, i:i + 1].clone(),
+        lookahead_tail=state.lookahead_tail[i:i + 1].clone(),
+        up_conv_tail=state.up_conv_tail[i:i + 1].clone(),
+        up_k=state.up_k[:, i:i + 1].clone(), up_v=state.up_v[:, i:i + 1].clone(),
+        est_h=cfg_row(state.est_h, 2, i),
+        conv_tails={k: cfg_row(v, _cfg_dim(k), i) for k, v in state.conv_tails.items()},
+        t_tok=t_tok, t_mel=t_mel)
+        for i, (t_tok, t_mel) in enumerate(zip(state.t_tok.tolist(), state.t_mel.tolist()))]
+
+
 def _encoder_chunk(params, cfg: FlowConfig, state: FlowStreamState, h_tok_new, context):
     """n new tokens (+ the 3-token lookahead context) through the cached
     conformer.  Returns (mel-rate features (B, 2n, D), state)."""
@@ -216,7 +289,7 @@ def _encoder_chunk(params, cfg: FlowConfig, state: FlowStreamState, h_tok_new, c
     h2, state.lookahead_tail = causal_conv_cached(pl["conv2"], h, state.lookahead_tail)
     x = h2.transpose(1, 2) + x
 
-    mask_tok = _chunk_mask(t0, n, t_tok_max, enc.static_chunk_size, dev)[None]
+    mask_tok = _chunk_mask(t0, n, t_tok_max, enc.static_chunk_size, dev).reshape(-1, n, t_tok_max)
     for i, lp in enumerate(ep["encoders"]):
         x, _, _ = conformer_layer_cached(lp, enc.attention_heads, x, params["_ptab_pre"][i],
                                          state.pre_k[i], state.pre_v[i], t0, mask_tok)
@@ -229,7 +302,8 @@ def _encoder_chunk(params, cfg: FlowConfig, state: FlowStreamState, h_tok_new, c
 
     m0, nm = t0 * stride, n * stride
     xu = _embed(ep["up_embed"], xu, d)
-    mask_mel = _chunk_mask(m0, nm, t_mel_max, enc.static_chunk_size * stride, dev)[None]
+    mask_mel = _chunk_mask(m0, nm, t_mel_max, enc.static_chunk_size * stride,
+                           dev).reshape(-1, nm, t_mel_max)
     for i, lp in enumerate(ep["up_encoders"]):
         xu, _, _ = conformer_layer_cached(lp, enc.attention_heads, xu, params["_ptab_up"][i],
                                           state.up_k[i], state.up_v[i], m0, mask_mel)
@@ -253,8 +327,10 @@ def _estimator_chunk(params, cfg: FlowConfig, state: FlowStreamState, x_new, mu_
     rate = cfg.cfm.inference_cfg_rate
     t_span = cosine_t_span(cfg.cfm.n_timesteps)
     dev = x_new.device
-    mask2 = _chunk_mask(m0, n, t_mel_max, est.static_chunk_size, dev)[None].expand(
-        2 * b, n, t_mel_max)
+    mask2 = _chunk_mask(m0, n, t_mel_max, est.static_chunk_size, dev).reshape(
+        -1, n, t_mel_max).expand(b, n, t_mel_max).repeat(2, 1, 1)
+    # the history rows of the cond and uncond halves, at each row's cursor
+    at2 = _at(m0 if isinstance(m0, int) else torch.cat([m0, m0]), n)
     mu_in = torch.cat([mu_new, torch.zeros_like(mu_new)], dim=0)
     spks_in = torch.cat([spks, torch.zeros_like(spks)], dim=0)
     cond_in = torch.cat([cond_new, torch.zeros_like(cond_new)], dim=0)
@@ -266,7 +342,7 @@ def _estimator_chunk(params, cfg: FlowConfig, state: FlowStreamState, x_new, mu_
         b2, nn, _ = ht.shape
         h = layer_norm(tp["norm1"], ht)
         # cache the LayerNorm'd attention inputs; re-project the whole prefix to K/V
-        est_h[step, stage_idx, :, m0:m0 + nn] = h.to(est_h.dtype)
+        est_h[step, stage_idx][at2] = h.to(est_h.dtype)
         hist = est_h[step, stage_idx].to(h.dtype)
         q = dense(tp["to_q"], h).reshape(b2, nn, heads, dh).transpose(1, 2)
         k = dense(tp["to_k"], hist).reshape(b2, t_mel_max, heads, dh).transpose(1, 2)
@@ -347,8 +423,9 @@ def flow_chunk(params: dict, cfg: FlowConfig, state: FlowStreamState, token_new,
     token_new: (B, n) the next hop of speech tokens; context_tokens: (B, 3);
     embedding_vec: (B, 192) raw x-vector; prompt_feat_chunk: (B, 2n, 80)
     prompt mel over these positions (zeros past the prompt).  ``params``
-    come from ``prepare_stream_params``.  Returns (mel (B, 80, 2n) float32,
-    state).
+    come from ``prepare_stream_params``; ``state`` is one session's, or
+    ``stack_states``'s over B sessions at their own cursors.  Returns (mel
+    (B, 80, 2n) float32, state).
     """
     dtype = params["input_embedding"]["weight"].dtype
     spk = embedding_vec / torch.linalg.norm(embedding_vec, dim=1, keepdim=True).clamp_min(1e-12)
@@ -360,8 +437,9 @@ def flow_chunk(params: dict, cfg: FlowConfig, state: FlowStreamState, token_new,
     mu = dense(params["encoder_proj"], h_mel).transpose(1, 2)  # (B, 80, 2n)
     n_mel = mu.shape[2]
     m0 = state.t_mel - n_mel
-    noise = params["rand_noise"][:, :, m0:m0 + n_mel].to(dtype)
-    z = noise.expand(mu.shape)
+    # the fixed noise of each row's positions
+    noise = params["rand_noise"].transpose(1, 2).expand(mu.shape[0], -1, -1)[_at(m0, n_mel)]
+    z = noise.transpose(1, 2).to(dtype)
     cond = prompt_feat_chunk.transpose(1, 2).to(dtype)
     mel, state = _estimator_chunk(params, cfg, state, z, mu, spk, cond)
     return mel.float(), state

@@ -9,6 +9,12 @@ row has finished (one device sync per token).
 ``lm_decode`` is ``lm_prefill`` followed by ``lm_decode_chunk`` run to
 the end; streaming resumes ``lm_decode_chunk`` hop by hop on one state.
 
+The serving engine's slot API (``SlotState``, ``slots_init``,
+``slot_prefill``, ``prefill_row``, ``slot_insert``, ``slots_decode``) keeps
+``n_slots`` independent requests in one static (n_slots, max_cache) KV
+cache, each with its own prompt bucket, step, length bounds and RAS window,
+decoded in lockstep: requests join and leave between calls.
+
 Random draws: the decode takes a ``draws(step)`` callable that returns the
 step's Gumbel vectors ``(gumbel_nuc (B, top_k), gumbel_full (B, V))``;
 ``generator_draws`` makes one from a ``torch.Generator``.
@@ -189,3 +195,142 @@ def lm_training_hidden(params, cfg: LMConfig, ids, src, valid):
     embeds = embed_mixed(params, ids, src)
     hidden = qwen2_forward(params["backbone"], cfg.backbone, embeds, valid)
     return dense(params["llm_decoder"], hidden)
+
+
+# ---------------------------------------------------------------------------
+# continuous batching (the serving engine's slot decode)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class SlotState:
+    """Fixed-capacity decode slots over a static (n_slots, max_cache) KV
+    cache; every field but ``step`` is a device tensor with one row a slot.
+    ``step`` counts the decode steps run on the state, which index the
+    draws (a step that no slot can run is not taken)."""
+
+    kv: KVCache
+    tokens: torch.Tensor  # (B, max_gen) emitted ids per slot
+    recent: torch.Tensor  # (B, win_size) RAS window
+    lengths: torch.Tensor  # (B,) emitted counts
+    finished: torch.Tensor  # (B,) bool
+    active: torch.Tensor  # (B,) bool: the slot holds a request
+    last_hidden: torch.Tensor  # (B, H)
+    gen_step: torch.Tensor  # (B,) decode steps taken (specials included)
+    base: torch.Tensor  # (B,) cache slot where generation starts (the prompt bucket)
+    prompt_len: torch.Tensor  # (B,)
+    min_len: torch.Tensor  # (B,)
+    max_len: torch.Tensor  # (B,)
+    step: int = 0
+
+
+def slots_init(cfg: LMConfig, n_slots: int, max_cache: int, max_gen: int,
+               dtype=torch.bfloat16, device=None) -> SlotState:
+    """Empty slots; the KV cache and hidden states in ``dtype``."""
+    zeros = lambda *shape, dt=torch.long: torch.zeros(shape, dtype=dt, device=device)
+    return SlotState(
+        kv=KVCache.zeros(cfg.backbone, n_slots, max_cache, device=device, dtype=dtype),
+        tokens=zeros(n_slots, max_gen),
+        recent=torch.full((n_slots, cfg.win_size), -1, dtype=torch.long, device=device),
+        lengths=zeros(n_slots), finished=zeros(n_slots, dt=torch.bool),
+        active=zeros(n_slots, dt=torch.bool),
+        last_hidden=zeros(n_slots, cfg.backbone.hidden_size, dt=dtype),
+        gen_step=zeros(n_slots), base=zeros(n_slots), prompt_len=zeros(n_slots),
+        min_len=zeros(n_slots), max_len=zeros(n_slots))
+
+
+def _admit(state: SlotState, slot: int, last, prompt_len: int, min_len: int, max_len: int,
+           p_bucket: int) -> SlotState:
+    """Reset ``slot``'s row for a request whose prompt is in its KV row."""
+    state.tokens[slot] = 0
+    state.recent[slot] = -1
+    state.lengths[slot] = 0
+    state.finished[slot] = False
+    state.active[slot] = True
+    state.last_hidden[slot] = last[0].to(state.last_hidden.dtype)
+    state.gen_step[slot] = 0
+    state.base[slot] = p_bucket
+    state.prompt_len[slot] = prompt_len
+    state.min_len[slot] = min_len
+    state.max_len[slot] = max_len
+    return state
+
+
+def slot_prefill(params, cfg: LMConfig, state: SlotState, slot: int, ids, src, prompt_len: int,
+                 min_len: int, max_len: int) -> SlotState:
+    """Admit one request into ``slot``: prefill its (1, P_bucket) prompt
+    into that KV row, in place (slots past P_bucket keep what they held)."""
+    row = KVCache(state.kv.k[:, slot:slot + 1], state.kv.v[:, slot:slot + 1])
+    last, _ = qwen2_prefill(params["backbone"], cfg.backbone, embed_mixed(params, ids, src),
+                            torch.tensor([prompt_len], device=ids.device), row)
+    return _admit(state, slot, last, prompt_len, min_len, max_len, ids.shape[1])
+
+
+def prefill_row(params, cfg: LMConfig, ids, src, prompt_len: int, max_cache: int,
+                dtype=torch.bfloat16):
+    """The prompt prefilled into a KV row of its own: (row, last_hidden
+    (1, H)).  It needs no ``SlotState``, so the engine runs it when a request
+    arrives and merges the row with ``slot_insert`` when a slot frees."""
+    row = KVCache.zeros(cfg.backbone, 1, max_cache, device=ids.device, dtype=dtype)
+    last, row = qwen2_prefill(params["backbone"], cfg.backbone, embed_mixed(params, ids, src),
+                              torch.tensor([prompt_len], device=ids.device), row)
+    return row, last
+
+
+def slot_insert(state: SlotState, slot: int, row: KVCache, last, prompt_len: int, min_len: int,
+                max_len: int, p_bucket: int) -> SlotState:
+    """Merge a ``prefill_row`` row into ``slot`` (a copy, no forward pass);
+    equal to ``slot_prefill`` on an empty slot."""
+    state.kv.k[:, slot] = row.k[:, 0].to(state.kv.k.dtype)
+    state.kv.v[:, slot] = row.v[:, 0].to(state.kv.v.dtype)
+    return _admit(state, slot, last, prompt_len, min_len, max_len, p_bucket)
+
+
+def slots_decode(params, cfg: LMConfig, state: SlotState, k_steps: int,
+                 draws: Draws) -> SlotState:
+    """Advance every active, unfinished slot by up to ``k_steps`` steps; the
+    host checks before each step whether any slot can run (the JAX loop's
+    condition), so a call stops early once none can.  Every slot takes part
+    in each step, running or not; ``draws(state.step)`` serves all of them.
+    The state's tensors are replaced, not written in place (the KV cache is).
+    """
+    max_cache, max_gen = state.kv.k.shape[3], state.tokens.shape[1]
+    dev = state.tokens.device
+    slot_idx = torch.arange(max_cache, device=dev)[None, :]
+    col = torch.arange(max_gen, device=dev)[None, :]
+    vocab = cfg.full_vocab
+    for _ in range(k_steps):
+        run = state.active & ~state.finished
+        if not bool(run.any()):
+            break
+        logits = dense(params["llm_decoder"], state.last_hidden).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        ignore_eos = (state.lengths < state.min_len) | (state.gen_step == 0)
+        gumbel_nuc, gumbel_full = draws(state.step)
+        tok = ras_sample(logp, state.recent, ignore_eos, cfg.eos_token, gumbel_nuc, gumbel_full,
+                         top_p=cfg.top_p, top_k=cfg.top_k, win_size=cfg.win_size,
+                         tau_r=cfg.tau_r)
+        is_eos = tok == cfg.eos_token
+        is_special = tok > cfg.eos_token
+        emit = run & ~is_eos & ~is_special
+        state.tokens = torch.where(emit[:, None] & (col == state.lengths[:, None]),
+                                   tok[:, None], state.tokens)
+        state.lengths = state.lengths + emit.long()
+        state.finished = state.finished | (run & (is_eos | (state.lengths >= state.max_len)))
+        rolled = torch.cat([state.recent[:, 1:], tok[:, None]], dim=1)
+        state.recent = torch.where(emit[:, None], rolled, state.recent)
+
+        embed = embedding(params["speech_embedding"], tok.clamp(0, vocab - 1))
+        cache_index = (state.base + state.gen_step).clamp(0, max_cache - 1)
+        rope_pos = state.prompt_len + state.gen_step
+        visible = (slot_idx < state.prompt_len[:, None]) | (
+            (slot_idx >= state.base[:, None]) & (slot_idx <= cache_index[:, None]))
+        hidden, state.kv = qwen2_decode_step(params["backbone"], cfg.backbone, embed, rope_pos,
+                                             cache_index, visible, state.kv)
+        state.last_hidden = torch.where(run[:, None], hidden.to(state.last_hidden.dtype),
+                                        state.last_hidden)
+        state.gen_step = state.gen_step + run.long()
+        # a slot at the end of its cache row finishes
+        state.finished = state.finished | (run & (state.base + state.gen_step >= max_cache - 1))
+        state.step += 1
+    return state

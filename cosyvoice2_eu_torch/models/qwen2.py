@@ -103,10 +103,12 @@ def _attention(q, k, v, bias, num_groups: int):
 
 
 def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None = None,
-                   layer_idx: int = 0, write_at: int = 0, attn_len: int | None = None):
+                   layer_idx: int = 0, write_at: int | torch.Tensor = 0,
+                   attn_len: int | None = None):
     """One decoder layer.  If kv is given, k/v are written at slot ``write_at``
     and attention runs over the first ``attn_len`` cache slots (the whole
-    cache when None)."""
+    cache when None).  A (B,) tensor ``write_at`` writes each row's one new
+    K/V at its own slot (the slot-batched decode)."""
     b, t, _ = x.shape
     h = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
     q = dense(lp["q_proj"], h).reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
@@ -120,11 +122,13 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
 
     groups = cfg.num_heads // cfg.num_kv_heads
     if kv is not None:
-        if not isinstance(write_at, int):
-            raise NotImplementedError(
-                "per-row cache writes (slot decode) are not ported yet: ROADMAP item 6b")
-        kv.k[layer_idx, :, :, write_at:write_at + t] = k.to(kv.k.dtype)
-        kv.v[layer_idx, :, :, write_at:write_at + t] = v.to(kv.v.dtype)
+        if torch.is_tensor(write_at):  # one new position a row, at its own slot
+            rows = torch.arange(b, device=write_at.device)
+            kv.k[layer_idx][rows, :, write_at] = k[:, :, 0].to(kv.k.dtype)
+            kv.v[layer_idx][rows, :, write_at] = v[:, :, 0].to(kv.v.dtype)
+        else:
+            kv.k[layer_idx, :, :, write_at:write_at + t] = k.to(kv.k.dtype)
+            kv.v[layer_idx, :, :, write_at:write_at + t] = v.to(kv.v.dtype)
         n = kv.k.shape[3] if attn_len is None else attn_len
         att = _attention(q, kv.k[layer_idx, :, :, :n].to(q.dtype),
                          kv.v[layer_idx, :, :, :n].to(q.dtype), bias, groups)
@@ -182,14 +186,16 @@ def qwen2_prefill(params, cfg: Qwen2Config, embeds, prompt_len, kv: KVCache):
     return last[:, 0], kv
 
 
-def qwen2_decode_step(params, cfg: Qwen2Config, embed, rope_pos, cache_index: int,
-                      valid_mask, kv: KVCache):
+def qwen2_decode_step(params, cfg: Qwen2Config, embed, rope_pos,
+                      cache_index: int | torch.Tensor, valid_mask, kv: KVCache):
     """One AR step.
 
     embed: (B, H); rope_pos: (B,) true sequence position; cache_index: slot
-    to write; valid_mask: (B, n) bool over the first n >= cache_index + 1
-    cache slots (already includes the new slot).  Slots past n are masked
-    anyway, so attention reads only the first n.  Returns (hidden (B, H), kv).
+    to write, an int for every row or a (B,) tensor of per-row slots;
+    valid_mask: (B, n) bool over the first n cache slots (n >= every slot
+    written; the whole cache for per-row slots), the new slot included.
+    Slots past n are masked anyway, so attention reads only the first n.
+    Returns (hidden (B, H), kv).
     """
     x = embed[:, None, :]
     n = valid_mask.shape[1]

@@ -21,8 +21,9 @@ reference does.  The final chunk is a full recompute on either path.
 Past the largest flow bucket, synthesis runs the streaming schedule and
 joins its chunks: under ``cached_stream=True`` through the serving path's
 ``StreamSession`` (``serving/engine.py``), otherwise through the windowed
-recompute loop.  ``vc`` re-synthesizes source speech tokens in the prompt's
-voice without the LM.
+recompute loop.  ``_stream_chunk_batch`` is the serving engine's steady
+chunk over several sessions at once.  ``vc`` re-synthesizes source speech
+tokens in the prompt's voice without the LM.
 
 Not ported yet, and raising ``NotImplementedError``: bistream decode
 (ROADMAP item 7) and tensor-parallel decode (item 8g).
@@ -45,6 +46,8 @@ from cosyvoice2_eu_torch.models.flow_streaming import (
     flow_chunk,
     init_flow_stream_state,
     prepare_stream_params,
+    stack_states,
+    unstack_states,
 )
 from cosyvoice2_eu_torch.models.hift import hift_inference
 from cosyvoice2_eu_torch.utils.device import resolve_device
@@ -114,6 +117,7 @@ class TTSModel:
         if tp:
             raise NotImplementedError("tensor-parallel decode is not ported yet: ROADMAP item 8g")
         self.cfg = cfg
+        self.seed = seed
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
         if compute_dtype is not None:
@@ -380,6 +384,41 @@ class TTSModel:
                 _, fstate = self._feed_tokens(fstate, prompt, gen, gen_base, t, n)
                 t += n
         return fstate, gen_base, t_fed
+
+    def _stream_chunk_batch(self, hop: int, states: list, tok: np.ndarray, ctx: np.ndarray,
+                            emb: np.ndarray, cond: np.ndarray, cache_mel: torch.Tensor,
+                            cache_source: torch.Tensor, cache_speech: np.ndarray,
+                            hift_draws: Optional[HiftDraws] = None):
+        """One steady chunk of ``hop`` tokens for B sessions at their own
+        cursors (the JAX package's ``_stream_chunk_fused_batch_fn``): the
+        chunk-cached flow over the stacked states, each row's mel cache in
+        front, every row edge-padded to the HiFT bucket, one HiFT call over
+        the rows with their source caches, the Hamming crossfade with each
+        row's withheld tail, and the caches rotated.
+
+        tok (B, hop), ctx (B, la), emb (B, 192) and cond (B, 2 hop, 80) are
+        host arrays; cache_mel (B, 80, mel_cache_len), cache_source (B, 1,
+        source_cache_len) and cache_speech (B, source_cache_len) hold each
+        row's full vocoder cache (``_fused_cache_ok``).  Returns (states,
+        audio rows (float32 host arrays), cache_mel, cache_source,
+        cache_speech), row for row."""
+        mc, sc, up = self.mel_cache_len, self.source_cache_len, self.cfg.hift.upsample_scale
+        with self.timer.stage(f"flow_chunk[{hop}]"):
+            mel, stacked = flow_chunk(self._get_stream_params(), self.cfg.flow,
+                                      stack_states(states), self._tensor(tok), self._tensor(ctx),
+                                      self._tensor(emb, torch.float32),
+                                      self._tensor(cond, torch.float32))
+        tts_mel = torch.cat([cache_mel, mel], dim=2)
+        t_mel = tts_mel.shape[2]
+        h_bucket = bucket_for(t_mel, buckets=HIFT_MEL_BUCKETS)
+        mel_in = torch.cat([tts_mel, tts_mel[:, :, -1:].expand(-1, -1, h_bucket - t_mel)], dim=2)
+        n_samples = t_mel * up
+        with self.timer.stage("hift"):
+            audio, source = self._vocode(mel_in, hift_draws, cache_source, sc)
+            audio = audio[:, :n_samples].cpu().numpy()
+        rows = [_fade_in_out(a, s, self.speech_window) for a, s in zip(audio, cache_speech)]
+        return (unstack_states(stacked), [r[:-sc] for r in rows], tts_mel[:, :, -mc:],
+                source[:, :, n_samples - sc:n_samples], np.stack([r[-sc:] for r in rows]))
 
     def _fused_cache_ok(self, session: dict) -> bool:
         """The session's vocoder cache is full size, as the steady chunk of
