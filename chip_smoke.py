@@ -29,7 +29,9 @@ Phases (any failure ends the run with a non-zero exit code):
      plus a ragged K, in bf16 at the edges of its wgmma design (M 9 to 512,
      N 128 and 6564, K 896 and 4864), and in bf16 and fp32 at the edges of
      its decode design (M 1 to 8, N 33, 128 and 6564, K 16 to 8192: every
-     cluster size 1 to 8), each case with the design it took, which must
+     cluster size 1 to 8), and at every (N, K) of the Qwen3-0.6B backbone's
+     int8 LM (bf16 and fp32 x at M 1 to 8, bf16 at M 9, 64, 130 and 512),
+     each case with the design it took, which must
      be the one ``design`` names; two launches of the decode design on the
      same inputs must be bit-equal;
   3. reference checks on a small config, on the card (kernels included)
@@ -37,6 +39,11 @@ Phases (any failure ends the run with a non-zero exit code):
      pipeline in fp32, unquantized and with ``lm_quant="int8"`` (its decode
      on K2's decode design in fp32; then also equal int8 codes, K2's launch
      count and the int8-vs-fp32 logits band), and one flow train step;
+     then bistream (the head's FILL and EOS bias raised by ``SMALL_BIAS``):
+     ``lm_inference_bistream`` tokens equal and ``tts_stream_text`` chunks
+     equal in length with audio within 1e-3, unquantized and int8 (equal
+     codes), and one LM, one LoRA and one DPO train step (loss within 1e-5
+     relative, every gradient leaf within 1e-4 x max + 1e-7);
   4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
      published widths (random weights) answers 3 requests; checks the audio
      and that each flow call launched K1 560 times; per-stage times;
@@ -108,11 +115,31 @@ Phases (any failure ends the run with a non-zero exit code):
      rows), K2 168 times a ``prefill_row`` and 169 a decode step at M = 4;
      then one ``tts_batch`` of 6 short prompts (HiFT on one sub-batch of 6
      rows): tokens x 960 samples, K1 560 times; K1 checked at every shape;
+  5f. bistream, each request with the counts set to 0 before it and read
+     after (the head's FILL and EOS bias raised by ``PROTOCOL_BIAS``, since
+     random weights never ask for text): at the published widths (the
+     Qwen2 BlankEN LM, bf16, the 3 s prompt) one ``Cosy2EU.stream_text``
+     request fed ``STREAM_TEXT`` word by word, one
+     ``TTSModel(use_bistream=True).tts`` and one int8 ``stream_text``; then
+     ``load(backbone="hf:Qwen/Qwen3-0.6B")`` (28 layers, hidden 1024, head
+     dim 128, q/k norms, random weights): one bf16 and one int8
+     ``stream_text``.  Gates: tokens x 960 samples of finite, non-silent
+     audio; K1 560 times a flow call; under int8 K2 168 launches an extend
+     and 169 a decode step (Qwen3: 196 and 197), extends at M = 64 on the
+     wgmma design, steps at M = 1 on the decode design.  Prints time to
+     first audio, each chunk's wall time and the steady median, RTF, LM
+     ms/token, the extends and decode calls, peak memory;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
      MultiSteps update at step 4, 56 launches of K1 (with LSE), K3 and K4
      per step, and a bit-exact checkpoint round trip; per-step times;
+  6b. the speech LM's training: the Qwen2-0.5B LM in fp32 with
+     ``TrainConfig()``'s optimizer through the trainer's LM step functions,
+     4 steps on B = 2 batches from ``build_lm_batch`` (both layouts), a CV
+     batch, 2 LoRA steps (rank 8) and 2 DPO steps; finite losses and
+     gradient norms, the update at step 4, no kernel launched; forward /
+     backward / optimizer ms per step and peak memory;
   7. kernel timings at the shapes of the paths: K1 on all four (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one), K3 and K4 at
@@ -130,9 +157,10 @@ Phases (any failure ends the run with a non-zero exit code):
 The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
-bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine and
-tts_batch6 paths, fp32 on the training path), K2's over the shapes of the
-int8 path, the int8 stream and the int8 engine (each under ``by_shape``,
+bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine,
+tts_batch6, bistream and qwen3 paths, fp32 on the training path), K2's over
+the shapes of the int8 path, the int8 stream, the int8 engine and the int8
+bistream requests, Qwen3's included (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
 and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
@@ -476,6 +504,15 @@ def _k2_shapes(cfg) -> list:
             (h, bb.intermediate_size, 1), (cfg.llm.full_vocab, h, 0)]
 
 
+def _with_backbone(bb=None):
+    """``TTSConfig()`` with its LM on the backbone ``bb`` (None: the default)."""
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    cfg = TTSConfig()
+    return cfg if bb is None else dataclasses.replace(
+        cfg, llm=dataclasses.replace(cfg.llm, backbone=bb))
+
+
 # K2's tolerance: int8 x bf16 (or fp32) products are exact in fp32, so the
 # kernel and the plain version differ only in the order of the fp32 sums
 # over K (per k-step and K split in the wgmma design): 3e-5 x max|want|.
@@ -520,14 +557,17 @@ def check_int8_matmul() -> float:
     in bf16 and fp32 the edges of the decode design: M 1 to 8 (every row
     tile), N 33, 128 and 6564 (ragged channel groups of 8 and 16), K 16, 64,
     896, 2048, 4864 and 8192 (clusters of 1, 2, 4 and 8 blocks, runs of one
-    group to 4096 K, rings of 1 to 4 stages refilled).
+    group to 4096 K, rings of 1 to 4 stages refilled); and at every (N, K)
+    of the Qwen3-0.6B backbone's int8 LM (the speech head included), bf16
+    and fp32 x at M 1 to 8 (the decode design) and bf16 x at M 9, 64 (its
+    bistream extend), 130 and 512 (the wgmma design).
     Each case prints the design it took, which must be the one ``design``
     names: M <= 8 the decode design, bf16 above 8 rows the wgmma one, the
     rest the FMA one.  Every decode case launches twice and the two outputs
     must be bit-equal (no atomics).  Returns the worst error."""
     import torch
 
-    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.config import TTSConfig, qwen3_0_6b_config
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
     from cosyvoice2_eu_torch.utils.device import resolve_device
 
@@ -542,6 +582,9 @@ def check_int8_matmul() -> float:
               for m in (9, 64, 130, 257, 512)]
     cases += [(n, k, m, both) for n in (33, 128, 6564) for k in (16, 64, 896, 2048, 4864, 8192)
               for m in range(1, i8.DECODE_ROWS + 1)]
+    qwen3 = dict.fromkeys((n, k) for n, k, _ in _k2_shapes(_with_backbone(qwen3_0_6b_config())))
+    cases += [(n, k, m, both) for n, k in qwen3 for m in range(1, i8.DECODE_ROWS + 1)]
+    cases += [(n, k, m, (torch.bfloat16,)) for n, k in qwen3 for m in (9, 64, 130, 512)]
     clusters = {i8.decode_config(m, n, k)[1] for n, k, m, _ in cases if m <= i8.DECODE_ROWS}
     if clusters != {1, 2, 4, 8}:
         raise SystemExit(f"the K2 checks reach clusters {sorted(clusters)}, not 1, 2, 4 and 8")
@@ -2869,25 +2912,26 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
     """K2 at every (M, N, K) the int8 path, the int8 stream and the int8
     engine ran, weighted by its launches there.
 
-    ``decodes`` holds each LM decode's (batch, prompt bucket, steps): the
-    prefill runs the 7 projections of each layer at M = batch x bucket, each
-    decode step runs them and the speech head at M = batch (the engine's
-    ``prefill_row`` is (1, bucket, 0) and its slot decode (4, 0, steps)).  Returns the
+    ``decodes`` holds each LM decode's (batch, prompt bucket, steps), and
+    optionally its backbone config (default: Qwen2-0.5B): the prefill runs
+    the 7 projections of each layer at M = batch x bucket, each decode step
+    runs them and the speech head at M = batch (the engine's
+    ``prefill_row`` is (1, bucket, 0) and its slot decode (4, 0, steps); a
+    bistream extend (1, 64, 0)).  Returns the
     kernels line's mean per launch, with each shape's times under by_shape
     and each design's means per launch under by_design."""
     import torch
 
-    from cosyvoice2_eu_torch.config import TTSConfig
 
-    cfg = TTSConfig()
-    n_layers = cfg.llm.backbone.num_layers
     counts: dict = {}
 
     def add(shape, c):
         if c and shape[0]:  # a prefill alone (steps 0) or a decode alone (bucket 0)
             counts[shape] = counts.get(shape, 0) + c
 
-    for b, p_bucket, steps in decodes:
+    for b, p_bucket, steps, *bb in decodes:
+        cfg = _with_backbone(*bb)
+        n_layers = cfg.llm.backbone.num_layers
         for n, k, per_layer in _k2_shapes(cfg):
             if per_layer:  # a projection of every layer: at prefill and at each step
                 add((b * p_bucket, n, k), n_layers * per_layer)
@@ -2998,6 +3042,368 @@ def _sass_count(library, opcode: str) -> int:
                if "*/" in line and line.split("*/", 1)[1].strip().startswith(opcode))
 
 
+# ---------------------------------------------------------------------------
+# bistream (streaming text in) and the speech LM's training
+# ---------------------------------------------------------------------------
+
+# Random weights do not ask for text: the speech head's FILL logit is as
+# likely as any other of its ids, so a bistream request would decode until
+# its cache is full on the first text piece, and the next extend would not
+# fit (the port raises ValueError there; the JAX package clamps its write).
+# The bistream phases raise the head's bias at FILL and EOS by this much, as
+# a trained head asks for text and stops: about one nucleus draw in 13 is
+# FILL at the published widths (24 of the top 25 logits ~1.8, FILL's
+# ~2.5 + its own), after the first FILL forced fills follow every 16 tokens,
+# and the final segment ends on EOS.
+PROTOCOL_BIAS = 2.5
+SMALL_BIAS = 1.0
+# a French sentence of 60-100 bytes, fed word by word to ``stream_text``
+STREAM_TEXT = "Bonjour, je vous lis ce texte mot par mot pendant que le modèle parle."
+
+
+def _protocol_bias(llm: dict, cfg, by: float = PROTOCOL_BIAS) -> None:
+    """Raise ``llm``'s speech-head bias at FILL and EOS by ``by`` (in place:
+    every model that shares these parameters sees it)."""
+    import torch
+
+    ids = torch.tensor([cfg.eos_token, cfg.speech_token_size + 2])
+    bias = llm["llm_decoder"]["bias"]
+    bias[ids.to(bias.device)] += by
+
+
+def _words(text: str):
+    """``text`` as the pieces an upstream LLM would send: each word with its space."""
+    return iter(w + " " for w in text.split())
+
+
+@_uncounted
+def check_small_bistream() -> None:
+    """Bistream and the LM's training on the card against the plain CPU path
+    on the small config of ``check_small_stream`` (fp32, the head's
+    protocol bias, the same weights and draws): ``lm_inference_bistream``
+    tokens equal; ``tts_stream_text`` chunks equal in length and audio
+    within 1e-3; the same with ``lm_quant="int8"`` (K2 on the card: fp32 x,
+    extends at M = 64 on the FMA design, decode at M = 1 on the decode
+    design), with equal int8 codes; one LM train step, one LoRA step and one
+    DPO step (accum_grad 1): loss within 1e-5 relative, each gradient leaf
+    (Adam's first moment, 0.1 x the clipped gradient) within 1e-4 x max + 1e-7."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import TrainConfig
+    from cosyvoice2_eu_torch.frontend.frontend import Frontend
+    from cosyvoice2_eu_torch.models import llm as llm_mod
+    from cosyvoice2_eu_torch.ops.sampling import gumbel
+    from cosyvoice2_eu_torch.parallel.train_step import init_train_state
+    from cosyvoice2_eu_torch.runtime.model import TTSModel
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.train.sequences import build_lm_batch
+    from cosyvoice2_eu_torch.train.train import make_lm_step_fn
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves, tree_map
+
+    resolve_device("cuda")
+    cfg, params, hift_draws = _small_stream_setup()
+    lm = cfg.llm
+    # the small head has 84 ids, so a smaller push keeps requests of a few chunks
+    _protocol_bias(params["llm"], lm, SMALL_BIAS)
+    g = torch.Generator(device="cpu").manual_seed(2)
+    noise = [(gumbel((1, lm.top_k), g), gumbel((1, lm.full_vocab), g)) for _ in range(512)]
+    fe = Frontend(cfg, device="cpu")  # its tokenizer only
+    prompt = fe.frontend_zero_shot("", _prompt(cfg, 0.72, 4))
+    pieces = [fe.text_tokens(w) for w in _words("Bonjour tout le monde, comment allez-vous ?")]
+
+    for quant in (None, "int8"):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tm = TTSModel(cfg, params, seed=0, compute_dtype=None, device=dev, lm_quant=quant)
+            draws = lambda step: tuple(x.to(dev) for x in noise[step])  # noqa: E731
+            toks = list(llm_mod.lm_inference_bistream(
+                tm.params["llm"], lm, iter(pieces), prompt.prompt_text_tokens,
+                prompt.llm_prompt_speech_tokens, draws=draws, max_cache=lm.max_seq_len))
+            chunks = list(tm.tts_stream_text(iter(pieces), prompt, lm_draws=draws,
+                                             hift_draws=hift_draws(dev)))
+            out[dev] = (toks, chunks, tm.last_n_tokens, [x.cpu() for x in
+                                                         tree_leaves(tm.params["llm"])])
+        (t_cpu, c_cpu, n_cpu, llm_cpu), (t_gpu, c_gpu, n_gpu, llm_gpu) = out["cpu"], out["cuda"]
+        same_len = [len(c) for c in c_cpu] == [len(c) for c in c_gpu]
+        err = max(float(np.abs(a - b).max()) for a, b in zip(c_cpu, c_gpu)) if same_len \
+            else float("inf")
+        codes = all(torch.equal(a, b) for a, b in zip(llm_gpu, llm_cpu))
+        ok = (t_cpu == t_gpu and len(t_gpu) > 0 and n_cpu == n_gpu == len(t_gpu) and same_len
+              and err <= 1e-3 and codes and all(np.isfinite(c).all() for c in c_gpu))
+        print(f"bistream reference check (small config, fp32, {quant or 'unquantized'} LM, card "
+              f"vs CPU plain path): lm_inference_bistream {len(t_gpu)} tokens equal: "
+              f"{t_cpu == t_gpu}; tts_stream_text {len(c_gpu)} chunks of "
+              f"{[len(c) for c in c_gpu]} samples (equal lengths: {same_len}), audio "
+              f"max_abs_err={err:.3e} (tol 1e-3); LM parameters (int8 codes and scales) equal: "
+              f"{codes} {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"bistream on the card ({quant or 'unquantized'}) disagrees with the "
+                             "plain CPU path")
+
+    tc = TrainConfig(lr=1e-3, accum_grad=1)
+    rng = np.random.default_rng(6)
+    texts = [rng.integers(2, lm.backbone.vocab_size, n) for n in (9, 12)]
+    speeches = [rng.integers(0, lm.speech_token_size, n) for n in (40, 50)]
+    rejects = [rng.integers(0, lm.speech_token_size, n) for n in (40, 50)]
+    chosen = build_lm_batch(texts, speeches, lm, np.random.default_rng(1), 0.5, pad_to=80)
+    rejected = build_lm_batch(texts, rejects, lm, np.random.default_rng(1), 0.5, pad_to=80)
+    batch = dict(chosen, **{f"reject_{k}": v for k, v in rejected.items()})
+    for mode in ("lm", "lora", "dpo"):
+        out = {}
+        for dev in ("cpu", "cuda"):
+            tx = make_optimizer(tc)
+            trained, step_fn, _ = make_lm_step_fn(
+                lm, tc, tx, tree_map(lambda x: x.to(dev), params["llm"]), dpo=mode == "dpo",
+                lora=mode == "lora", gen=torch.Generator(device="cpu").manual_seed(3))
+            trained = tree_map(lambda x: x.to(dev), trained)
+            state, m = step_fn(init_train_state(trained, tx),
+                               {k: torch.as_tensor(v, device=dev) for k, v in batch.items()})
+            out[dev] = (float(m["loss"]), float(m["grad_norm"]),
+                        [x.cpu() for x in tree_leaves(state.opt_state["mu"])])
+        (l_cpu, n_cpu, mu_cpu), (l_gpu, n_gpu, mu_gpu) = out["cpu"], out["cuda"]
+        loss_err = abs(l_gpu - l_cpu) / abs(l_cpu)
+        worst = max((a - b).abs().max().item() / (1e-4 * b.abs().max().item() + 1e-7)
+                    for a, b in zip(mu_gpu, mu_cpu))
+        ok = math.isfinite(l_gpu) and loss_err <= 1e-5 and worst <= 1.0 and n_gpu > 0
+        print(f"LM train reference check ({mode} step, small config, fp32, card vs CPU plain "
+              f"path): loss {l_gpu:.6f} vs {l_cpu:.6f} (rel err {loss_err:.2e}, tol 1e-5), "
+              f"grad_norm {n_gpu:.5f} vs {n_cpu:.5f}; {len(mu_gpu)} gradient leaves, the worst at "
+              f"{worst:.3f} of its tolerance 1e-4 x max|g| + 1e-7 {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"the card's {mode} train step disagrees with the plain CPU path")
+
+
+def _bistream_request(tm, chunks_fn, card: str, what: str, k2_per: tuple | None = None) -> dict:
+    """One bistream request, ``chunks_fn()`` (waveform chunks), on the
+    ``TTSModel`` ``tm``, with the counts set to 0 before it and read after,
+    timed chunk by chunk.  Gates: tokens x 960 samples of finite, non-silent
+    audio; K1 560 times a flow call, each launch of its bf16 design; no K3
+    or K4; K2 none, or (int8) ``k2_per[0]`` launches an extend and
+    ``k2_per[1]`` a decode step, every extend's (M = 64) on the wgmma design
+    and every step's (M = 1) on the decode design.  Prints time to first
+    audio, each chunk's wall ms and the steady median, RTF, LM ms/token, the
+    extends and decode calls, and peak memory."""
+    import numpy as np
+    import torch
+
+    calls: list = []
+    _record_flow_calls(tm, calls)
+    _reset_counts()
+    K2_LAUNCHED.clear()
+    _reset_peak()
+    tm.timer.reset()
+    walls: list = []
+    t0 = time.perf_counter()
+    chunks = [np.asarray(c).reshape(-1) for c in _timed_chunks(chunks_fn(), walls, [])]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = [f.launches for f in _counters()]
+    stages = tm.timer.summary()
+    n_tok, steps = tm.last_n_tokens, tm.last_decode_steps
+    extends, decodes = stages["bs_extend"]["count"], stages["bs_decode"]["count"]
+    lm_s = stages["bs_extend"]["total_s"] + stages["bs_decode"]["total_s"]
+    samples = sum(c.size for c in chunks)
+    audio_s = samples / tm.cfg.sample_rate
+    k1_want = _k1_per_flow(tm.cfg) * len(calls)
+    k2_want = 0 if k2_per is None else k2_per[0] * extends + k2_per[1] * steps
+    designs = _k2_designs({64}, launches[3]) if k2_per else "none"
+    ok = (n_tok > 0 and samples == n_tok * 960 and all(
+        c.dtype == np.float32 and c.size and np.isfinite(c).all() and float(np.abs(c).max()) > 1e-3
+        for c in chunks) and calls and launches[0] == k1_want and launches[1:3] == [0, 0]
+        and launches[3] == k2_want)
+    between = sorted(walls[1:-1])  # the steady chunks: after the first, before the final
+    steady = f", steady chunk median {between[len(between) // 2]:.1f} ms" if between else ""
+    print(f"{what}: {n_tok} tokens in {steps} decode steps ({extends} extends, {decodes} decode "
+          f"calls), {audio_s:.2f} s audio in {len(chunks)} chunks of "
+          f"{[c.size for c in chunks]} samples; flow calls {len(calls)}, K1 launches "
+          f"{launches[0]} (expected {_k1_per_flow(tm.cfg)} x {len(calls)}; {_k1_design()}); K2 "
+          f"launches {launches[3]} (expected {k2_want}"
+          + (f" = {k2_per[0]} x {extends} extends + {k2_per[1]} x {steps} steps; by M, as "
+             f"recorded at each launch: {designs}" if k2_per else "") +
+          f"); time to first audio {walls[0]:.1f} ms, chunk wall ms "
+          f"[{', '.join(f'{w:.1f}' for w in walls)}]{steady}, RTF {wall / audio_s:.3f}, LM "
+          f"{lm_s * 1e3 / n_tok:.2f} ms/token (extends {stages['bs_extend']['total_s'] * 1e3:.1f} "
+          f"ms, decode {stages['bs_decode']['total_s'] * 1e3:.1f} ms), peak memory "
+          f"{peak / 2**30:.2f} GiB [{card}] {'ok' if ok else 'FAIL'}")
+    print(f"{what} stages (ms total / count): "
+          + ", ".join(f"{k} {v['total_s'] * 1e3:.1f}/{v['count']}" for k, v in stages.items()))
+    if not ok:
+        raise SystemExit(f"{what} failed its checks")
+    return {"shapes": [_k1_shape(tm.cfg, *c[:3]) for c in calls], "launches": launches[0],
+            "k2": launches[3], "extends": extends, "steps": steps}
+
+
+def bistream_path(card: str, backbone=None) -> tuple[list, int, list, int]:
+    """Bistream at the published widths (bf16, the 3 s prompt, the head's
+    protocol bias): with the default backbone (Qwen2-0.5B BlankEN) one
+    ``Cosy2EU.stream_text`` request fed ``STREAM_TEXT`` word by word, one
+    ``TTSModel(use_bistream=True).tts(stream=False)`` of it, and one int8
+    ``stream_text`` (K2 168 launches an extend, 169 a step); with
+    ``backbone="hf:Qwen/Qwen3-0.6B"`` (28 layers, hidden 1024, head dim 128,
+    q/k norms, random weights) one bf16 and one int8 ``stream_text`` (K2
+    196 and 197).  Returns K1's shapes and launches, and K2's decodes (as
+    ``time_int8_matmul`` takes them: each extend's (1, 64, 0, backbone),
+    the steps' (1, 0, steps, backbone)) and launches."""
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.runtime.model import TTSModel
+
+    cfg = TTSConfig()
+    prompt = _prompt(cfg, 3.0)
+    name = "qwen3" if backbone else "bistream"
+    runs, k2_decodes, k2 = [], [], 0
+    for quant in (None, "int8"):
+        t0 = time.perf_counter()
+        model = cosy.load(config=cfg, seed=0, device="cuda", download=False, backbone=backbone,
+                          lm_quant=quant)
+        tm = model._model
+        torch.cuda.synchronize()
+        bb = tm.cfg.llm.backbone
+        if quant is None:
+            print(f"{name} phase: load(seed=0, backbone={backbone!r}) "
+                  f"{time.perf_counter() - t0:.2f} s: {bb.num_layers} layers, hidden {bb.hidden_size}, head dim {bb.head_dim}, "
+                  f"q/k norms {bb.use_qk_norm}, use_bistream {tm.use_bistream} [{card}]")
+        _protocol_bias(tm.params["llm"], tm.cfg.llm)
+        per = (7 * bb.num_layers, 7 * bb.num_layers + 1) if quant else None
+        what = f"{name} {quant or 'bf16'} stream_text"
+        runs.append(_bistream_request(tm, lambda: model.stream_text(_words(STREAM_TEXT), prompt),
+                                      card, what, per))
+        if quant is None and backbone is None:
+            bis = TTSModel(cfg, tm.params, seed=0, compute_dtype=None, device="cuda",
+                           use_bistream=True)
+            inputs = model._frontend.frontend_zero_shot(STREAM_TEXT, prompt)
+            runs.append(_bistream_request(bis, lambda: bis.tts(inputs), card,
+                                          f"{name} bf16 TTSModel(use_bistream=True).tts"))
+            del bis
+        if quant:
+            k2 += runs[-1]["k2"]
+            k2_decodes += [(1, 64, 0, bb)] * runs[-1]["extends"] + [(1, 0, runs[-1]["steps"], bb)]
+        del model, tm
+        gc.collect()
+        torch.cuda.empty_cache()
+    return ([s for r in runs for s in r["shapes"]], sum(r["launches"] for r in runs),
+            k2_decodes, k2)
+
+
+def lm_train_path(card: str) -> None:
+    """The speech LM's training at the published widths: the Qwen2-0.5B LM
+    (``TTSConfig().llm``, random weights from seed 0) in fp32 with
+    ``TrainConfig()``'s optimizer (adamw, accum_grad 4) through the
+    trainer's LM step functions: 4 steps on B = 2 batches from
+    ``build_lm_batch`` (text of 40-100 tokens, speech of 200-400,
+    ``bistream_prob=0.5``: both layouts occur), a CV batch, 2 LoRA steps
+    (rank 8) and 2 DPO steps.  Gates: finite losses and gradient norms, the
+    LM's parameters unchanged after steps 1-3 and updated at step 4, both
+    layouts seen; no kernel launched (the LM attends by plain einsum, as the
+    JAX package).  Prints forward / backward / optimizer ms per step and
+    peak memory."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import TrainConfig, TTSConfig
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.parallel.train_step import init_train_state
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.train.sequences import build_lm_batch
+    from cosyvoice2_eu_torch.train.train import make_lm_step_fn
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+    from cosyvoice2_eu_torch.utils.profiling import StageTimer
+
+    dev = resolve_device("cuda")
+    cfg = TTSConfig().llm
+    tc = TrainConfig()
+    t0 = time.perf_counter()
+    params = init_lm(torch.Generator(device=dev).manual_seed(0), cfg)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for x in tree_leaves(params))
+    print(f"LM training phase: init_lm(TTSConfig().llm, seed 0) on {dev}, {n_params / 1e6:.2f} M "
+          f"parameters, fp32, {tc.optim} lr {tc.lr} accum_grad {tc.accum_grad}, "
+          f"{time.perf_counter() - t0:.2f} s [{card}]")
+    rng = np.random.default_rng(0)
+    fill = cfg.speech_token_size + 2
+
+    def batch(seed, rejected=False):
+        r = np.random.default_rng(seed)
+        texts = [r.integers(2, cfg.backbone.vocab_size, r.integers(40, 101)) for _ in range(2)]
+        speeches = [r.integers(0, cfg.speech_token_size, r.integers(200, 401)) for _ in range(2)]
+        coins = np.random.default_rng()
+        coins.bit_generator.state = rng.bit_generator.state  # rejected rows: the same layouts
+        b = build_lm_batch(texts, speeches, cfg, rng, bistream_prob=0.5, pad_to=600)
+        if rejected:
+            other = [r.integers(0, cfg.speech_token_size, len(s)) for s in speeches]
+            b.update({f"reject_{k}": v for k, v in build_lm_batch(
+                texts, other, cfg, coins, 0.5, pad_to=600).items()})
+        layouts = ["bistream" if (row == fill).any() else "unistream" for row in b["target"]]
+        return {k: torch.as_tensor(v, device=dev) for k, v in b.items()}, layouts
+
+    timer = StageTimer(sync=torch.cuda.synchronize)
+    counters = _counters()
+    _reset_counts()
+    seen, records = set(), []
+    for mode, n_steps in (("lm", 4), ("lora", 2), ("dpo", 2)):
+        tx = make_optimizer(tc)
+        trained, step_fn, cv_fn = make_lm_step_fn(
+            cfg, tc, tx, params, dpo=mode == "dpo", lora=mode == "lora", lora_rank=8,
+            gen=torch.Generator(device=dev).manual_seed(1), timer=timer)
+        state = init_train_state(trained, tx)
+        initial = [x.clone() for x in tree_leaves(trained)] if mode == "lm" else None
+        for i in range(n_steps):
+            b, layouts = batch(len(records), rejected=mode == "dpo")
+            seen.update(layouts)
+            timer.reset()
+            _reset_peak()
+            t0 = time.perf_counter()
+            state, m = step_fn(state, b)
+            loss, grad_norm = float(m["loss"]), float(m["grad_norm"])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = timer.summary()
+            rec = dict(mode=mode, step=state.step, loss=loss, grad_norm=grad_norm, ms=wall * 1e3,
+                       tokens=int(b["lengths"].sum()), peak=torch.cuda.max_memory_allocated(),
+                       **{k: st[k]["total_s"] * 1e3 for k in ("forward", "backward", "optimizer")})
+            if initial is not None:
+                rec["unchanged"] = all(torch.equal(a, x) for a, x in
+                                       zip(tree_leaves(state.params), initial))
+            records.append(rec)
+            print(f"LM train {mode} step {rec['step']}: B=2 rows {layouts}, {rec['tokens']} "
+                  f"tokens (each row padded to 600), loss {loss:.4f} grad_norm {grad_norm:.4f}; "
+                  f"{rec['ms']:.1f} ms (forward {rec['forward']:.1f}, backward "
+                  f"{rec['backward']:.1f}, optimizer {rec['optimizer']:.1f}), "
+                  f"{rec['tokens'] / wall:.0f} tokens/s, peak {rec['peak'] / 2**30:.2f} GiB"
+                  + ("" if initial is None else
+                     f"; parameters {'unchanged' if rec['unchanged'] else 'updated'}")
+                  + f" [{card}]")
+        if mode == "lm":
+            with torch.no_grad():
+                cv = cv_fn(state.params, batch(99)[0])
+            print(f"LM train CV: loss {float(cv['loss']):.4f} acc {float(cv['acc']):.4f} [{card}]")
+            records.append(dict(mode="cv", loss=float(cv["loss"]), grad_norm=1.0))
+        del state, trained, step_fn, cv_fn, tx
+        gc.collect()
+        torch.cuda.empty_cache()
+    launches = [f.launches for f in counters]
+    finite = all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0
+                 for r in records)
+    multisteps = [r["unchanged"] for r in records if "unchanged" in r] == [True] * 3 + [False]
+    ok = finite and multisteps and seen == {"unistream", "bistream"} and not any(launches)
+    print(f"LM training phase: losses and gradient norms finite: {finite}; parameters unchanged "
+          f"after steps 1-3 and updated at step 4 (MultiSteps): {multisteps}; layouts seen "
+          f"{sorted(seen)}; K1/K3/K4/K2 launches {launches}; peak memory "
+          f"{max(r.get('peak', 0) for r in records) / 2**30:.2f} GiB [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the LM training phase failed its checks")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
 
@@ -3059,6 +3465,7 @@ def main() -> None:
     check_small_stream()
     check_small_session()
     check_small_engine()
+    check_small_bistream()
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
@@ -3081,11 +3488,17 @@ def main() -> None:
     engine_shapes, engine_launches, engine_decodes, engine_k2 = engine_path(card)
     new_paths["engine"] = (engine_shapes, engine_launches)
     new_paths["tts_batch6"] = batch6_path(card)
+    # bistream (streaming text in), on the default backbone and on Qwen3-0.6B
+    bis_shapes, bis_launches, bis_decodes, bis_k2 = bistream_path(card)
+    q3_shapes, q3_launches, q3_decodes, q3_k2 = bistream_path(card, "hf:Qwen/Qwen3-0.6B")
+    new_paths["bistream"] = (bis_shapes, bis_launches)
+    new_paths["qwen3"] = (q3_shapes, q3_launches)
     for name, (shapes_, _) in new_paths.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
         worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
                                                    f" {name}") for lens, t, chunk in cases]))
     steps, train_launches = train_path(card)
+    lm_train_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
@@ -3097,10 +3510,13 @@ def main() -> None:
     k1_stream, _ = time_flash_attention(stream_shapes, stream_launches, card)
     k1_new = {name: time_flash_attention(shapes_, launches_, card)[0]
               for name, (shapes_, launches_) in new_paths.items()}
-    # K2 at the int8 path's shapes, the int8 stream's (its prefill at M = 64) and
+    # K2 at the int8 path's shapes, the int8 stream's (its prefill at M = 64),
     # the int8 engine's (each prefill_row at M = its bucket, each step at M = 4)
-    k2_times = time_int8_matmul(decodes + [int8_stream_decode] + engine_decodes,
-                                int8_launches[3] + int8_stream_k2 + engine_k2, card)
+    # and the int8 bistream requests' (extends at M = 64, steps at M = 1; the
+    # Qwen3 backbone's at its own (N, K))
+    k2_times = time_int8_matmul(
+        decodes + [int8_stream_decode] + engine_decodes + bis_decodes + q3_decodes,
+        int8_launches[3] + int8_stream_k2 + engine_k2 + bis_k2 + q3_k2, card)
     k2 = _kernel_row("int8_matmul", i8.DECODE_SOURCE, "int8_matmul.py:31", k2_times,
                      bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
                      by_design=k2_times["by_design"])

@@ -14,6 +14,9 @@ caller asks for the CPU:
     model = cosy.load(seed=0, download=False)      # random weights, on "cuda"
     wav, sr = model.tts("Bonjour !", prompt)       # prompt: dict of artifacts
     int8 = cosy.load(seed=0, download=False, lm_quant="int8")  # int8 LM (kernel K2)
+    for chunk in model.stream_text(iter(["Bonjour ", "tout le ", "monde."]), prompt):
+        ...                                       # text in as it arrives (bistream)
+    qwen3 = cosy.load(backbone="hf:Qwen/Qwen3-0.6B", seed=0, download=False)
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False: HiFT's fp32 phase math
@@ -22,6 +25,7 @@ does not tolerate TF32.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Iterator, Optional, Tuple
 
@@ -31,7 +35,8 @@ import torch
 from cosyvoice2_eu_torch.config import TTSConfig
 
 __version__ = "0.1.0"
-__all__ = ["load", "Cosy2EU", "TTSConfig", "resolve_checkpoint_files", "__version__"]
+__all__ = ["load", "Cosy2EU", "TTSConfig", "resolve_checkpoint_files", "resolve_backbone",
+           "__version__"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, "none": None}
 
@@ -167,11 +172,85 @@ class Cosy2EU:
         for seg in segments:
             yield from self._model.tts(build(seg, prompt_art), stream=stream, speed=speed)
 
+    def stream_text(
+        self,
+        text_iter,
+        prompt,
+        *,
+        prompt_text: str = "",
+        speed: float = 1.0,
+        **precomputed,
+    ) -> Iterator[np.ndarray]:
+        """Streaming text in, streaming audio out: each text piece (from an
+        upstream LLM, say) is tokenized on its own as it arrives (empty
+        pieces are skipped) and drives the LM's fill-token protocol
+        (zero-shot); yields waveform chunks (1, t) float32."""
+        prompt_art = self._prepare(prompt, prompt_text, **precomputed)
+        inputs = self._frontend.frontend_zero_shot("", prompt_art)
+
+        def chunks():
+            for piece in text_iter:
+                toks = self._frontend.text_tokens(piece)
+                if len(toks):
+                    yield toks
+
+        for chunk in self._model.tts_stream_text(chunks(), inputs, speed=speed):
+            yield chunk[None]
+
     def add_zero_shot_spk(self, prompt_text: str, prompt, spk_id: str) -> bool:
         """Store a prompt's artifacts (from a wav path, a waveform or a dict)
         under ``spk_id`` in the frontend's speaker store
         (``_frontend.get_spk(spk_id)`` gives them back)."""
         return self._frontend.add_zero_shot_spk(spk_id, self._prepare(prompt, prompt_text))
+
+
+def resolve_backbone(backbone: Optional[str], model_dir: Optional[str] = None):
+    """The reference's ``--backbone`` surface -> (backbone config or None,
+    tokenizer dir or None, use_bistream).
+
+    None or "blanken" keep the default Qwen2-0.5B BlankEN backbone
+    (unistream decode).  "hf:<id-or-path>", "local:<path>" or a bare path
+    name an alternative HF backbone, read from the ``config.json`` at the
+    path (``model_type`` "qwen3" turns on the per-head q/k norms); a path
+    without one whose name says Qwen3 gets ``qwen3_0_6b_config`` (the
+    published Qwen3-0.6B widths, nothing downloaded); anything else raises
+    ValueError.  An alternative backbone decodes through the bistream
+    fill-token protocol, as the reference routes them.  ``model_dir`` is
+    not read (the reference's signature).
+    """
+    if backbone in (None, "blanken"):
+        return None, None, False
+    path = backbone.split(":", 1)[1] if backbone.startswith(("hf:", "local:")) else backbone
+    cfg_json = os.path.join(path, "config.json")
+    if os.path.exists(cfg_json):
+        import json
+
+        from cosyvoice2_eu_torch.config import Qwen2Config
+
+        with open(cfg_json) as f:
+            hf = json.load(f)
+        heads = hf.get("num_attention_heads", 14)
+        model_type = hf.get("model_type", "qwen2")
+        bb = Qwen2Config(
+            vocab_size=hf.get("vocab_size", 151936),
+            hidden_size=hf.get("hidden_size", 896),
+            intermediate_size=hf.get("intermediate_size", 4864),
+            num_layers=hf.get("num_hidden_layers", 24),
+            num_heads=heads,
+            num_kv_heads=hf.get("num_key_value_heads", heads),
+            head_dim=hf.get("head_dim", hf.get("hidden_size", 896) // heads),
+            rms_norm_eps=hf.get("rms_norm_eps", 1e-6),
+            rope_theta=hf.get("rope_theta", 1_000_000.0),
+            use_qk_norm=model_type == "qwen3",
+            attention_bias=hf.get("attention_bias", model_type == "qwen2"),
+        )
+        return bb, path, True
+    if "qwen3" in path.lower().replace("-", "").replace("_", ""):
+        from cosyvoice2_eu_torch.config import qwen3_0_6b_config
+
+        return qwen3_0_6b_config(), None, True
+    raise ValueError(f"cannot resolve backbone {backbone!r}: no config.json at {path} "
+                     "(pass a local checkout)")
 
 
 def _snapshot_download(repo_id: str, required: bool = False) -> Optional[str]:
@@ -249,8 +328,13 @@ def load(
     "cuda" and raises when there is no GPU; pass "cpu" for the plain
     PyTorch path.  ``lm_quant="int8"`` stores the LM's projections as
     per-channel int8 (kernel K2 on the card); any value but None and "int8"
-    raises.  ``backbone`` takes None or "blanken" (the default Qwen2
-    backbone).  Batched synthesis is ``load(...)._model.tts_batch(prompts)``
+    raises.  ``backbone`` (``resolve_backbone``) takes None or "blanken"
+    (the default Qwen2 backbone), or an alternative HF backbone
+    ("hf:<id-or-path>", "local:<path>"), whose config replaces
+    ``cfg.llm.backbone`` and whose LM decodes through the bistream
+    fill-token protocol; its directory gives the tokenizer when it holds
+    tokenizer files (a ``model_dir``'s ``llm.pt`` is converted at the
+    backbone's widths).  Batched synthesis is ``load(...)._model.tts_batch(prompts)``
     over the frontend's ``PromptInputs``.
     """
     from cosyvoice2_eu_torch.frontend.frontend import Frontend
@@ -259,12 +343,16 @@ def load(
     from cosyvoice2_eu_torch.utils.device import resolve_device
 
     dev = resolve_device(device)
-    if backbone not in (None, "blanken"):
-        raise NotImplementedError(
-            "alternative backbones (the v1 family) are not ported yet: ROADMAP item 9")
     if model_dir is None and config is None and params is None and download is not False:
         model_dir = _snapshot_download(repo_id, required=download is True)
     cfg = config or TTSConfig()
+    bb_cfg, bb_tokenizer_dir, use_bistream = resolve_backbone(backbone, model_dir)
+    if bb_cfg is not None:
+        cfg = dataclasses.replace(cfg, llm=dataclasses.replace(cfg.llm, backbone=bb_cfg))
+    if bb_tokenizer_dir is not None and not any(
+            os.path.exists(os.path.join(bb_tokenizer_dir, f))
+            for f in ("tokenizer.json", "vocab.json")):
+        bb_tokenizer_dir = None  # a backbone checkout without tokenizer files
     if params is None and model_dir is not None:
         from cosyvoice2_eu_torch.runtime.checkpoint import (
             convert_flow,
@@ -295,7 +383,7 @@ def load(
     if isinstance(compute_dtype, str):
         compute_dtype = _DTYPES[compute_dtype]
     model = TTSModel(cfg, params, seed=seed, compute_dtype=compute_dtype, device=dev,
-                     lm_quant=lm_quant, tp=tp)
+                     lm_quant=lm_quant, use_bistream=use_bistream, tp=tp)
     speech_tokenizer_fn = spk_embedding_fn = None
     if model_dir is not None:
         from cosyvoice2_eu_torch.runtime.onnx_fallback import load_frontend_fns
@@ -303,7 +391,7 @@ def load(
         speech_tokenizer_fn, spk_embedding_fn = load_frontend_fns(
             os.path.join(model_dir, "speech_tokenizer_v2.onnx"),
             os.path.join(model_dir, "campplus.onnx"), device=dev)
-    frontend = Frontend(cfg, tokenizer=get_tokenizer(model_dir or ""),
+    frontend = Frontend(cfg, tokenizer=get_tokenizer(bb_tokenizer_dir or model_dir or ""),
                         speech_tokenizer_fn=speech_tokenizer_fn,
                         spk_embedding_fn=spk_embedding_fn, device=dev)
     if model_dir is not None:

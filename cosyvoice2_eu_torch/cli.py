@@ -70,8 +70,8 @@ def main(argv=None):
     parser.add_argument("--mode", type=str, default="cross_lingual",
                         choices=["cross_lingual", "zero_shot"])
     parser.add_argument("--backbone", type=str, default=None,
-                        help="blanken (the default backbone); others are not ported yet "
-                        "(ROADMAP item 9)")
+                        help="blanken | hf:<id-or-path> | local:<path>; backbones other "
+                        "than BlankEN decode through the bistream fill-token protocol")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     parser.add_argument("--clear-cache", action="store_true")
     args = parser.parse_args(argv)

@@ -32,6 +32,25 @@ class Qwen2Config:
     attention_bias: bool = True
 
 
+def qwen3_0_6b_config() -> Qwen2Config:
+    """Qwen3-0.6B backbone (the reference's ``--backbone hf:Qwen/Qwen3-0.6B``):
+    the published ``config.json``'s widths, per-head q/k norms, no attention
+    bias."""
+    return Qwen2Config(
+        vocab_size=151936,
+        hidden_size=1024,
+        intermediate_size=3072,
+        num_layers=28,
+        num_heads=16,
+        num_kv_heads=8,
+        head_dim=128,
+        rms_norm_eps=1e-6,
+        rope_theta=1_000_000.0,
+        use_qk_norm=True,
+        attention_bias=False,
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class LMConfig:
     """Speech-token LM wrapper around the Qwen2 backbone."""

@@ -9,6 +9,11 @@ row has finished (one device sync per token).
 ``lm_decode`` is ``lm_prefill`` followed by ``lm_decode_chunk`` run to
 the end; streaming resumes ``lm_decode_chunk`` hop by hop on one state.
 
+The bistream protocol (``BistreamState``, ``bs_init``, ``bs_extend``,
+``bs_decode``, ``lm_inference_bistream``) takes text as it arrives: one
+session's cache grows at a cursor, text and speech interleave 5:15, and the
+model asks for more text with the FILL token.
+
 The serving engine's slot API (``SlotState``, ``slots_init``,
 ``slot_prefill``, ``prefill_row``, ``slot_insert``, ``slots_decode``) keeps
 ``n_slots`` independent requests in one static (n_slots, max_cache) KV
@@ -22,21 +27,32 @@ step's Gumbel vectors ``(gumbel_nuc (B, top_k), gumbel_full (B, V))``;
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Callable, Optional
+from typing import Callable, Iterable, Optional
 
+import numpy as np
 import torch
 
 from cosyvoice2_eu_torch.config import LMConfig
 from cosyvoice2_eu_torch.models.qwen2 import (
     KVCache,
+    _layer_forward,
     init_qwen2,
     qwen2_decode_step,
     qwen2_forward,
     qwen2_prefill,
+    rope_cos_sin,
 )
+from cosyvoice2_eu_torch.ops.masks import NEG_INF
 from cosyvoice2_eu_torch.ops.sampling import gumbel, ras_sample
-from cosyvoice2_eu_torch.utils.params import dense, embedding, init_dense, init_embedding
+from cosyvoice2_eu_torch.utils.params import (
+    dense,
+    embedding,
+    init_dense,
+    init_embedding,
+    rms_norm,
+)
 
 SRC_SPECIAL = 0  # llm_embedding table (sos_eos / task_id)
 SRC_TEXT = 1  # backbone embed_tokens
@@ -195,6 +211,224 @@ def lm_training_hidden(params, cfg: LMConfig, ids, src, valid):
     embeds = embed_mixed(params, ids, src)
     hidden = qwen2_forward(params["backbone"], cfg.backbone, embeds, valid)
     return dense(params["llm_decoder"], hidden)
+
+
+# ---------------------------------------------------------------------------
+# bistream decode (streaming text input, reference llm.py:721-834)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class BistreamState:
+    """One session's cursor cache: slots [0, cache_len) are valid and
+    contiguous (prompt segments and generated tokens interleave freely).
+    The counters are host ints; ``step`` counts the request's decode steps,
+    forced fills and special tokens included, and indexes its draws."""
+
+    kv: KVCache
+    cache_len: int
+    last_hidden: torch.Tensor  # (1, H) hidden of the last consumed position
+    recent: torch.Tensor  # (win_size,) RAS window over emitted tokens
+    n_out: int  # emitted speech tokens
+    step: int = 0
+
+
+def _device(params) -> torch.device:
+    return params["speech_embedding"]["weight"].device
+
+
+def bs_init(params, cfg: LMConfig, max_cache: int) -> BistreamState:
+    dev = _device(params)
+    return BistreamState(
+        kv=KVCache.zeros(cfg.backbone, 1, max_cache, device=dev),
+        cache_len=0,
+        last_hidden=torch.zeros((1, cfg.backbone.hidden_size), device=dev),
+        recent=torch.full((cfg.win_size,), -1, dtype=torch.long, device=dev),
+        n_out=0,
+    )
+
+
+def bs_extend(params, cfg: LMConfig, state: BistreamState, ids, src,
+              seg_len: int) -> BistreamState:
+    """Append a right-padded (1, S) segment at the cache cursor; last_hidden
+    becomes the hidden state at ``seg_len - 1``.
+
+    Query i sits at RoPE position ``cache_len + i`` and sees the slots
+    ``< cache_len + i + 1``.  The segment's K/V go to the slots from
+    ``cache_len`` on as far as the cache reaches: the pad rows past its end
+    are dropped (a pad slot stays invisible until a later write), and the
+    ``seg_len`` valid rows always land at the cursor.  The JAX package
+    writes the whole padded segment with ``dynamic_update_slice``, whose
+    start XLA clamps so that the segment fits: past ``max_cache - S`` it
+    lands early, over valid slots, and its queries see their own segment's
+    later tokens.  Raises ValueError when the valid rows do not fit.
+    """
+    bb = cfg.backbone
+    s = ids.shape[1]
+    max_cache = state.kv.k.shape[3]
+    start = state.cache_len
+    if start + seg_len > max_cache:
+        raise ValueError(f"a segment of {seg_len} tokens at cache position {start} does not "
+                         f"fit a cache of {max_cache} slots")
+    n = min(start + s, max_cache)  # slots the segment's queries can see
+    pos = start + torch.arange(s, device=ids.device)
+    visible = torch.arange(n, device=ids.device)[None, :] < (pos[:, None] + 1)
+    bias = torch.where(visible, 0.0, NEG_INF)[None, None]  # (1, 1, S, n)
+    cos, sin = rope_cos_sin(pos, bb)
+    x = embed_mixed(params, ids, src)
+    for i, lp in enumerate(params["backbone"]["layers"]):
+        x = _layer_forward(lp, bb, x, cos, sin, bias, kv=state.kv, layer_idx=i,
+                           write_at=start, attn_len=n)
+    x = rms_norm(params["backbone"]["norm"], x, bb.rms_norm_eps)
+    state.last_hidden = x[:, seg_len - 1]
+    state.cache_len = start + seg_len
+    return state
+
+
+def bs_decode(params, cfg: LMConfig, state: BistreamState, next_fill_index: int,
+              allow_eos: bool, max_emit: int, draws: Draws):
+    """Decode until a FILL token (stop 1), EOS when ``allow_eos`` (stop 2),
+    or ``max_emit`` emitted tokens or the cache's last slot (stop 0).
+
+    Forced fills fire when ``n_out == next_fill_index`` (>= 0) and move it
+    by ``mix_ratio[1] + 1``; a sampled FILL sets it to ``n_out +
+    mix_ratio[1] + 1``.  Without ``allow_eos`` only the exact EOS id is
+    banned (FILL stays samplable).  Every special id is fed back through
+    the backbone but never emitted, and the RAS window moves only on
+    emitted tokens.  Every step takes ``draws(state.step)`` (forced fills
+    too, as JAX splits its key on every step).  One host sync a step.
+
+    Returns (state, emitted tokens (list of int), next_fill_index, stop).
+    """
+    bb = cfg.backbone
+    max_cache = state.kv.k.shape[3]
+    fill_id = cfg.speech_token_size + 2
+    dev = state.recent.device
+    fill = torch.tensor([fill_id], device=dev)
+    no_ban = torch.zeros((1,), dtype=torch.bool, device=dev)
+    eos_ban = torch.zeros((cfg.full_vocab,), device=dev)
+    eos_ban[cfg.eos_token] = float("-inf")
+    out: list = []
+    nfi, stop = next_fill_index, 0
+    while stop == 0 and len(out) < max_emit and state.cache_len < max_cache - 1:
+        logits = dense(params["llm_decoder"], state.last_hidden).float()
+        logp = torch.log_softmax(logits, dim=-1)
+        if not allow_eos:
+            logp = logp + eos_ban
+        gumbel_nuc, gumbel_full = draws(state.step)
+        sampled = ras_sample(logp, state.recent[None], no_ban, cfg.full_vocab, gumbel_nuc,
+                             gumbel_full, top_p=cfg.top_p, top_k=cfg.top_k,
+                             win_size=cfg.win_size, tau_r=cfg.tau_r)
+        forced = nfi >= 0 and state.n_out == nfi
+        tok = fill_id if forced else int(sampled[0])
+        if forced:
+            nfi += cfg.mix_ratio[1] + 1
+        elif tok == fill_id:
+            nfi = state.n_out + cfg.mix_ratio[1] + 1
+        emit = tok < cfg.speech_token_size
+        if emit:
+            out.append(tok)
+            state.recent = torch.cat([state.recent[1:], sampled])
+
+        embed = embedding(params["speech_embedding"], fill if forced else sampled)
+        visible = torch.ones((1, state.cache_len + 1), dtype=torch.bool, device=dev)
+        state.last_hidden, state.kv = qwen2_decode_step(
+            params["backbone"], bb, embed, torch.tensor([state.cache_len], device=dev),
+            state.cache_len, visible, state.kv)
+        state.cache_len += 1
+        state.n_out += int(emit)
+        state.step += 1
+        stop = 1 if tok == fill_id else 2 if tok == cfg.eos_token else 0
+    return state, out, nfi, stop
+
+
+def lm_inference_bistream(
+    params,
+    cfg: LMConfig,
+    text_chunks: Iterable,
+    prompt_text: np.ndarray,
+    prompt_speech: np.ndarray,
+    draws: Draws,
+    max_cache: int = 2048,
+    seg_bucket: int = 64,
+    chunk_capacity: int = 64,
+    timer=None,
+):
+    """Streaming-text decode: a generator of speech token ids (ints).
+
+    As the reference's inference_bistream: ``sos``; the prompt text and
+    the prompt speech interleaved ``mix_ratio`` (5:15) as text arrives,
+    every pair a text piece unlocks coalesced into ``seg_bucket``-sized
+    extends; then ``mix_ratio[0]`` more text tokens, and decoding until the
+    model asks for more text with FILL; at the end, the remaining text and
+    ``task_id``, and decoding to EOS or until no token comes.
+
+    draws: ``draws(step) -> (gumbel_nuc (1, top_k), gumbel_full (1, V))``,
+    indexed by the request's decode step across every ``bs_decode`` call
+    (``generator_draws(gen, 1, cfg)`` draws them from a generator).
+    ``timer`` (a ``StageTimer``, optional) records the stages "bs_extend"
+    and "bs_decode".
+    """
+    stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
+    dev = _device(params)
+    mt, ms = cfg.mix_ratio
+
+    def extend(st, pairs):  # pairs: [(id, src)], at most seg_bucket
+        seg = np.zeros((2, 1, seg_bucket), np.int64)
+        seg[:, 0, :len(pairs)] = np.asarray(pairs, np.int64).T
+        ids, src = torch.from_numpy(seg).to(dev)
+        with stage("bs_extend"):
+            return bs_extend(params, cfg, st, ids, src, len(pairs))
+
+    def extend_all(st, pairs):
+        for start in range(0, len(pairs), seg_bucket):
+            st = extend(st, pairs[start:start + seg_bucket])
+        return st
+
+    def decode(st, nfi, allow_eos):
+        with stage("bs_decode"):
+            return bs_decode(params, cfg, st, nfi, allow_eos, chunk_capacity, draws)
+
+    state = extend(bs_init(params, cfg, max_cache), [(cfg.sos_eos, SRC_SPECIAL)])
+    text_cache = [int(t) for t in prompt_text]
+    speech_left = [int(t) for t in prompt_speech]
+    next_fill = -1
+    need_text = True  # nothing appended beyond sos yet
+
+    for this_text in text_chunks:
+        text_cache.extend(int(t) for t in this_text)
+        # interleave the prompt speech with text 5:15 as far as the text goes
+        pairs = []
+        while speech_left and len(text_cache) >= mt:
+            pairs += [(t, SRC_TEXT) for t in text_cache[:mt]] + [
+                (s, SRC_SPEECH) for s in speech_left[:ms]]
+            text_cache, speech_left = text_cache[mt:], speech_left[ms:]
+        state = extend_all(state, pairs)
+        if speech_left:
+            continue  # wait for more text to finish the interleave
+        if need_text:
+            if len(text_cache) < mt:
+                continue  # wait for more text
+            state = extend(state, [(t, SRC_TEXT) for t in text_cache[:mt]])
+            text_cache = text_cache[mt:]
+            need_text = False
+        # decode until the model asks for more text with a FILL token
+        while True:
+            state, out, next_fill, stop = decode(state, next_fill, False)
+            yield from out
+            if stop == 1:
+                need_text = True
+                break
+            if not out:
+                break
+
+    # the remaining text and the task id, then decode to EOS
+    state = extend_all(state, [(t, SRC_TEXT) for t in text_cache] + [(cfg.task_id, SRC_SPECIAL)])
+    while True:
+        state, out, next_fill, stop = decode(state, -1, True)
+        yield from out
+        if stop == 2 or not out:
+            break
 
 
 # ---------------------------------------------------------------------------

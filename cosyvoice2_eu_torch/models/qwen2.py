@@ -126,9 +126,10 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
             rows = torch.arange(b, device=write_at.device)
             kv.k[layer_idx][rows, :, write_at] = k[:, :, 0].to(kv.k.dtype)
             kv.v[layer_idx][rows, :, write_at] = v[:, :, 0].to(kv.v.dtype)
-        else:
-            kv.k[layer_idx, :, :, write_at:write_at + t] = k.to(kv.k.dtype)
-            kv.v[layer_idx, :, :, write_at:write_at + t] = v.to(kv.v.dtype)
+        else:  # rows past the cache's end are not written (a segment's pad rows)
+            fit = min(t, kv.k.shape[3] - write_at)
+            kv.k[layer_idx, :, :, write_at:write_at + fit] = k[:, :, :fit].to(kv.k.dtype)
+            kv.v[layer_idx, :, :, write_at:write_at + fit] = v[:, :, :fit].to(kv.v.dtype)
         n = kv.k.shape[3] if attn_len is None else attn_len
         att = _attention(q, kv.k[layer_idx, :, :, :n].to(q.dtype),
                          kv.v[layer_idx, :, :, :n].to(q.dtype), bias, groups)

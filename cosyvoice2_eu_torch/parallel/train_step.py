@@ -1,13 +1,13 @@
-"""Flow (CFM) training step, in PyTorch.
+"""Training steps (speech LM, flow CFM), in PyTorch.
 
-Counterpart of the flow half of ``cosyvoice2_eu_tpu/parallel/train_step.py``
-(``TrainState``, ``init_train_state``, ``flow_loss_fn``,
-``make_flow_train_step``), on one device.  The random draws that JAX makes
-from a key are a dict of tensors (``make_flow_draws`` makes them from a
-``torch.Generator``); gradients come from ``torch.autograd.grad`` over the
-parameter tree, and a leaf that gets none (the fixed inference noise
-``rand_noise``) gets zeros, as ``jax.value_and_grad`` gives it.  The LM
-step comes with LM training.
+Counterpart of ``cosyvoice2_eu_tpu/parallel/train_step.py``
+(``TrainState``, ``init_train_state``, ``lm_loss_fn``,
+``make_lm_train_step``, ``flow_loss_fn``, ``make_flow_train_step``), on one
+device.  The random draws that JAX makes from a key are a dict of tensors
+(``make_flow_draws`` makes them from a ``torch.Generator``); gradients come
+from ``torch.autograd.grad`` over the parameter tree, and a leaf that gets
+none (the fixed inference noise ``rand_noise``) gets zeros, as
+``jax.value_and_grad`` gives it.  Every step is ``make_step`` over its loss.
 """
 
 from __future__ import annotations
@@ -17,11 +17,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from cosyvoice2_eu_torch.config import FlowConfig, TrainConfig
+from cosyvoice2_eu_torch.config import FlowConfig, LMConfig, TrainConfig
 from cosyvoice2_eu_torch.models.encoder import upsample_conformer_forward
 from cosyvoice2_eu_torch.models.estimator import estimator_forward
+from cosyvoice2_eu_torch.models.llm import lm_training_hidden
 from cosyvoice2_eu_torch.ops.masks import make_non_pad_mask
-from cosyvoice2_eu_torch.train.losses import cfm_loss
+from cosyvoice2_eu_torch.train.losses import cfm_loss, label_smoothing_ce
 from cosyvoice2_eu_torch.train.optim import Optimizer, global_norm
 from cosyvoice2_eu_torch.utils.params import dense, embedding, tree_leaves, tree_map
 from cosyvoice2_eu_torch.utils.profiling import StageTimer
@@ -36,6 +37,32 @@ class TrainState(NamedTuple):
 def init_train_state(params, tx: Optimizer) -> TrainState:
     return TrainState(params, tx.init(params), 0)
 
+
+# ---------------------------------------------------------------------------
+# speech LM
+# ---------------------------------------------------------------------------
+
+def lm_loss_fn(params, cfg: LMConfig, batch: dict, train_cfg: TrainConfig):
+    """batch: packed ids/src/target (B, T) and lengths (B,), as
+    ``train/sequences.py::build_lm_batch`` makes them (unistream or
+    bistream rows).  Returns (loss, {"loss", "acc"}): the label-smoothing CE
+    of the logits over the valid positions."""
+    valid = make_non_pad_mask(batch["lengths"], batch["ids"].shape[1])
+    logits = lm_training_hidden(params, cfg, batch["ids"], batch["src"], valid)
+    loss, acc = label_smoothing_ce(logits, batch["target"], smoothing=cfg.lsm_weight,
+                                   normalize_length=cfg.length_normalized_loss)
+    return loss, {"loss": loss, "acc": acc}
+
+
+def make_lm_train_step(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer,
+                       timer: Optional[StageTimer] = None):
+    """step(state, batch) -> (state, {"loss", "acc", "grad_norm"})."""
+    return make_step(lambda p, batch: lm_loss_fn(p, cfg, batch, train_cfg), tx, timer)
+
+
+# ---------------------------------------------------------------------------
+# flow (CFM)
+# ---------------------------------------------------------------------------
 
 def make_flow_draws(gen: torch.Generator, batch: dict, n_mels: int) -> dict:
     """The draws of one flow step, with the shapes JAX draws them in.
@@ -131,21 +158,27 @@ def value_and_grad(loss_fn, params, stage=_no_stage):
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
 
 
-def make_flow_train_step(cfg: FlowConfig, train_cfg: TrainConfig, tx: Optimizer,
-                         timer: Optional[StageTimer] = None):
-    """step(state, batch, draws, streaming=False) -> (state, {"loss", "grad_norm"}).
-
-    ``timer`` (optional) records the stages "forward", "backward" and
-    "optimizer" of every step.
-    """
+def make_step(loss_fn, tx: Optimizer, timer: Optional[StageTimer] = None):
+    """step(state, *args) -> (state, metrics): ``loss_fn(params, *args) ->
+    (loss, metrics)`` differentiated over ``state.params``, then the
+    optimizer; the metrics gain ``grad_norm``, the global norm of the
+    gradients.  ``timer`` (optional) records the stages "forward",
+    "backward" and "optimizer" of every step."""
     stage = timer.stage if timer is not None else _no_stage
 
-    def step(state: TrainState, batch: dict, draws: dict, streaming: bool = False):
-        (_, metrics), grads = value_and_grad(
-            lambda p: flow_loss_fn(p, cfg, batch, draws, streaming), state.params, stage)
+    def step(state: TrainState, *args, **kwargs):
+        (_, metrics), grads = value_and_grad(lambda p: loss_fn(p, *args, **kwargs),
+                                             state.params, stage)
         with stage("optimizer"):
             params, opt_state = tx.step(state.params, grads, state.opt_state)
             metrics = dict(metrics, grad_norm=global_norm(grads))
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return step
+
+
+def make_flow_train_step(cfg: FlowConfig, train_cfg: TrainConfig, tx: Optimizer,
+                         timer: Optional[StageTimer] = None):
+    """step(state, batch, draws, streaming=False) -> (state, {"loss", "grad_norm"})."""
+    return make_step(lambda p, batch, draws, streaming=False:
+                     flow_loss_fn(p, cfg, batch, draws, streaming), tx, timer)

@@ -25,8 +25,15 @@ recompute loop.  ``_stream_chunk_batch`` is the serving engine's steady
 chunk over several sessions at once.  ``vc`` re-synthesizes source speech
 tokens in the prompt's voice without the LM.
 
-Not ported yet, and raising ``NotImplementedError``: bistream decode
-(ROADMAP item 7) and tensor-parallel decode (item 8g).
+``use_bistream=True`` routes ``tts`` through the LM's fill-token protocol
+(``lm_inference_bistream``), feeding the target text in ``mix_ratio[0]``-token
+pieces, as the reference does for backbones other than BlankEN;
+``tts_stream_text`` takes text pieces as they arrive.  As in the JAX
+package, ``tts_batch``, ``vc`` and the serving engine do not route through
+it.
+
+Not ported yet, and raising ``NotImplementedError``: tensor-parallel decode
+(ROADMAP item 8g).
 """
 
 from __future__ import annotations
@@ -112,8 +119,6 @@ class TTSModel:
         in the final recompute)."""
         if lm_quant not in (None, "int8"):
             raise ValueError(f"unknown lm_quant {lm_quant!r}: expected None or 'int8'")
-        if use_bistream:
-            raise NotImplementedError("bistream decode is not ported yet: ROADMAP item 7")
         if tp:
             raise NotImplementedError("tensor-parallel decode is not ported yet: ROADMAP item 8g")
         self.cfg = cfg
@@ -137,6 +142,7 @@ class TTSModel:
         self.last_batch_tokens: list = []  # per prompt, by the last tts_batch call
         self.last_decode_steps = 0  # decode steps of the last tts or tts_batch call
         self.cached_stream = cached_stream
+        self.use_bistream = use_bistream
         self.stream_max_tokens = stream_max_tokens
         self.stream_rollover = stream_rollover
         self.stream_rollover_window = stream_rollover_window
@@ -517,8 +523,17 @@ class TTSModel:
         and ``sine_source``; ``hift_draws`` is called once per HiFT call, in
         order); by default the LM draws from a generator seeded by one draw
         of ``self.generator`` at the start of the call, HiFT from
-        ``self.generator``.
+        ``self.generator``.  Under ``use_bistream`` the LM runs the fill-token
+        protocol (``lm_draws`` indexed by its decode step) and the tokens go
+        through ``_wav_from_token_gen``.
         """
+        if self.use_bistream:
+            text = prompt.text_tokens.astype(np.int32)
+            mt = self.cfg.llm.mix_ratio[0]
+            pieces = (text[i: i + mt] for i in range(0, len(text), mt))
+            yield from self._wav_from_token_gen(self._bistream_tokens(pieces, prompt, lm_draws),
+                                                prompt, stream, speed, hift_draws)
+            return
         ids, src, prompt_len, p_bucket, min_len, max_len = self._pack_lm_prompt(prompt)
         # round up to a multiple of 64, capped by the KV-cache capacity
         max_gen = min(((max_len + 63) // 64) * 64, self.cfg.llm.max_seq_len - p_bucket)
@@ -538,6 +553,43 @@ class TTSModel:
             return
         run = self._tts_stream_cached if self.cached_stream else self._tts_stream_recompute
         yield from run(prompt, lm, ids, src, max_gen, speed, hift_draws)
+
+    def _bistream_tokens(self, text_chunks, prompt: PromptInputs,
+                         lm_draws: Optional[llm_mod.Draws] = None):
+        """The speech tokens of the fill-token protocol over ``text_chunks``
+        (arrays of text token ids), with the prompt's text and LM speech
+        tokens; ``last_n_tokens`` and ``last_decode_steps`` follow them.  The
+        LM's own draws are seeded here, injected draws or not, as in ``tts``."""
+        own_draws = self._lm_draws(1)
+        draws = lm_draws or own_draws
+        self.last_n_tokens = self.last_decode_steps = 0
+
+        def counted(step):
+            self.last_decode_steps = step + 1
+            return draws(step)
+
+        def tokens():
+            for tok in llm_mod.lm_inference_bistream(
+                    self.params["llm"], self.cfg.llm, text_chunks,
+                    prompt.prompt_text_tokens.astype(np.int32),
+                    prompt.llm_prompt_speech_tokens.astype(np.int32), draws=counted,
+                    max_cache=self.cfg.llm.max_seq_len, timer=self.timer):
+                self.last_n_tokens += 1
+                yield tok
+
+        return tokens()
+
+    def tts_stream_text(self, text_chunks, prompt: PromptInputs, stream: bool = True,
+                        speed: float = 1.0, lm_draws: Optional[llm_mod.Draws] = None,
+                        hift_draws: Optional[HiftDraws] = None
+                        ) -> Generator[np.ndarray, None, None]:
+        """Streaming text in: arrays of text token ids arrive one by one (from
+        an upstream LLM, say) and waveform chunks come out, through the
+        fill-token protocol end to end.  ``lm_draws`` / ``hift_draws`` as in
+        ``tts``."""
+        chunks = (np.asarray(c, np.int32) for c in text_chunks)
+        yield from self._wav_from_token_gen(self._bistream_tokens(chunks, prompt, lm_draws),
+                                            prompt, stream, speed, hift_draws)
 
     def _tts_stream_recompute(self, prompt: PromptInputs, lm: dict, ids, src, max_gen: int,
                               speed: float,

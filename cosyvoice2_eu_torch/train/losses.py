@@ -1,10 +1,16 @@
 """Training losses, in PyTorch.
 
-Counterpart of ``cosyvoice2_eu_tpu/train/losses.py``: the OT conditional
-flow-matching loss with CFG dropout (reference:
-cosy_repo/cosyvoice/flow/flow_matching.py:152-191).  The random draws are
-inputs: the caller makes them from a ``torch.Generator`` (or, in the parity
-tests, from JAX's key chain).  The LM losses come with LM training.
+Counterpart of ``cosyvoice2_eu_tpu/train/losses.py``:
+
+* label-smoothing cross-entropy and accuracy for the speech LM (reference:
+  cosy_repo/cosyvoice/transformer/label_smoothing_loss.py:21,
+  cosy_repo/cosyvoice/utils/common.py:78);
+* the OT conditional flow-matching loss with CFG dropout (reference:
+  cosy_repo/cosyvoice/flow/flow_matching.py:152-191), whose random draws are
+  inputs: the caller makes them from a ``torch.Generator`` (or, in the
+  parity tests, from JAX's key chain);
+* the sigmoid DPO loss for preference finetuning (reference:
+  cosy_repo/cosyvoice/utils/losses.py:43).
 """
 
 from __future__ import annotations
@@ -12,6 +18,38 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
+
+IGNORE_ID = -1
+
+
+def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.0,
+                       normalize_length: bool = True) -> tuple:
+    """(B, T, V) logits against (B, T) targets padded with IGNORE_ID ->
+    (loss, accuracy).
+
+    KL-style smoothing: the true class gets 1 - smoothing and the others
+    share smoothing / (V - 1), as the reference's LabelSmoothingLoss.  The
+    loss is summed and divided by the supervised positions
+    (``normalize_length``) or by the rows that have any.
+    """
+    v = logits.shape[-1]
+    mask = targets != IGNORE_ID
+    safe_t = torch.where(mask, targets, 0).long()
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    confidence = 1.0 - smoothing
+    other = smoothing / (v - 1)
+    true_logp = torch.gather(logp, -1, safe_t[..., None])[..., 0]
+    if smoothing > 0.0:
+        kl = -(other * logp.sum(-1) + (confidence - other) * true_logp)
+    else:
+        kl = -true_logp
+    kl = torch.where(mask, kl, 0.0)
+    denom = mask.sum() if normalize_length else mask.any(-1).sum()
+    loss = kl.sum() / denom.clamp_min(1)
+    pred = logits.argmax(-1)
+    acc = ((pred == targets) & mask).sum() / mask.sum().clamp_min(1)
+    return loss, acc
 
 
 def cfm_loss(
@@ -51,3 +89,16 @@ def cfm_loss(
     pred = estimator_fn(y, mask, mu, t[:, 0, 0], spks, cond)
     sq = torch.square(pred * mask - u * mask)
     return torch.sum(sq) / (torch.clamp_min(torch.sum(mask), 1.0) * c)
+
+
+def dpo_loss(chosen_logps: torch.Tensor, rejected_logps: torch.Tensor,
+             ref_chosen_logps: torch.Tensor, ref_rejected_logps: torch.Tensor,
+             beta: float = 0.01, label_smoothing: float = 0.0) -> tuple:
+    """Sigmoid DPO -> (loss, chosen reward, rejected reward), each a mean
+    over the batch."""
+    ratio = (chosen_logps - rejected_logps) - (ref_chosen_logps - ref_rejected_logps)
+    losses = (-F.logsigmoid(beta * ratio) * (1 - label_smoothing)
+              - F.logsigmoid(-beta * ratio) * label_smoothing)
+    chosen_rewards = beta * (chosen_logps - ref_chosen_logps)
+    rejected_rewards = beta * (rejected_logps - ref_rejected_logps)
+    return losses.mean(), chosen_rewards.mean(), rejected_rewards.mean()

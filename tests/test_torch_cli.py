@@ -109,12 +109,18 @@ def test_save_wav_clips_to_16_bit(tmp_path):
 
 
 def test_main_paths_not_in_the_port_raise(tmp_path):
-    """``warmup`` (ROADMAP item 10) and a backbone other than blanken (item 9)."""
+    """``warmup`` (ROADMAP item 10).  Alternative backbones are ported now:
+    ``test_main_passes_the_backbone_to_load``."""
     with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
         cli.main(["warmup"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        cli.main(["--text", "x", "--prompt", "p.wav", "--out", str(tmp_path / "o.wav"),
-                  "--device", "cpu", "--backbone", "hf:Qwen/Qwen3-0.6B", "--clear-cache"])
+
+
+def test_main_passes_the_backbone_to_load(fake_load, tmp_path):
+    """``--backbone hf:Qwen/Qwen3-0.6B`` reaches ``load`` as the JAX CLI passes it."""
+    prompt = write_wav(tmp_path / "prompt.wav", 0.4, seed=3)
+    cli.main(["--text", "Oui.", "--prompt", prompt, "--out", str(tmp_path / "o.wav"),
+              "--device", "cpu", "--backbone", "hf:Qwen/Qwen3-0.6B"])
+    assert fake_load[0]["backbone"] == "hf:Qwen/Qwen3-0.6B"
 
 
 def test_snapshot_download_contract(tmp_path, monkeypatch):

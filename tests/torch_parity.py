@@ -65,6 +65,30 @@ def lm_draws_from_key(rng, batch: int, steps: int, top_k: int, vocab: int):
     return lambda step: (torch.tensor(nuc[step]), torch.tensor(full[step]))
 
 
+def bistream_draws_from_key(rng, top_k: int, vocab: int):
+    """The Gumbel draws the bistream decode makes from ``rng`` (the key of
+    ``lm_inference_bistream``), as the port's ``draws(step)``, made as the
+    steps ask for them.
+
+    Chain: llm.py ``bs_decode`` splits (rng, sub) from the state's key on
+    every step (forced fills and special tokens too) and across every call
+    of the request, with no per-row split; ``ras_sample`` splits ``sub``
+    into the nucleus and full-vocabulary keys.
+    """
+    key, made = [rng], []
+
+    def draws(step):
+        while len(made) <= step:
+            key[0], sub = jax.random.split(key[0])
+            k_nuc, k_full = jax.random.split(sub)
+            nuc = jax.random.gumbel(k_nuc, (top_k,), jnp.float32)
+            full = jax.random.gumbel(k_full, (vocab,), jnp.float32)
+            made.append((torch.tensor(np.asarray(nuc))[None], torch.tensor(np.asarray(full))[None]))
+        return made[step]
+
+    return draws
+
+
 def hift_draws_from_key(rng):
     """The draws ``hift.sine_source`` makes from ``rng``, as the port's
     ``hift_draws(batch, length, harmonics)``."""
