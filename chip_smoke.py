@@ -140,6 +140,37 @@ Phases (any failure ends the run with a non-zero exit code):
      batch, 2 LoRA steps (rank 8) and 2 DPO steps; finite losses and
      gradient norms, the update at step 4, no kernel launched; forward /
      backward / optimizer ms per step and peak memory;
+  6c. HiFT GAN training (counts set to 0 before it, read after): first, on
+     the card against the plain CPU path, one discriminator turn and one
+     generator turn of ``make_gan_steps`` on the tiny HiFT with the
+     full-width discriminators (2 crops of hop x 8 samples, the same
+     weights and draws, TF32 off; every loss within 1e-5 relative, every
+     gradient leaf within 1e-4 x max + 1e-7); then at the published widths
+     (``HiFTConfig()``, the MPD and MRD discriminators) 174 in-memory
+     samples of 3-8 s (a harmonic signal of known F0) through the port's
+     pipeline with ``gan=True`` (24480-sample crops, the host mel at fmax
+     8 kHz, the native YIN, ``dynamic_batch`` at 3000 frames: 58 crops a
+     batch) and 3 batches through ``train_gan.train_gan``, each a
+     discriminator turn then a generator turn, and its checkpoint.  Gates:
+     finite losses and no skipped update, both parameter trees moved, every
+     crop's median voiced YIN F0 within 5 Hz of its signal's, no kernel
+     launched.  Prints the batch size, each turn's ms, the host featurize
+     ms per crop (mel and YIN apart) and peak memory;
+  6d. the trainer's command line from the batch iterators down to the
+     checkpoint, each run with its counts set to 0 before it and read
+     after: ``train.run`` (the body of ``train.main`` after the parquet
+     opener) on in-memory samples (French text, a harmonic signal of 4-12
+     s, random speech tokens at 25 Hz, 192-d embeddings) through the
+     pipeline with ``prefetch`` on: ``--model flow`` at ``TTSConfig().flow``
+     for an epoch of 4 steps (accum_grad 4: one emitting step), CV and the
+     epoch's checkpoint, then ``--resume`` to a second epoch, then
+     ``--model llm`` (Qwen2-0.5B, fp32) for 2 steps.  Gates: finite losses
+     and no skipped update, the step counts, the resume continuing at
+     epoch 1, a ``StragglerGuard`` beat a step, K1 (with LSE), K3 and K4 56
+     launches each a flow step and K1 56 a CV batch, every launch on its
+     fp32 design, no launch in the LM's runs; then K3/K4 checked against
+     their plain version at every flow step's shape.  Prints the
+     pipeline's ms a batch beside each step's ms, and peak memory;
   7. kernel timings at the shapes of the paths: K1 on all four (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one), K3 and K4 at
@@ -158,12 +189,15 @@ The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
 bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine,
-tts_batch6, bistream and qwen3 paths, fp32 on the training path), K2's over
+tts_batch6, bistream and qwen3 paths, fp32 on the training path and the
+trainer command line's "cli"), K2's over
 the shapes of the int8 path, the int8 stream, the int8 engine and the int8
 bistream requests, Qwen3's included (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
-and K4's ``plain_ms`` time the plain dQ and dK/dV alone, their
+and K4's times are means per launch over the training path and the
+command line's (each path's under ``by_path``), their
+``plain_ms`` time the plain dQ and dK/dV alone, their
 ``library_ms`` is null (no library call computes one of them alone), and
 ``backward_*ms`` time the whole backward as delta + K3 + K4, the plain
 version and SDPA's; ``fma_bound_ms`` beside K1's and K3/K4's ``bound_ms``
@@ -407,19 +441,20 @@ def tf32_occupancy() -> None:
 
 
 @_uncounted
-def check_flash_backward() -> tuple[float, float]:
+def check_flash_backward(cases=None) -> tuple[float, float]:
     """K3 and K4 against their plain version: B=2 ragged at T from 128 to
     2048, the training path's two batches exactly, and the edges of the
     kernels' 64-row tiles (T 1 to 129, and a row of length 0); fp32 and bf16,
-    chunk 0 and 50.  dQ is compared on every query row (pad rows included),
+    chunk 0 and 50 (``cases`` replaces these with (lengths, dtypes, chunks)
+    of its own, the shapes of the trainer's command line).  dQ is compared on every query row (pad rows included),
     dK/dV on every key, and dK/dV must be exactly 0 on keys at or past
     length[b].  Two comparisons per case: both sides take K1's O and LSE (K3
     and K4 alone), and, in fp32, the port's chain (K1, delta, K3, K4) against
     the fully plain chain (the plain forward's O and LSE into the plain
     backward).  A second launch of K3 and of K4 on the same inputs must be
     bit-equal to the first.  Returns the worst dQ and dK/dV errors of the
-    first comparison.  Also: the forward under autograd equals the inference
-    launch."""
+    first comparison.  Also, with the default cases: the forward under
+    autograd equals the inference launch."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
@@ -432,19 +467,22 @@ def check_flash_backward() -> tuple[float, float]:
     gen.manual_seed(2)
     worst = {"dq": 0.0, "dkv": 0.0}
     both = (torch.float32, torch.bfloat16)
-    cases = [(lens, both) for lens in _check_cases((128, 384, 740, 1480, 2048))]
-    # the edges of the 64-row tiles; at T = 1 the one visible key makes dQ and
-    # dK zero up to rounding, which a tolerance relative to bf16's largest
-    # output cannot hold, so that case runs in fp32 only
-    cases += [([1, 0], both[:1])]
-    cases += [([t, (3 * t) // 5], both) for t in (63, 64, 65, 127, 129)] + [([200, 0], both)]
-    for lens, dtypes in cases:
+    defaults = cases is None
+    if defaults:
+        cases = [(lens, both) for lens in _check_cases((128, 384, 740, 1480, 2048))]
+        # the edges of the 64-row tiles; at T = 1 the one visible key makes dQ
+        # and dK zero up to rounding, which a tolerance relative to bf16's
+        # largest output cannot hold, so that case runs in fp32 only
+        cases += [([1, 0], both[:1])]
+        cases += [([t, (3 * t) // 5], both) for t in (63, 64, 65, 127, 129)] + [([200, 0], both)]
+        cases = [(lens, dtypes, (0, 50)) for lens, dtypes in cases]
+    for lens, dtypes, chunks in cases:
         b, t = len(lens), max(lens)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         for dtype in dtypes:
             q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
                            for _ in range(4))
-            for chunk in (0, 50):
+            for chunk in chunks:
                 o, lse = fa.flash_attention(q, k, v, lengths, chunk, return_lse=True)
                 got = fa.flash_attention_bwd(q, k, v, o, lse, do, lengths, chunk)
                 # K3 and K4 again on the same inputs: each block owns its outputs
@@ -481,6 +519,8 @@ def check_flash_backward() -> tuple[float, float]:
                       f"{zero_past}; second launch bit-equal: {bit_equal} {'ok' if ok else 'FAIL'}")
                 if not ok:
                     raise SystemExit(f"K3/K4 disagree with their plain version at lengths={lens}")
+    if not defaults:
+        return worst["dq"], worst["dkv"]
     # the differentiable forward (K1 with LSE) equals the inference launch
     q, k, v = (torch.randn((2, h, 740, d), generator=gen, device="cuda") for _ in range(3))
     lengths = torch.tensor([740, 451], dtype=torch.int32, device="cuda")
@@ -2750,14 +2790,18 @@ def train_path(card: str) -> tuple[list, list]:
 
 
 @_uncounted
-def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dict, dict, dict,
-                                                                             list]:
+def time_training_kernels(paths: dict, card: str) -> tuple[dict, dict, dict, list]:
     """K1 (with LSE), K3, K4, their plain versions and the library's forward
-    and backward at every (lengths, chunk) the training path ran, fp32, and
-    K1 without LSE at the CV batch; then bf16 at chunk 0 for comparison with
-    K1's serving times.  Returns K1's times on the training path (CV
-    included), K3's and K4's rows of the kernels line (means per launch of
-    the path) and each step's (K1 + K3 + K4) ms per layer."""
+    and backward at every (lengths, chunk) the training paths ran, fp32, and
+    K1 without LSE at their CV batches; then bf16 at the training path's
+    batches at chunk 0 for comparison with K1's serving times.  ``paths``
+    maps a path's name to (its step records, with "lens" and "chunk"; K1's
+    launches over it, CV included; its CV batches' lengths); each step
+    launches each kernel equally often, and so does each CV batch.  Returns
+    K1's times per path (means per launch), K3's and K4's rows of the
+    kernels line (means per launch over the paths, each path's under
+    ``by_path``) and each step of the "train" path's (K1 + K3 + K4) ms per
+    layer."""
     import torch
     import torch.nn.functional as F
 
@@ -2767,11 +2811,13 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
     h, d = 8, 64
     gen = torch.Generator(device="cuda")
     gen.manual_seed(3)
-    combos = [(tuple(lens), chunk, torch.float32)
-              for lens, chunk in sorted({(tuple(r["lens"]), r["chunk"]) for r in steps})]
-    combos += [(tuple(lens), 0, torch.bfloat16) for lens in TRAIN_SHAPES]
     timed = {}
-    for lens, chunk, dtype in combos:
+
+    def timed_at(lens, chunk, dtype):
+        """K1 + LSE, K3 and K4 at one shape, timed once."""
+        lens = tuple(lens)
+        if (lens, chunk, dtype) in timed:
+            return timed[(lens, chunk, dtype)]
         b, t = len(lens), max(lens)
         k1 = _time_k1(lens, t, chunk, dtype, True, gen)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
@@ -2810,7 +2856,7 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
                 library_ms=None, bound_ms=max(ops_ms, bytes_ms),
                 fma_bound_ms=max(ops / H100_FP32_FLOPS * 1e3, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms, gflop=ops / 1e9, **backward)
-        timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
+        r = timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
         k3, k4 = kern["K3"], kern["K4"]
         print(f"K1/K3/K4 timing lengths={list(lens)} T={t} {str(dtype)[6:]} chunk={chunk} [{card}]: "
               f"K1+LSE {k1['ms']:.4f} ms ({k1['tflops']:.1f} TFLOP/s, {100 * k1['share']:.1f}% of "
@@ -2827,22 +2873,40 @@ def time_training_kernels(steps: list, k1_launches: int, card: str) -> tuple[dic
               f" ms; bounds at {'3xTF32' if dtype == torch.float32 else 'bf16 tensor-core'} "
               f"{PEAKS[str(dtype)] / 1e12:.0f} TFLOP/s (FMA bound at "
               f"{H100_FP32_FLOPS / 1e12:.0f}) and HBM {H100_BYTES / 1e12:.2f} TB/s")
-    per_step = [timed[(tuple(r["lens"]), r["chunk"], torch.float32)] for r in steps]
-    n = k1_launches // (len(steps) + 1)  # launches of each kernel per step (and per CV batch)
-    cv = _time_k1(CV_SHAPE, max(CV_SHAPE), 0, torch.float32, False, gen)
-    print(f"K1 timing (CV batch, no LSE) lengths={CV_SHAPE} fp32 chunk=0 [{card}]: kernel "
-          f"{cv['ms']:.4f} ms ({cv['tflops']:.1f} TFLOP/s, {100 * cv['share']:.1f}% of the "
-          f"bound), plain {cv['plain_ms']:.4f} ms, sdpa {cv['library_ms']:.4f} ms, bound "
-          f"{cv['bound_ms'] * 1e3:.1f} us, FMA bound {cv['fma_bound_ms'] * 1e3:.1f} us")
-    k1_train = _weighted([(n, p["k1"]) for p in per_step] + [(k1_launches - n * len(steps), cv)])
+        return r
+
+    k1_paths, bwd_parts = {}, {}
+    for name, (steps, k1_launches, cv_lens) in paths.items():
+        per_step = [timed_at(r["lens"], r["chunk"], torch.float32) for r in steps]
+        n = k1_launches // (len(steps) + len(cv_lens))  # each kernel's launches per step
+        cv_parts = []
+        for lens in cv_lens:
+            cv = _time_k1(lens, max(lens), 0, torch.float32, False, gen)
+            print(f"K1 timing ({name} CV batch, no LSE) lengths={list(lens)} fp32 chunk=0 "
+                  f"[{card}]: kernel {cv['ms']:.4f} ms ({cv['tflops']:.1f} TFLOP/s, "
+                  f"{100 * cv['share']:.1f}% of the bound), plain {cv['plain_ms']:.4f} ms, sdpa "
+                  f"{cv['library_ms']:.4f} ms, bound {cv['bound_ms'] * 1e3:.1f} us, FMA bound "
+                  f"{cv['fma_bound_ms'] * 1e3:.1f} us")
+            cv_parts.append((n, cv))
+        k1_paths[name] = _weighted([(n, p["k1"]) for p in per_step] + cv_parts)
+        bwd_parts[name] = {key: [(n, p[key]) for p in per_step] for key in ("K3", "K4")}
+    if "train" in paths:
+        for lens in TRAIN_SHAPES:
+            timed_at(lens, 0, torch.bfloat16)
     rows = []
     for key, name, line in (("K3", "flash_attention_dq", 125), ("K4", "flash_attention_dkv", 172)):
-        times = _weighted([(n, p[key]) for p in per_step])
+        times = _weighted([part for parts in bwd_parts.values() for part in parts[key]])
+        by_path = {path: {k: v for k, v in _weighted(parts[key]).items()
+                          if k in ("launches", "ms", "eager_ms", "plain_ms", "bound_ms",
+                                   "fma_bound_ms", "bound_by", "library_ms")}
+                   for path, parts in bwd_parts.items()}
         rows.append(_kernel_row(name, "flash_attention_bwd.cu", f"flash_attention.py:{line}",
                                 times, eager_ms=times["eager_ms"],
-                                fma_bound_ms=times["fma_bound_ms"]))
-    step_kernel_ms = [p["k1"]["ms"] + p["K3"]["ms"] + p["K4"]["ms"] for p in per_step]
-    return k1_train, rows[0], rows[1], step_kernel_ms
+                                fma_bound_ms=times["fma_bound_ms"], by_path=by_path))
+    step_kernel_ms = [p["k1"]["ms"] + p["K3"]["ms"] + p["K4"]["ms"]
+                      for p in (timed_at(r["lens"], r["chunk"], torch.float32)
+                                for r in paths.get("train", ([], 0, []))[0])]
+    return k1_paths, rows[0], rows[1], step_kernel_ms
 
 
 def _time_k2(m: int, n: int, k: int, gen) -> dict:
@@ -3404,6 +3468,402 @@ def lm_train_path(card: str) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# 6c. GAN training; 6d. the trainer's data path and command line
+# ---------------------------------------------------------------------------
+
+def _stage_timer():
+    """A ``StageTimer`` that syncs the card at each stage's end and also
+    keeps, per stage, its wall ms and the launches of K1, K3, K4 and K2 in it."""
+    import contextlib
+
+    import torch
+
+    from cosyvoice2_eu_torch.utils.profiling import StageTimer
+
+    class Recording(StageTimer):
+        def __init__(self):
+            super().__init__(sync=torch.cuda.synchronize)
+            self.records = []
+
+        @contextlib.contextmanager
+        def stage(self, name):
+            before = [f.launches for f in _counters()]
+            t0 = time.perf_counter()
+            with super().stage(name):
+                yield
+            self.records.append((name, (time.perf_counter() - t0) * 1e3,
+                                 [f.launches - n for f, n in zip(_counters(), before)]))
+
+        def ms(self, name) -> list:
+            return [ms for n, ms, _ in self.records if n == name]
+
+        def launched(self, name) -> list:
+            return [lc for n, _, lc in self.records if n == name]
+
+    return Recording()
+
+
+def _harmonic(rng, seconds: float, f0_base: float, vibrato: float, rate: float,
+              sr: int = 24000):
+    """A seeded harmonic signal (4 partials, 1/k amplitudes, light noise) whose
+    F0 is ``f0_base`` with a sine vibrato of ``vibrato`` Hz at ``rate`` Hz."""
+    import numpy as np
+
+    t = np.arange(int(seconds * sr)) / sr
+    f0 = f0_base + vibrato * np.sin(2 * np.pi * rate * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    sig = sum(0.3 / k * np.sin(k * phase) for k in (1, 2, 3, 4))
+    return (sig + 0.01 * rng.standard_normal(len(t))).astype(np.float32)
+
+
+# GAN phase: 3 batches of 58 crops (dynamic_batch's 3000 frames / 51 a crop)
+GAN_SAMPLES, GAN_BATCHES = 174, 3
+
+
+def _gan_samples(n: int, seed: int = 0) -> tuple[list, dict]:
+    """In-memory 24 kHz samples of 3-8 s for the GAN pipeline: each a
+    harmonic signal whose F0 is a base of 90-260 Hz with a 5 Hz vibrato of
+    +-3 Hz (so the median F0 over any 1 s crop is the base within 0.1 Hz).
+    Returns the samples and each one's base F0 by ``utt``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    samples, base = [], {}
+    for i in range(n):
+        f0 = float(rng.uniform(90.0, 260.0))
+        samples.append({"utt": f"gan{i}", "text": "Bonjour.", "sample_rate": 24000,
+                        "speech": _harmonic(rng, float(rng.uniform(3.0, 8.0)), f0, 3.0, 5.0)})
+        base[f"gan{i}"] = f0
+    return samples, base
+
+
+@_uncounted
+def check_small_gan_reference() -> None:
+    """One discriminator turn and one generator turn (``make_gan_steps``) on
+    the card against the CPU plain path: the tiny HiFT with the full-width
+    discriminators, 2 crops of hop x 8 samples, the same weights, batch and
+    sine-source draws, TF32 off; both turns at the initial parameters.
+    Every loss within 1e-5 relative; every gradient leaf, read from Adam's
+    first moment (0.1 x the gradient clipped to norm 5), within 1e-4 x max
+    + 1e-8 (1e-7 on the gradient)."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import tiny_test_config
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.train.gan import init_discriminator, make_gan_draws
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.train.train_gan import GAN_TRAIN_CONFIG, make_gan_steps
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves, tree_map
+
+    resolve_device("cuda")  # fp32 stays fp32: no TF32
+    cfg = tiny_test_config()
+    gen = init_hift(torch.Generator().manual_seed(0), cfg.hift)
+    disc = init_discriminator(torch.Generator().manual_seed(1))
+    rng = np.random.default_rng(0)
+    n = cfg.mel.hop_size * 8
+    batch = {"speech": torch.tensor(rng.standard_normal((2, n)) * 0.1, dtype=torch.float32),
+             "speech_feat": torch.tensor(rng.standard_normal((2, 8, cfg.hift.in_channels)),
+                                         dtype=torch.float32),
+             "pitch_feat": torch.tensor(np.abs(rng.standard_normal((2, 8))) * 200,
+                                        dtype=torch.float32)}
+    draws = make_gan_draws(torch.Generator().manual_seed(2), batch, cfg.hift)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tx = make_optimizer(GAN_TRAIN_CONFIG)
+        gen_step, disc_step = make_gan_steps(cfg, tx, tx)
+        g, d, b = (tree_map(lambda x: x.to(dev), tree) for tree in (gen, disc, batch))
+        dr = tuple(x.to(dev) for x in draws)
+        _, opt_d, m_d = disc_step(d, tx.init(d), g, b, dr)
+        _, opt_g, m_g = gen_step(g, tx.init(g), d, b, dr)
+        losses = {**{f"disc {k}": float(v) for k, v in m_d.items()},
+                  **{f"gen {k}": float(v) for k, v in m_g.items()}}
+        out[dev] = losses, [x.cpu() for x in tree_leaves((opt_d["mu"], opt_g["mu"]))]
+    (l_cpu, mu_cpu), (l_gpu, mu_gpu) = out["cpu"], out["cuda"]
+    loss_errs = {k: abs(l_gpu[k] - l_cpu[k]) / max(abs(l_cpu[k]), 1e-30) for k in l_cpu}
+    errs = [((a - b).abs().max().item(), b.abs().max().item()) for a, b in zip(mu_gpu, mu_cpu)]
+    worst = max(err / (1e-4 * peak + 1e-8) for err, peak in errs)
+    ok = all(math.isfinite(v) for v in l_gpu.values()) and max(loss_errs.values()) <= 1e-5 \
+        and worst <= 1.0
+    print(f"GAN reference check (tiny HiFT, full-width discriminators, 2 crops of {n} samples, "
+          f"fp32, card vs CPU plain path): losses "
+          + ", ".join(f"{k} {l_gpu[k]:.6f} (rel err {loss_errs[k]:.2e})" for k in l_cpu)
+          + f", tol 1e-5; {len(errs)} gradient leaves of both turns, each within 1e-4 x max + "
+          f"1e-8 of Adam's first moment: the worst at {worst:.3f} of its tolerance "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's GAN turns disagree with the plain CPU path")
+
+
+def gan_path(card: str) -> None:
+    """HiFT GAN training at the published widths (``HiFTConfig()``, base 512
+    channels, and both discriminators): ``GAN_SAMPLES`` in-memory samples
+    through the port's pipeline with ``gan=True`` (24480-sample crops, the
+    host mel at fmax 8 kHz, the native YIN, ``dynamic_batch`` at 3000
+    frames), ``GAN_BATCHES`` batches through ``train_gan.train_gan`` (a
+    discriminator turn, then a generator turn, each; the epoch's
+    checkpoint).  Gates: finite losses and no skipped (non-finite) update,
+    both parameter trees moved, every crop's median voiced YIN F0 within 5
+    Hz of its signal's, no kernel launched.  Prints the batch size, each
+    turn's ms, the host featurize ms per crop (mel and YIN apart), the
+    pipeline's ms and peak memory."""
+    import itertools
+    import random
+
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.frontend.tokenizer import get_tokenizer
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.train import dataset as ds
+    from cosyvoice2_eu_torch.train.gan import init_discriminator
+    from cosyvoice2_eu_torch.train.pitch import estimate_f0
+    from cosyvoice2_eu_torch.train.train_gan import gan_mel_fn, train_gan
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    dev = resolve_device("cuda")
+    cfg = TTSConfig()
+    t0 = time.perf_counter()
+    samples, base = _gan_samples(GAN_SAMPLES)
+    make_s = time.perf_counter() - t0
+    mel_fn = gan_mel_fn(cfg)
+    seen, pipe_s = [], [0.0]
+
+    def batches(epoch):
+        it = ds.samples_pipeline(samples, get_tokenizer(""), mel_fn, gan=True,
+                                 rng=random.Random(epoch))
+        for _ in range(GAN_BATCHES):
+            t0 = time.perf_counter()
+            b = next(it)
+            pipe_s[0] += time.perf_counter() - t0
+            seen.append(b)
+            yield b
+        it.close()
+
+    seed = 0
+    timer = _stage_timer()
+    _reset_counts()
+    _reset_peak()
+    with tempfile.TemporaryDirectory() as model_dir:
+        t0 = time.perf_counter()
+        out = train_gan(cfg, batches, model_dir, 1, seed, dev, timer=timer)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        saved = os.path.exists(os.path.join(model_dir, "epoch_0_whole"))
+    launches = [f.launches for f in _counters()]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    gen0 = init_hift(torch.Generator(device=dev).manual_seed(seed), cfg.hift)
+    disc0 = init_discriminator(torch.Generator(device=dev).manual_seed(seed + 1))
+    moved = [any(not torch.equal(a, b) for a, b in zip(tree_leaves(new), tree_leaves(old)))
+             for new, old in ((out["generator"], gen0), (out["discriminator"], disc0))]
+    n_params = [sum(x.numel() for x in tree_leaves(t)) for t in (gen0, disc0)]
+    del gen0, disc0
+    m_d, m_g = out["metrics"]
+    losses = {**{f"disc {k}": float(v) for k, v in m_d.items()},
+              **{f"gen {k}": float(v) for k, v in m_g.items()}}
+    skipped = out["opt_g"]["total_notfinite"] + out["opt_d"]["total_notfinite"]
+    f0_errs = []
+    for b in seen:
+        for utt, p in zip(b["utts"], b["pitch_feat"]):
+            v = p[p > 0]
+            f0_errs.append(abs(float(np.median(v)) - base[utt]) if len(v) else float("inf"))
+    # the host featurizers on a crop each, timed apart
+    crops = [s["speech"][:24480] for s in itertools.islice(samples, 20)]
+    t0 = time.perf_counter()
+    for c in crops:
+        mel_fn(c)
+    mel_ms = (time.perf_counter() - t0) * 1e3 / len(crops)
+    t0 = time.perf_counter()
+    for c in crops:
+        estimate_f0(c)
+    yin_ms = (time.perf_counter() - t0) * 1e3 / len(crops)
+    sizes = [len(b["utts"]) for b in seen]
+    disc_ms, gen_ms = timer.ms("disc_turn"), timer.ms("gen_turn")
+    print(f"GAN phase: HiFTConfig() ({n_params[0] / 1e6:.2f} M parameters) and the MPD + MRD "
+          f"discriminators ({n_params[1] / 1e6:.2f} M), fp32, adam 2e-4, clip 5; {GAN_SAMPLES} "
+          f"samples of 3-8 s made in {make_s:.2f} s; batches of {sizes} crops x "
+          f"{seen[0]['speech'].shape[1]} samples ({seen[0]['speech_feat'].shape[1]} mel frames) "
+          f"[{card}]")
+    for i, (d_ms, g_ms) in enumerate(zip(disc_ms, gen_ms)):
+        print(f"GAN step {i + 1}: B={sizes[i]}, discriminator turn {d_ms:.1f} ms, generator turn "
+              f"{g_ms:.1f} ms [{card}]")
+    ok = (all(math.isfinite(v) for v in losses.values()) and skipped == 0 and all(moved)
+          and saved and out["steps"] == GAN_BATCHES and not any(launches)
+          and max(f0_errs) <= 5.0)
+    print(f"GAN phase: {out['steps']} steps in {wall:.2f} s (pipeline {pipe_s[0] * 1e3:.0f} ms "
+          f"for the {len(seen)} batches, {pipe_s[0] * 1e3 / len(seen):.1f} ms a batch); host "
+          f"featurize per crop: mel {mel_ms:.2f} ms, YIN {yin_ms:.2f} ms; last losses "
+          + ", ".join(f"{k} {v:.4f}" for k, v in losses.items())
+          + f"; skipped updates {skipped}; generator and discriminator moved {moved}; "
+          f"checkpoint saved {saved}; YIN median voiced F0 per crop within "
+          f"{max(f0_errs):.3f} Hz of the signal's (median {float(np.median(f0_errs)):.3f} Hz, "
+          f"gate 5 Hz) over {len(f0_errs)} crops; K1/K3/K4/K2 launches {launches}; peak memory "
+          f"{peak:.2f} GiB [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the GAN phase failed its checks")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+CLI_TEXTS = ("Bonjour tout le monde, il fait beau aujourd'hui.",
+             "Le chat dort sur le canapé depuis ce matin.",
+             "Nous partirons à Paris la semaine prochaine.",
+             "Elle lit un livre au bord de la mer.")
+# (samples, seed): the flow's training samples make 4 batches at 3000 frames (9 x
+# 326, 6 x 440, 5 x 496, 5 x 556 mel frames), the CV samples 1 (4 x 404), the
+# LM's 2 (6 x 486, 4 x 542)
+CLI_FLOW, CLI_CV, CLI_LM = (25, 0), (4, 1), (10, 0)
+
+
+def _cli_samples(n: int, seed: int) -> list:
+    """In-memory 24 kHz samples of 4-12 s as the parquet holds them: French
+    text, a harmonic signal, random speech tokens at 25 Hz (the LM's and
+    the flow's 6561 codes), 192-d utterance and speaker embeddings."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        seconds = float(rng.uniform(4.0, 12.0))
+        out.append({"utt": f"cli{seed}_{i}", "text": CLI_TEXTS[i % len(CLI_TEXTS)],
+                    "sample_rate": 24000,
+                    "speech": _harmonic(rng, seconds, float(rng.uniform(90, 250)), 10.0, 0.7),
+                    "speech_token": rng.integers(0, 6561, int(seconds * 25)).astype(np.int32),
+                    "utt_embedding": rng.standard_normal(192).astype(np.float32),
+                    "spk_embedding": rng.standard_normal(192).astype(np.float32)})
+    return out
+
+
+def cli_path(card: str) -> tuple[list, int, list]:
+    """The trainer's command line from the batch iterators down to the
+    checkpoint: ``train.run`` (the split-out body of ``train.main``) on
+    in-memory samples through the pipeline after the opener, ``prefetch``
+    on: ``--model flow`` at ``TTSConfig().flow`` for one epoch (4 steps,
+    accum_grad 4: one emitting step; CV; the epoch's checkpoint), then
+    ``--resume`` to a second epoch, then ``--model llm`` (the Qwen2-0.5B LM,
+    fp32) for 2 steps.  Each run's counts are set to 0 before it and read
+    after.  Gates: finite losses (the last step's, CV's, and no update
+    skipped as non-finite), the steps and the emitting steps, the resume
+    continuing at epoch 1 and step 4, a beat of ``StragglerGuard`` a step;
+    flow: K1 (with LSE), K3 and K4 56 launches each a step, K1 56 a CV
+    batch, every launch on its fp32 design; LM: no launch.  Prints the
+    pipeline's ms a batch beside the step's, and peak memory.  Returns the
+    flow's step records (lengths, chunk), K1's launches over the flow runs
+    and their CV batches' lengths."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+    from cosyvoice2_eu_torch.train import train as T
+    from cosyvoice2_eu_torch.train.executor import list_checkpoints
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    est = TTSConfig().flow.estimator
+    per_step = (2 + est.num_mid_blocks) * est.n_blocks
+    data = {"flow_train": _cli_samples(*CLI_FLOW), "cv": _cli_samples(*CLI_CV),
+            "lm_train": _cli_samples(*CLI_LM)}
+
+    def open_samples(name, epoch):
+        return (dict(s) for s in data[name])  # each pass on fresh dicts: the stages write them
+
+    # record each flow step's and CV batch's lengths and chunk, for K1/K3/K4's
+    # checks and timings at this path's shapes
+    steps, cv_lens = [], []
+    make_step, make_cv = T.make_flow_step_fn, T.make_flow_cv_fn
+
+    def recording_step_fn(raw_step, cfg, gen, rng):
+        def traced(state, batch, draws, streaming=False):
+            steps.append({"lens": batch["speech_feat_len"].tolist(),
+                          "chunk": cfg.estimator.static_chunk_size if streaming else 0})
+            return raw_step(state, batch, draws, streaming=streaming)
+
+        return make_step(traced, cfg, gen, rng)
+
+    def recording_cv_fn(cfg):
+        cv_fn = make_cv(cfg)
+
+        def traced(params, batch):
+            cv_lens.append(batch["speech_feat_len"].tolist())
+            return cv_fn(params, batch)
+
+        return traced
+
+    runs, ok, k1_flow = {}, True, 0
+    T.make_flow_step_fn, T.make_flow_cv_fn = recording_step_fn, recording_cv_fn
+    try:
+        with tempfile.TemporaryDirectory() as root:
+            for name, model, extra in (("flow", "flow", ["--max_epoch", "1"]),
+                                       ("flow --resume", "flow", ["--max_epoch", "2", "--resume"]),
+                                       ("llm", "llm", ["--max_epoch", "1"])):
+                train_list = "lm_train" if model == "llm" else "flow_train"
+                args = T.parse_args(["--model", model, "--train_data", train_list, "--cv_data",
+                                     "cv", "--model_dir", os.path.join(root, model), "--seed",
+                                     "0", "--device", "cuda"] + extra)
+                timer = _stage_timer()
+                _reset_counts()
+                _reset_peak()
+                t0 = time.perf_counter()
+                out = T.run(args, open_samples, timer)
+                wall = time.perf_counter() - t0
+                launches = [f.launches for f in _counters()]
+                state, ex = out["state"], out["executor"]
+                infos = {i["tag"]: i for i in list_checkpoints(args.model_dir)}
+                last = {k: float(v) for k, v in out["metrics"].items()}
+                opt = state.opt_state
+                n_steps = len(timer.ms("step"))
+                want_steps = 2 if model == "llm" else 4
+                first_step = 4 if name == "flow --resume" else 0
+                epoch_tag = "epoch_1_whole" if name == "flow --resume" else "epoch_0_whole"
+                finite = (all(math.isfinite(v) for v in last.values())
+                          and math.isfinite(infos[epoch_tag]["cv_loss"])
+                          and opt["total_notfinite"] == 0
+                          and all(bool(torch.isfinite(x).all()) for x in tree_leaves(state.params)))
+                counts_ok = (n_steps == want_steps and ex.step == first_step + want_steps
+                             and infos[epoch_tag]["step"] == ex.step
+                             and opt["gradient_step"] * 4 + opt["mini_step"] == ex.step
+                             and out["beats"] == n_steps)
+                if model == "flow":
+                    k1_flow += launches[0]
+                    kernels_ok = (all(lc == [per_step] * 3 + [0] for lc in timer.launched("step"))
+                                  and all(lc == [per_step, 0, 0, 0]
+                                          for lc in timer.launched("cv_step"))
+                                  and fa.fwd_kernel(torch.float32) in LAUNCHED
+                                  and fa.fwd_kernel(torch.bfloat16) not in LAUNCHED)
+                else:
+                    kernels_ok = not any(launches)
+                batch_ms = sum(timer.ms("batch")) / max(n_steps, 1)
+                step_ms = timer.ms("step")
+                runs[name] = dict(ok=finite and counts_ok and kernels_ok)
+                ok = ok and runs[name]["ok"]
+                print(f"trainer CLI {name}: train.run(--model {model} {' '.join(extra)}): "
+                      f"{n_steps} steps (executor step {ex.step}, emitting steps "
+                      f"{opt['gradient_step']}), {len(timer.ms('cv_step'))} CV batches, "
+                      f"{wall:.2f} s; pipeline {batch_ms:.1f} ms a batch beside steps of "
+                      + ", ".join(f"{ms:.1f}" for ms in step_ms)
+                      + f" ms; last step loss {last['loss']:.4f}, cv_loss "
+                      f"{infos[epoch_tag]['cv_loss']:.4f}, skipped updates "
+                      f"{opt['total_notfinite']}; checkpoints {sorted(infos)}; StragglerGuard "
+                      f"beats {out['beats']}; K1/K3/K4/K2 launches {launches}"
+                      + (f" (per step {timer.launched('step')}, per CV batch "
+                         f"{timer.launched('cv_step')}; designs called {sorted(LAUNCHED)})"
+                         if model == "flow" else "")
+                      + f"; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB "
+                      f"[{card}] {'ok' if runs[name]['ok'] else 'FAIL'}")
+                del out, state, ex
+                gc.collect()
+                torch.cuda.empty_cache()
+    finally:
+        T.make_flow_step_fn, T.make_flow_cv_fn = make_step, make_cv
+    if not ok:
+        raise SystemExit("the trainer's command-line phase failed its checks")
+    return steps, k1_flow, cv_lens
+
+
 def main() -> None:
     import torch
 
@@ -3462,6 +3922,7 @@ def main() -> None:
     check_small_reference()
     check_small_reference(lm_quant="int8")
     check_small_train_reference()
+    check_small_gan_reference()
     check_small_stream()
     check_small_session()
     check_small_engine()
@@ -3499,6 +3960,12 @@ def main() -> None:
                                                    f" {name}") for lens, t, chunk in cases]))
     steps, train_launches = train_path(card)
     lm_train_path(card)
+    gan_path(card)
+    cli_steps, cli_k1, cli_cv = cli_path(card)
+    # K3/K4 checked against their plain version at every shape the CLI's flow gave them
+    cli_cases = sorted({(tuple(r["lens"]), r["chunk"]) for r in cli_steps})
+    cli_dq, cli_dkv = check_flash_backward([(list(lens), (torch.float32,), (chunk,))
+                                            for lens, chunk in cli_cases])
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
@@ -3523,24 +3990,30 @@ def main() -> None:
     k2["max_abs_err"] = worst_k2
     _print_prefill(k2_times["by_shape"], prefill_ms, card)
     _print_decode_step(k2_times["by_shape"], card)
-    k1_train, k3, k4, step_kernel_ms = time_training_kernels(steps, train_launches[0], card)
-    if [k3["launches"], k4["launches"]] != train_launches[1:3]:
-        raise SystemExit("K3/K4 launches do not match the training path")
+    k1_fp32, k3, k4, step_kernel_ms = time_training_kernels(
+        {"train": (steps, train_launches[0], [CV_SHAPE]), "cli": (cli_steps, cli_k1, cli_cv)},
+        card)
+    per_cli = cli_k1 // (len(cli_steps) + len(cli_cv))
+    if [k3["launches"], k4["launches"]] != [n + per_cli * len(cli_steps)
+                                            for n in train_launches[1:3]]:
+        raise SystemExit("K3/K4 launches do not match the training and command-line paths")
     # K1's times are means per launch over the paths; each path's stand beside them
-    paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, **k1_new, "train": k1_train}
+    paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, **k1_new, **k1_fp32}
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
     keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
             "library_ms")
     # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (3xTF32) in training
-    serving = _weighted([(p["launches"], p) for name, p in paths.items() if name != "train"])
-    designs = {"bfloat16": (fa.SM90_SOURCE, serving), "float32": (fa.SOURCE, k1_train)}
+    serving = _weighted([(p["launches"], p) for name, p in paths.items() if name not in k1_fp32])
+    designs = {"bfloat16": (fa.SM90_SOURCE, serving),
+               "float32": (fa.SOURCE, _weighted([(p["launches"], p) for p in k1_fp32.values()]))}
     k1 = _kernel_row("flash_attention_fwd", fa.SM90_SOURCE, "flash_attention.py:71",
                      _weighted([(p["launches"], p) for p in paths.values()]),
                      by_path={name: {k: p[k] for k in keys} for name, p in paths.items()},
                      by_dtype={name: {"source": f"cosyvoice2_eu_torch/csrc/{src}",
                                       **{k: p[k] for k in keys}}
                                for name, (src, p) in designs.items()})
-    k1["max_abs_err"], k3["max_abs_err"], k4["max_abs_err"] = worst, worst_dq, worst_dkv
+    k1["max_abs_err"], k3["max_abs_err"], k4["max_abs_err"] = \
+        worst, max(worst_dq, cli_dq), max(worst_dkv, cli_dkv)
     per_step = train_launches[1] // len(steps)
     for r, kern_ms in zip(steps, step_kernel_ms):
         # K1+K3+K4 at this step's shape and chunk, timed alone, times their launches per step

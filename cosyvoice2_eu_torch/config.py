@@ -348,3 +348,71 @@ def config_to_dict(cfg) -> dict:
     if isinstance(cfg, tuple):
         return [config_to_dict(v) for v in cfg]
     return cfg
+
+
+def config_from_dict(cls, data: dict):
+    """One frozen dataclass from a dict: the fields ``data`` names (lists as
+    tuples, a list of lists as a tuple of tuples), the defaults for the
+    rest.  A nested dataclass field is built by the caller
+    (``_build_tts_config``)."""
+    kwargs = {}
+    for f in dataclasses.fields(cls):
+        if f.name not in data:
+            continue
+        v = data[f.name]
+        if isinstance(v, list):
+            v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
+        kwargs[f.name] = v
+    return cls(**kwargs)
+
+
+def _merge(dst: dict, src: dict) -> None:
+    for k, v in src.items():
+        if isinstance(v, dict) and isinstance(dst.get(k), dict):
+            _merge(dst[k], v)
+        else:
+            dst[k] = v
+
+
+def load_config(path: str | None = None, overrides: dict | None = None) -> TTSConfig:
+    """TTSConfig from a JSON file plus nested overrides, e.g.
+    ``load_config(overrides={"llm": {"top_p": 0.9}, "chunk_size": 50})``;
+    what neither gives keeps ``TTSConfig()``'s value."""
+    import json
+
+    if not path and not overrides:
+        return TTSConfig()
+    data = config_to_dict(TTSConfig())
+    if path:
+        with open(path) as f:
+            _merge(data, json.load(f))
+    if overrides:
+        _merge(data, overrides)
+    return _build_tts_config(data)
+
+
+def _build_tts_config(data: dict) -> TTSConfig:
+    llm_d = data.get("llm", {})
+    llm = dataclasses.replace(config_from_dict(LMConfig, {**llm_d, "backbone": {}}),
+                              backbone=config_from_dict(Qwen2Config, llm_d.get("backbone", {})))
+    flow_d = data.get("flow", {})
+    flow = dataclasses.replace(
+        config_from_dict(FlowConfig, {**flow_d, "encoder": {}, "estimator": {}, "cfm": {}}),
+        encoder=config_from_dict(ConformerConfig, flow_d.get("encoder", {})),
+        estimator=config_from_dict(EstimatorConfig, flow_d.get("estimator", {})),
+        cfm=config_from_dict(CFMConfig, flow_d.get("cfm", {})),
+    )
+    hift_d = data.get("hift", {})
+    hift = dataclasses.replace(
+        config_from_dict(HiFTConfig, {**hift_d, "f0_predictor": {}}),
+        f0_predictor=config_from_dict(F0PredictorConfig, hift_d.get("f0_predictor", {})))
+    top = {k: v for k, v in data.items()
+           if k in ("sample_rate", "token_frame_rate", "token_mel_ratio", "chunk_size")}
+    return TTSConfig(
+        llm=llm, flow=flow, hift=hift,
+        mel=config_from_dict(MelConfig, data.get("mel", {})),
+        whisper_mel=config_from_dict(WhisperMelConfig, data.get("whisper_mel", {})),
+        stream=config_from_dict(StreamConfig, data.get("stream", {})),
+        frontend=config_from_dict(FrontendConfig, data.get("frontend", {})),
+        **top,
+    )

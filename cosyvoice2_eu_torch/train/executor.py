@@ -52,6 +52,12 @@ def _like(template, restored):
                     if isinstance(t, torch.Tensor) else r, template, restored)
 
 
+def load_params(path: str, like):
+    """The parameter tree saved at ``path`` (a checkpoint's params file, as
+    ``save_checkpoint`` writes it), on ``like``'s devices and in its dtypes."""
+    return _like(like, _load(path))
+
+
 def restore_train_state(model_dir: str, info: dict, state):
     """Rebuild a TrainState from a checkpoint.
 
@@ -61,7 +67,7 @@ def restore_train_state(model_dir: str, info: dict, state):
     and the MultiSteps sum resume exactly) and the step counter.
     """
     path = os.path.join(model_dir, info["tag"])
-    params = _like(state.params, _load(path))
+    params = load_params(path, state.params)
     opt_state = state.opt_state
     if info.get("has_opt"):
         opt_state = _like(state.opt_state, _load(path + "-opt"))
@@ -111,7 +117,9 @@ class Executor:
 
     ``step_fn(state, batch) -> (state, metrics)``; ``cv_fn(params, batch) ->
     metrics`` runs under ``torch.no_grad()``; ``log_fn`` gets the metrics
-    (as floats, with step and epoch) every ``log_interval`` steps.
+    (as floats, with step and epoch) every ``log_interval`` steps;
+    ``on_step(step)`` runs after every step (the trainer hangs
+    ``StragglerGuard.beat`` on it).
     """
 
     def __init__(
@@ -129,6 +137,7 @@ class Executor:
         self.log_fn = log_fn or (lambda m: None)
         self.step = 0
         self.epoch = 0
+        self.on_step: Callable[[int], None] = lambda step: None
         os.makedirs(model_dir, exist_ok=True)
 
     def cross_validate(self, state, cv_batches) -> float:
@@ -151,6 +160,7 @@ class Executor:
         for batch in train_batches:
             state, metrics = self.step_fn(state, batch)
             self.step += 1
+            self.on_step(self.step)
             if self.step % cfg.log_interval == 0:
                 log = {k: float(v) for k, v in metrics.items()}
                 log.update(step=self.step, epoch=self.epoch)
