@@ -43,7 +43,11 @@ Phases (any failure ends the run with a non-zero exit code):
      ``lm_inference_bistream`` tokens equal and ``tts_stream_text`` chunks
      equal in length with audio within 1e-3, unquantized and int8 (equal
      codes), and one LM, one LoRA and one DPO train step (loss within 1e-5
-     relative, every gradient leaf within 1e-4 x max + 1e-7);
+     relative, every gradient leaf within 1e-4 x max + 1e-7); then the v1
+     model (CosyVoice-300M's layout, fp32, K1's fp32 design, estimator
+     heads of 64) on a small config: equal ``lm_decode`` tokens, ``tts``
+     audio within 1e-3 and a streamed ``vc`` in chunks of equal count and
+     length within 1e-3, K1 launched 2 x n_blocks x stages a flow call;
   4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
      published widths (random weights) answers 3 requests; checks the audio
      and that each flow call launched K1 560 times; per-stage times;
@@ -129,6 +133,18 @@ Phases (any failure ends the run with a non-zero exit code):
      wgmma design, steps at M = 1 on the decode design.  Prints time to
      first audio, each chunk's wall time and the steady median, RTF, LM
      ms/token, the extends and decode calls, peak memory;
+  5g. the v1 family (counts set to 0 before each request, read after):
+     ``load_v1(config=TTSV1Config(), seed=0, device="cuda")`` at
+     CosyVoice-300M's published widths (random weights; a 6-block
+     1024-wide text encoder, a 14-block 1024-wide LM, the 6-block 512-wide
+     flow encoder, the (256, 256) U-Net, HiFT at 22.05 kHz), all fp32:
+     2 requests, 1 streamed request (the growing hop, the mel crossfade)
+     and a ``vc`` of the first request's tokens, from a synthetic 3 s
+     prompt (150 tokens, 258 mel frames).  Gates: finite, non-silent audio
+     of mel frames x 256 samples, K1 640 times a flow call, every launch on
+     its fp32 design; prints LM ms/token, flow ms a call, HiFT ms, RTF, the
+     first chunk's latency and peak memory; then K1 checked at each flow
+     call's (2, 8, T, 64) and (2, 8, ceil(T / 2), 64);
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -171,9 +187,10 @@ Phases (any failure ends the run with a non-zero exit code):
      fp32 design, no launch in the LM's runs; then K3/K4 checked against
      their plain version at every flow step's shape.  Prints the
      pipeline's ms a batch beside each step's ms, and peak memory;
-  7. kernel timings at the shapes of the paths: K1 on all four (with
+  7. kernel timings at the shapes of the paths: K1 on all of them (with
      TFLOP/s on the visible pairs and the share of the bound, and its
-     output at each timed shape held against the plain one), K3 and K4 at
+     output at each timed shape held against the plain one; the v1 path's
+     fp32 shapes beside SDPA, the plain version and the 3xTF32 bound), K3 and K4 at
      the training path's shapes (CUDA-graph replay, eager beside it), with
      the bound of fp32 work in 3xTF32 (three TF32 products at the tensor
      cores' 495 TFLOP/s) and the fp32 FMA units' bound beside it, K2 at every
@@ -189,8 +206,8 @@ The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
 bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine,
-tts_batch6, bistream and qwen3 paths, fp32 on the training path and the
-trainer command line's "cli"), K2's over
+tts_batch6, bistream and qwen3 paths, fp32 on the training path, the
+trainer command line's "cli" and the v1 path's "v1"), K2's over
 the shapes of the int8 path, the int8 stream, the int8 engine and the int8
 bistream requests, Qwen3's included (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
@@ -342,6 +359,8 @@ def _k1_default_cases() -> list:
     cases += [([t, max(1, (3 * t) // 5)], t, (torch.float32,), (0, 50), " edge")
               for t in (1, 31, 32, 33, 63, 64, 65, 127, 129, 200)]
     cases.append(([200, 0], 200, both, (0,), " edge"))
+    # the v1 estimator's fp32 shapes of a 3 s prompt and ~6 s of speech: T and ceil(T / 2)
+    cases += [([t, t], t, (torch.float32,), (0,), " v1") for t in (774, 387)]
     # the int8 path's tts_batch of 4 (CFG doubles the rows) in its mel bucket
     cases.append(([1150, 1270, 730, 1190] * 2, 1280, (torch.bfloat16,), (0, 50), " int8 batch"))
     return cases
@@ -1048,17 +1067,19 @@ def _reset_counts() -> None:
     LAUNCHED.clear()
 
 
-def _k1_design() -> str:
+def _k1_design(dtype=None) -> str:
     """The K1 design the path launched since ``LAUNCHED`` was cleared, as
-    seen at each launch.  Raises unless every launch was of the bf16 one."""
+    seen at each launch.  Raises unless every launch was of ``dtype``'s
+    design (bf16 by default: the serving paths)."""
     import torch
 
     from cosyvoice2_eu_torch.ops import flash_attention as fa
 
-    if LAUNCHED != {fa.fwd_kernel(torch.bfloat16)}:
-        raise SystemExit(f"the serving path launched {sorted(LAUNCHED)}, not only K1's bf16 "
-                         f"design {fa.fwd_kernel(torch.bfloat16)}")
-    return f"every launch called {fa.SM90_SOURCE}, as recorded at each launch"
+    want = fa.fwd_kernel(dtype or torch.bfloat16)
+    if LAUNCHED != {want}:
+        raise SystemExit(f"the path launched {sorted(LAUNCHED)}, not only K1's "
+                         f"{str(dtype or torch.bfloat16)[6:]} design {want}")
+    return f"every launch called {want[0]}, as recorded at each launch"
 
 
 def main_path(card: str) -> tuple[int, list, list, dict]:
@@ -3864,6 +3885,304 @@ def cli_path(card: str) -> tuple[list, int, list]:
     return steps, k1_flow, cv_lens
 
 
+# ---------------------------------------------------------------------------
+# the v1 family (CosyVoice-300M): fp32 end to end, so K1's fp32 design
+# ---------------------------------------------------------------------------
+
+# 15 bytes each: the LM stops at 20 x 15 = 300 tokens, ~6 s of speech
+V1_TEXTS = ("Bonjour, Paris.", "Guten Tag, Welt", "Hello, London!!")
+
+
+class _V1Draws:
+    """The v1 model's random draws made on the CPU from ``seed``, the same on
+    every device: the LM's Gumbel vectors by step, the flow's noise and
+    HiFT's draws by call (``reset`` starts the calls over)."""
+
+    def __init__(self, cfg, seed: int):
+        self.cfg, self.seed = cfg, seed
+        self.reset()
+
+    def reset(self) -> None:
+        self.calls = 0
+
+    def _gen(self):
+        import torch
+
+        self.calls += 1
+        return torch.Generator().manual_seed(1000 * self.seed + self.calls)
+
+    def lm(self, device):
+        import torch
+
+        from cosyvoice2_eu_torch.ops.sampling import gumbel
+
+        gen, made = torch.Generator().manual_seed(self.seed), []
+
+        def draws(step):
+            while len(made) <= step:
+                made.append((gumbel((1, self.cfg.llm.top_k), gen),
+                             gumbel((1, self.cfg.llm.speech_token_size + 1), gen)))
+            return tuple(x.to(device) for x in made[step])
+
+        return draws
+
+    def flow_noise(self, shape):
+        import torch
+
+        return torch.randn(shape, generator=self._gen())
+
+    def hift_draws(self, batch, length, harmonics):
+        import torch
+
+        gen = self._gen()
+        return (torch.rand((batch, harmonics), generator=gen),
+                torch.randn((batch, length, harmonics), generator=gen))
+
+
+def _small_v1_config():
+    """A tiny TTSV1Config with the v1 geometry (5 Hz tokens, a 32-sample hop,
+    HiFT 4 x 2 x 4) and an estimator with K1's head dim of 64."""
+    from cosyvoice2_eu_torch import config as c
+
+    mels = 8
+    text_enc = c.GenericEncoderConfig(
+        input_size=12, output_size=24, attention_heads=2, linear_units=32, num_blocks=1,
+        input_layer="linear", use_cnn_module=False, macaron_style=False, static_chunk_size=1,
+        max_len=512)
+    llm_enc = c.GenericEncoderConfig(
+        input_size=24, output_size=24, attention_heads=2, linear_units=32, num_blocks=2,
+        arch="transformer", input_layer="linear_legacy", activation_type="relu",
+        static_chunk_size=1, max_len=512)
+    llm = c.LMV1Config(text_encoder_input_size=12, llm_input_size=24, llm_output_size=24,
+                       text_token_size=40, speech_token_size=16, spk_embed_dim=10,
+                       text_encoder=text_enc, llm=llm_enc, top_k=8)
+    flow = c.FlowV1Config(
+        input_size=16, output_size=mels, spk_embed_dim=10, vocab_size=32, input_frame_rate=5,
+        sample_rate=320, mel_hop=32, cache_tail_tokens=4,
+        encoder=c.GenericEncoderConfig(
+            input_size=16, output_size=16, attention_heads=2, linear_units=32, num_blocks=1,
+            input_layer="linear", use_cnn_module=False, macaron_style=False, max_len=512),
+        length_regulator=c.LengthRegulatorConfig(channels=mels, sampling_ratios=(1, 1)),
+        estimator=c.EstimatorV1Config(in_channels=4 * mels, out_channels=mels,
+                                      channels=(16, 16), attention_head_dim=64, n_blocks=1,
+                                      num_mid_blocks=2, num_heads=2),
+        cfm=c.CFMConfig(n_timesteps=2))
+    hift = c.HiFTConfig(
+        in_channels=mels, base_channels=32, nb_harmonics=2, sampling_rate=320,
+        upsample_rates=(4, 2), upsample_kernel_sizes=(8, 4), source_resblock_kernel_sizes=(7, 11),
+        source_resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)),
+        f0_predictor=c.F0PredictorConfig(in_channels=mels, cond_channels=32))
+    return c.TTSV1Config(
+        llm=llm, flow=flow, hift=hift, token_overlap_len=4, mel_cache_len=3,
+        mel=c.MelConfig(n_fft=64, num_mels=mels, sampling_rate=320, hop_size=32, win_size=64),
+        frontend=c.FrontendConfig(target_sr=320, spk_embed_dim=10))
+
+
+def _k1_per_v1_flow(cfg) -> int:
+    """K1 launches of one v1 flow call: each transformer block of the
+    estimator, each Euler step (640 at the published widths)."""
+    from cosyvoice2_eu_torch.models.estimator_v1 import k1_launches_per_call
+
+    return k1_launches_per_call(cfg.flow.estimator) * cfg.flow.cfm.n_timesteps
+
+
+def check_small_v1() -> None:
+    """The v1 model on the card (fp32, K1's fp32 design) against the plain
+    CPU path on a small config with the same weights and draws: equal
+    ``lm_decode`` tokens, ``tts(stream=False)`` audio within 1e-3, and a
+    streamed ``vc`` in chunks equal in count and length, within 1e-3."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.models.flow_v1 import init_flow_v1, mel_len_for_tokens
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm_v1 import init_lm_v1
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    cfg = _small_v1_config()
+    gen = torch.Generator().manual_seed(1)
+    params = {"llm": init_lm_v1(gen, cfg.llm), "flow": init_flow_v1(gen, cfg.flow),
+              "hift": init_hift(gen, cfg.hift)}
+    rng = np.random.default_rng(4)
+    text = rng.integers(1, cfg.llm.text_token_size, 6).astype(np.int32)
+    ptext = rng.integers(1, cfg.llm.text_token_size, 2).astype(np.int32)
+    psp = rng.integers(0, cfg.llm.speech_token_size, 5).astype(np.int32)
+    feat = rng.standard_normal((mel_len_for_tokens(cfg.flow, 5), cfg.flow.output_size)) \
+        .astype(np.float32)
+    emb = rng.standard_normal(cfg.llm.spk_embed_dim).astype(np.float32)
+    source = rng.integers(0, cfg.llm.speech_token_size, 34).astype(np.int32)
+    out = []
+    for dev in ("cpu", "cuda"):
+        model, _, _ = cosy.load_v1(config=cfg, params=params, device=dev)
+        draws = _V1Draws(cfg, 5)
+        _reset_counts()
+        tokens = model.lm_decode(text, ptext, psp, emb, max_gen=24, lm_draws=draws.lm(dev))
+        kw = dict(flow_noise=draws.flow_noise, hift_draws=draws.hift_draws)
+        wav = next(model.tts(text, ptext, psp, feat, emb, max_gen=24, lm_draws=draws.lm(dev), **kw))
+        chunks = list(model.vc(source, psp, feat, emb, stream=True, **kw))
+        out.append((tokens, wav, chunks, fa.flash_attention.launches, draws.calls // 2))
+    (tok_c, wav_c, ch_c, _, _), (tok_g, wav_g, ch_g, k1, flows) = out
+    same = np.array_equal(tok_c, tok_g) and len(ch_c) == len(ch_g) and all(
+        a.shape == b.shape for a, b in zip(ch_c, ch_g))
+    err = max([float(np.abs(wav_c - wav_g).max())] + [float(np.abs(a - b).max())
+                                                      for a, b in zip(ch_c, ch_g)]) \
+        if same and wav_c.shape == wav_g.shape else float("inf")
+    want_k1 = _k1_per_v1_flow(cfg) * flows
+    design = _k1_design(torch.float32)
+    ok = same and err <= 1e-3 and k1 == want_k1 and all(
+        np.isfinite(c).all() for c in [wav_g] + ch_g)
+    print(f"v1 reference check (small config, fp32, card vs CPU plain path): lm_decode tokens "
+          f"{len(tok_g)} equal: {np.array_equal(tok_c, tok_g)}; tts and a streamed vc of "
+          f"{len(source)} tokens in {len(ch_g)} chunks (lengths {[len(c) for c in ch_g]}), "
+          f"audio max_abs_err={err:.3e} (tol 1e-3); K1 launches {k1} (expected {want_k1} = "
+          f"{_k1_per_v1_flow(cfg)} x {flows} flow calls; {design}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the card's v1 model disagrees with the plain CPU path")
+
+
+def _v1_prompt(cfg, seconds: float, seed: int = 0) -> tuple:
+    """(speech tokens at 50 Hz, the 22.05 kHz prompt mel, the x-vector) of a
+    synthetic prompt of ``seconds``."""
+    import numpy as np
+
+    from cosyvoice2_eu_torch.models.flow_v1 import mel_len_for_tokens
+
+    rng = np.random.default_rng(seed)
+    n_sp = int(seconds * cfg.flow.input_frame_rate)
+    feat = rng.standard_normal((mel_len_for_tokens(cfg.flow, n_sp), cfg.flow.output_size))
+    return (rng.integers(0, cfg.llm.speech_token_size, n_sp).astype(np.int32),
+            (feat * 0.5 - 4.0).astype(np.float32),
+            rng.standard_normal(cfg.llm.spk_embed_dim).astype(np.float32))
+
+
+def v1_path(card: str) -> tuple[list, int]:
+    """``load_v1(config=TTSV1Config(), seed=0, device="cuda")`` at
+    CosyVoice-300M's published widths (random weights): 2 requests, 1
+    streamed request and a ``vc`` of the first request's tokens, from a
+    synthetic 3 s prompt, each with the counts set to 0 before it and read
+    after it.  Gates: finite, non-silent audio of mel frames x 256 samples,
+    K1 640 times a flow call, every launch on its fp32 design.  Prints LM
+    ms/token, flow ms a call, HiFT ms, RTF, the first chunk's latency and
+    peak memory.  Returns each flow call's mel length T and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSV1Config
+    from cosyvoice2_eu_torch.models.flow_v1 import mel_len_for_tokens
+    from cosyvoice2_eu_torch.ops import flash_attention as fa
+
+    cfg = TTSV1Config()
+    per_call = _k1_per_v1_flow(cfg)
+    t0 = time.perf_counter()
+    model, frontend, _ = cosy.load_v1(config=cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for group in ("llm", "flow", "hift")
+                   for x in _by_path(model.params[group]).values())
+    print(f"v1 path: load_v1(TTSV1Config(), seed=0, device='cuda') {time.perf_counter() - t0:.2f} "
+          f"s, {n_params / 1e6:.2f} M parameters [{card}]")
+    psp, feat, emb = _v1_prompt(cfg, 3.0)
+    calls = []  # (mel length T, the call's tokens) of each flow call
+    inner = model.token2wav
+
+    def recorded(token, prompt_token, prompt_feat, *args, **kwargs):
+        calls.append((prompt_feat.shape[0] + mel_len_for_tokens(cfg.flow, len(token)),
+                      np.asarray(token).copy()))
+        return inner(token, prompt_token, prompt_feat, *args, **kwargs)
+
+    model.token2wav = recorded
+    empty = np.zeros(0, np.int32)
+    requests = [("tts", V1_TEXTS[0], False), ("tts", V1_TEXTS[1], False),
+                ("tts", V1_TEXTS[2], True), ("vc", None, False)]
+    launches, source = 0, None
+    for i, (kind, text, stream) in enumerate(requests):
+        _reset_peak()
+        _reset_counts()
+        model.timer.reset()
+        first = len(calls)
+        t0 = time.perf_counter()
+        if kind == "tts":
+            chunks = model.tts(frontend.text_tokens(text), empty, psp, feat, emb, stream=stream)
+            n_tok = model.last_n_tokens
+        else:
+            chunks, n_tok = model.vc(source, psp, feat, emb), len(source)
+        walls, lens = [], []
+        for chunk in chunks:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            lens.append(len(chunk))
+            ok_chunk = np.isfinite(chunk).all() and float(np.abs(chunk).max()) > 1e-3
+            if not ok_chunk:
+                raise SystemExit(f"v1 request {i}: a chunk is not finite or silent")
+        wall = time.perf_counter() - t0
+        flows = len(calls) - first
+        if source is None:
+            source = calls[first][1]
+        k1 = fa.flash_attention.launches
+        design = _k1_design(torch.float32)
+        samples = sum(lens)
+        want = mel_len_for_tokens(cfg.flow, n_tok) * cfg.hift.upsample_scale
+        stages = model.timer.summary()
+        audio_s = samples / cfg.sample_rate
+        ok = (samples == want and k1 == per_call * flows and not any(
+            f.launches for f in _counters()[1:]))
+        lm = (f"LM {stages['lm_decode']['total_s'] * 1e3 / max(n_tok, 1):.2f} ms/token, "
+              if kind == "tts" else "")
+        print(f"v1 request {i} ({kind}, stream={stream}): "
+              + (f"{len(text.encode())} text bytes -> " if text else "")
+              + f"{n_tok} tokens, {audio_s:.2f} s audio ({samples} samples, expected {want}) in "
+              f"{len(lens)} chunks at T {[c[0] for c in calls[first:]]}; {lm}flow "
+              f"{stages['flow']['total_s'] * 1e3 / flows:.1f} ms a call x {flows}, HiFT "
+              f"{stages['hift']['total_s'] * 1e3:.1f} ms, wall {wall:.2f} s, RTF "
+              f"{wall / audio_s:.3f}, first chunk after {walls[0]:.1f} ms; K1 launches {k1} "
+              f"(expected {per_call} x {flows}; {design}); peak memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB [{card}] "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"v1 request {i} failed its checks")
+        launches += k1
+    ts = [c[0] for c in calls]
+    del model, frontend, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ts, launches
+
+
+@_uncounted
+def time_v1_flash_attention(flow_ts: list, card: str) -> dict:
+    """K1's fp32 design at the v1 estimator's shapes, (2, 8, T, 64) and
+    (2, 8, ceil(T / 2), 64) at chunk 0 without LSE for each flow call's T,
+    as CUDA-graph replay, beside the plain version, SDPA and the 3xTF32
+    bound; the mean per launch weighted as a flow call launches them (80
+    at T, 560 at ceil(T / 2) at the published widths)."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSV1Config
+
+    cfg = TTSV1Config()
+    est = cfg.flow.estimator
+    if len(est.channels) != 2:
+        raise SystemExit("the v1 launch split assumes two U-Net resolutions")
+    full = 2 * est.n_blocks * cfg.flow.cfm.n_timesteps  # the first down and the last up stage
+    half = _k1_per_v1_flow(cfg) - full
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    timed, parts = {}, []
+    for t_mel in flow_ts:
+        for t_len, n in ((t_mel, full), ((t_mel + 1) // 2, half)):
+            if t_len not in timed:
+                r = timed[t_len] = _time_k1([t_len, t_len], t_len, 0, torch.float32, False, gen)
+                print(f"K1 timing (v1) T={t_len} fp32 chunk=0 B=2 [{card}]: kernel "
+                      f"{r['ms']:.4f} ms ({r['tflops']:.1f} TFLOP/s, {100 * r['share']:.1f}% of "
+                      f"the 3xTF32 bound; eager from Python {r['eager_ms']:.4f} ms), plain "
+                      f"{r['plain_ms']:.4f} ms, sdpa {r['library_ms']:.4f} ms, bound "
+                      f"{r['bound_ms'] * 1e3:.2f} us, FMA bound {r['fma_bound_ms'] * 1e3:.2f} us "
+                      f"({r['gflop']:.2f} GFLOP, {r['mb']:.2f} MB); output vs plain max_abs_err "
+                      f"{r['err']:.3e} ok")
+            parts.append((n, timed[t_len]))
+    return _weighted(parts)
+
+
 def main() -> None:
     import torch
 
@@ -3927,6 +4246,7 @@ def main() -> None:
     check_small_session()
     check_small_engine()
     check_small_bistream()
+    check_small_v1()
     tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
@@ -3958,6 +4278,12 @@ def main() -> None:
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
         worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
                                                    f" {name}") for lens, t, chunk in cases]))
+    # the v1 family at CosyVoice-300M's widths (fp32: K1's fp32 design), then
+    # K1 checked at each of its shapes, T and ceil(T / 2) of every flow call
+    v1_ts, v1_launches = v1_path(card)
+    worst = max(worst, check_flash_attention(
+        [([t, t], t, (torch.float32,), (0,), " v1")
+         for t in sorted({t for t_mel in v1_ts for t in (t_mel, (t_mel + 1) // 2)})]))
     steps, train_launches = train_path(card)
     lm_train_path(card)
     gan_path(card)
@@ -3993,6 +4319,9 @@ def main() -> None:
     k1_fp32, k3, k4, step_kernel_ms = time_training_kernels(
         {"train": (steps, train_launches[0], [CV_SHAPE]), "cli": (cli_steps, cli_k1, cli_cv)},
         card)
+    k1_fp32["v1"] = time_v1_flash_attention(v1_ts, card)
+    if k1_fp32["v1"]["launches"] != v1_launches:
+        raise SystemExit("K1's v1 launches do not match the v1 path's flow calls")
     per_cli = cli_k1 // (len(cli_steps) + len(cli_cv))
     if [k3["launches"], k4["launches"]] != [n + per_cli * len(cli_steps)
                                             for n in train_launches[1:3]]:
@@ -4002,7 +4331,8 @@ def main() -> None:
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms
     keys = ("launches", "ms", "eager_ms", "plain_ms", "bound_ms", "fma_bound_ms", "bound_by",
             "library_ms")
-    # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32 (3xTF32) in training
+    # each design's mean per launch: bf16 (wgmma) on the serving paths, fp32
+    # (3xTF32) in training and on the v1 path
     serving = _weighted([(p["launches"], p) for name, p in paths.items() if name not in k1_fp32])
     designs = {"bfloat16": (fa.SM90_SOURCE, serving),
                "float32": (fa.SOURCE, _weighted([(p["launches"], p) for p in k1_fp32.values()]))}

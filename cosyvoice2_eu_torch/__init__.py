@@ -17,6 +17,10 @@ caller asks for the CPU:
     for chunk in model.stream_text(iter(["Bonjour ", "tout le ", "monde."]), prompt):
         ...                                       # text in as it arrives (bistream)
     qwen3 = cosy.load(backbone="hf:Qwen/Qwen3-0.6B", seed=0, download=False)
+    v1, frontend, cfg = cosy.load_v1(seed=0)     # CosyVoice-300M (v1), random weights
+    for chunk in v1.tts(text_ids, prompt_text_ids, prompt_speech_tokens, prompt_feat,
+                        embedding, stream=True):  # (t,) float32 chunks at 22.05 kHz
+        ...
 
 ``load`` sets ``torch.backends.cudnn.allow_tf32`` and
 ``torch.backends.cuda.matmul.allow_tf32`` to False: HiFT's fp32 phase math
@@ -35,8 +39,8 @@ import torch
 from cosyvoice2_eu_torch.config import TTSConfig
 
 __version__ = "0.1.0"
-__all__ = ["load", "Cosy2EU", "TTSConfig", "resolve_checkpoint_files", "resolve_backbone",
-           "__version__"]
+__all__ = ["load", "load_v1", "Cosy2EU", "TTSConfig", "resolve_checkpoint_files",
+           "resolve_backbone", "__version__"]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": None, "none": None}
 
@@ -402,3 +406,75 @@ def load(
                 frontend.load_spk_info(spk_path)
                 break
     return Cosy2EU(model, frontend, cfg)
+
+
+def load_v1(
+    *,
+    model_dir: Optional[str] = None,
+    config=None,
+    params: Optional[dict] = None,
+    seed: int = 0,
+    device: str | torch.device = "cuda",
+):
+    """Load a v1 (CosyVoice-300M family) bundle -> ``(CosyVoice1Model,
+    Frontend, TTSV1Config)``.
+
+    The weights, in this order: ``params`` (a {"llm", "flow", "hift"} tree
+    of numpy arrays or tensors); else the reference checkpoints in
+    ``model_dir`` (``llm.pt``, ``flow.pt``, ``hift.pt``, converted by
+    ``runtime/checkpoint_v1.py`` and ``convert_hift``); else random weights
+    drawn from a ``torch.Generator`` seeded with ``seed`` on ``device``.
+    ``config`` defaults to ``TTSV1Config()``, the published widths.  With
+    ``model_dir``, its ``speech_tokenizer_v1.onnx`` and ``campplus.onnx``
+    become the frontend's speech tokenizer and speaker embedding
+    (``runtime/onnx_fallback.py``), its tokenizer files or ``*.tiktoken``
+    ranks the text tokenizer (``frontend/tokenizer.py``), and its speaker
+    store (``spk2info.pt``, else ``spk2info.npz``) fills
+    ``Frontend.spk_info``.  The model runs in fp32.  ``device`` defaults to
+    "cuda" and raises when there is no GPU; pass "cpu" for the plain path.
+    """
+    from cosyvoice2_eu_torch.config import TTSV1Config
+    from cosyvoice2_eu_torch.frontend.frontend import Frontend
+    from cosyvoice2_eu_torch.frontend.tokenizer import get_tokenizer
+    from cosyvoice2_eu_torch.runtime.model_v1 import CosyVoice1Model
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+
+    dev = resolve_device(device)
+    cfg = config or TTSV1Config()
+    if params is None and model_dir is not None:
+        from cosyvoice2_eu_torch.runtime.checkpoint import convert_hift, load_torch_state
+        from cosyvoice2_eu_torch.runtime.checkpoint_v1 import convert_flow_v1, convert_llm_v1
+
+        def state(name):
+            return load_torch_state(os.path.join(model_dir, name))
+
+        params = {"llm": convert_llm_v1(state("llm.pt"), cfg.llm),
+                  "flow": convert_flow_v1(state("flow.pt"), cfg.flow),
+                  "hift": convert_hift(state("hift.pt"), cfg.hift)}
+    elif params is None:
+        from cosyvoice2_eu_torch.models.flow_v1 import init_flow_v1
+        from cosyvoice2_eu_torch.models.hift import init_hift
+        from cosyvoice2_eu_torch.models.llm_v1 import init_lm_v1
+
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        params = {"llm": init_lm_v1(gen, cfg.llm), "flow": init_flow_v1(gen, cfg.flow),
+                  "hift": init_hift(gen, cfg.hift)}
+    model = CosyVoice1Model(cfg, params, seed=seed, device=dev)
+    speech_tokenizer_fn = spk_embedding_fn = None
+    if model_dir is not None:
+        from cosyvoice2_eu_torch.runtime.onnx_fallback import load_frontend_fns
+
+        speech_tokenizer_fn, spk_embedding_fn = load_frontend_fns(
+            os.path.join(model_dir, "speech_tokenizer_v1.onnx"),
+            os.path.join(model_dir, "campplus.onnx"), device=dev)
+    frontend = Frontend(cfg, tokenizer=get_tokenizer(model_dir or ""),
+                        speech_tokenizer_fn=speech_tokenizer_fn,
+                        spk_embedding_fn=spk_embedding_fn, device=dev)
+    if model_dir is not None:
+        for name in ("spk2info.pt", "spk2info.npz"):
+            spk_path = os.path.join(model_dir, name)
+            if os.path.exists(spk_path):
+                frontend.load_spk_info(spk_path)
+                break
+    return model, frontend, cfg

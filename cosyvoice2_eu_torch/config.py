@@ -292,6 +292,211 @@ class TrainConfig:
     fsdp_size: int = 1  # optimizer/parameter sharding axis (ZeRO-equivalent)
 
 
+# ---------------------------------------------------------------------------
+# the v1 family (CosyVoice-300M): defaults are the published conf/cosyvoice.yaml
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GenericEncoderConfig:
+    """The ESPnet-style Transformer/Conformer encoder family (the v1 text
+    encoder, speech LM and flow encoder)."""
+
+    input_size: int = 80
+    output_size: int = 256
+    attention_heads: int = 4
+    linear_units: int = 2048
+    num_blocks: int = 6
+    arch: str = "conformer"  # transformer | conformer
+    input_layer: str = "conv2d"  # linear|linear_legacy|embed|conv1d2|conv2d|conv2d6|conv2d8
+    pos_enc_layer_type: str = "rel_pos_espnet"
+    # abs_pos | rel_pos | rel_pos_espnet | no_pos | abs_pos_whisper | embed_learnable_pe
+    selfattention_layer_type: str = "rel_selfattn"  # selfattn | rel_selfattn
+    activation_type: str = "swish"  # relu | swish | gelu
+    normalize_before: bool = True
+    static_chunk_size: int = 0
+    use_dynamic_chunk: bool = False
+    use_dynamic_left_chunk: bool = False
+    key_bias: bool = True
+    macaron_style: bool = True  # conformer only
+    use_cnn_module: bool = True  # conformer only
+    cnn_module_kernel: int = 15
+    cnn_module_norm: str = "batch_norm"  # batch_norm | layer_norm
+    causal: bool = False  # causal depthwise conv in the CNN module
+    vocab_size: int = 0  # for input_layer == "embed"
+    max_len: int = 5000  # positional table length
+    gradient_checkpointing: bool = False
+    layer_norm_eps: float = 1e-12
+
+
+@dataclasses.dataclass(frozen=True)
+class EstimatorV1Config:
+    """Non-causal multi-scale U-Net CFM estimator of the v1 flow."""
+
+    in_channels: int = 320  # x(80) + mu(80) + spks(80) + cond(80)
+    out_channels: int = 80
+    channels: Tuple[int, ...] = (256, 256)
+    attention_head_dim: int = 64
+    n_blocks: int = 4
+    num_mid_blocks: int = 12
+    num_heads: int = 8
+    act_fn: str = "gelu"
+    time_embed_scale: float = 1000.0
+
+
+@dataclasses.dataclass(frozen=True)
+class LengthRegulatorConfig:
+    """InterpolateRegulator: linear resample + conv/GroupNorm/Mish stack."""
+
+    channels: int = 80
+    sampling_ratios: Tuple[int, ...] = (1, 1, 1, 1)
+    groups: int = 1
+
+
+def _v1_flow_encoder() -> GenericEncoderConfig:
+    # plain (non-upsampling) conformer
+    return GenericEncoderConfig(
+        input_size=512, output_size=512, attention_heads=8, linear_units=2048,
+        num_blocks=6, arch="conformer", input_layer="linear",
+        pos_enc_layer_type="rel_pos_espnet", selfattention_layer_type="rel_selfattn",
+        use_cnn_module=False, macaron_style=False,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowV1Config:
+    """v1 flow (MaskedDiffWithXvec): tokens map 1:1 through the encoder and a
+    length regulator stretches them to the mel length (token_mel_ratio 1)."""
+
+    input_size: int = 512
+    output_size: int = 80  # mel bins
+    spk_embed_dim: int = 192
+    vocab_size: int = 4096
+    input_frame_rate: int = 50
+    only_mask_loss: bool = True
+    token_mel_ratio: int = 1
+    sample_rate: int = 22050
+    mel_hop: int = 256
+    encoder: GenericEncoderConfig = dataclasses.field(default_factory=_v1_flow_encoder)
+    length_regulator: LengthRegulatorConfig = dataclasses.field(
+        default_factory=LengthRegulatorConfig)
+    estimator: EstimatorV1Config = dataclasses.field(default_factory=EstimatorV1Config)
+    cfm: CFMConfig = dataclasses.field(default_factory=CFMConfig)
+    cache_tail_tokens: int = 20  # streaming token overlap pinned in the z/mu cache
+
+    @property
+    def cache_tail(self) -> int:
+        # 34 frames for the published geometry (20 tokens, 50 Hz, 22.05 kHz / 256)
+        return int(self.cache_tail_tokens / self.input_frame_rate
+                   * self.sample_rate / self.mel_hop)
+
+
+def _v1_text_encoder() -> GenericEncoderConfig:
+    # static_chunk_size 1: causal
+    return GenericEncoderConfig(
+        input_size=512, output_size=1024, attention_heads=16, linear_units=4096,
+        num_blocks=6, arch="conformer", input_layer="linear",
+        pos_enc_layer_type="rel_pos_espnet", selfattention_layer_type="rel_selfattn",
+        use_cnn_module=False, macaron_style=False, static_chunk_size=1,
+    )
+
+
+def _v1_llm_encoder() -> GenericEncoderConfig:
+    # the decoder-only speech-token LM; relu, the TransformerEncoder default
+    return GenericEncoderConfig(
+        input_size=1024, output_size=1024, attention_heads=16, linear_units=4096,
+        num_blocks=14, arch="transformer", input_layer="linear_legacy",
+        pos_enc_layer_type="rel_pos_espnet", selfattention_layer_type="rel_selfattn",
+        activation_type="relu", static_chunk_size=1,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class LMV1Config:
+    """v1 TransformerLM: conformer text encoder + transformer speech LM."""
+
+    text_encoder_input_size: int = 512
+    llm_input_size: int = 1024
+    llm_output_size: int = 1024
+    text_token_size: int = 51866
+    speech_token_size: int = 4096
+    spk_embed_dim: int = 192
+    lsm_weight: float = 0.0
+    length_normalized_loss: bool = True
+    text_encoder: GenericEncoderConfig = dataclasses.field(default_factory=_v1_text_encoder)
+    llm: GenericEncoderConfig = dataclasses.field(default_factory=_v1_llm_encoder)
+    # RAS sampling
+    top_p: float = 0.8
+    top_k: int = 25
+    win_size: int = 10
+    tau_r: float = 0.1
+    min_token_text_ratio: float = 2.0
+    max_token_text_ratio: float = 20.0
+
+    @property
+    def eos_token(self) -> int:
+        return self.speech_token_size
+
+    @property
+    def full_vocab(self) -> int:
+        return self.speech_token_size + 1  # the speech head's width (EOS last)
+
+
+def _v1_hift() -> HiFTConfig:
+    # 22.05 kHz, hop 8 * 8 * 4 = 256
+    return HiFTConfig(
+        sampling_rate=22050, upsample_rates=(8, 8), upsample_kernel_sizes=(16, 16),
+        source_resblock_kernel_sizes=(7, 11),
+        source_resblock_dilation_sizes=((1, 3, 5), (1, 3, 5)),
+    )
+
+
+def _v1_mel() -> MelConfig:
+    # 22.05 kHz, 1024 / 256 / 1024
+    return MelConfig(n_fft=1024, sampling_rate=22050, hop_size=256, win_size=1024)
+
+
+def _v1_frontend() -> FrontendConfig:
+    return FrontendConfig(target_sr=22050)
+
+
+@dataclasses.dataclass(frozen=True)
+class TTSV1Config:
+    """The v1 model bundle (CosyVoice-300M) and its streaming constants."""
+
+    llm: LMV1Config = dataclasses.field(default_factory=LMV1Config)
+    flow: FlowV1Config = dataclasses.field(default_factory=FlowV1Config)
+    hift: HiFTConfig = dataclasses.field(default_factory=_v1_hift)
+    frontend: FrontendConfig = dataclasses.field(default_factory=_v1_frontend)
+    mel: MelConfig = dataclasses.field(default_factory=_v1_mel)
+    token_overlap_len: int = 20
+    mel_cache_len: int = 20
+    stream_scale_factor: float = 1.0
+    # the 22.05 kHz path trims no prompt mel to the tokens: 0 means no alignment
+    token_mel_ratio: int = 0
+
+    @property
+    def sample_rate(self) -> int:
+        return self.flow.sample_rate
+
+    @property
+    def token_min_hop_len(self) -> int:
+        return 2 * self.flow.input_frame_rate
+
+    @property
+    def token_max_hop_len(self) -> int:
+        return 4 * self.flow.input_frame_rate
+
+    @property
+    def mel_overlap_len(self) -> int:
+        # the token overlap in mel frames
+        return int(self.token_overlap_len / self.flow.input_frame_rate
+                   * self.flow.sample_rate / self.flow.mel_hop)
+
+    @property
+    def source_cache_len(self) -> int:
+        return self.mel_cache_len * self.flow.mel_hop
+
+
 def tiny_test_config() -> TTSConfig:
     """A miniature config for fast unit tests (same topology, tiny dims)."""
 
@@ -351,16 +556,21 @@ def config_to_dict(cfg) -> dict:
 
 
 def config_from_dict(cls, data: dict):
-    """One frozen dataclass from a dict: the fields ``data`` names (lists as
-    tuples, a list of lists as a tuple of tuples), the defaults for the
-    rest.  A nested dataclass field is built by the caller
-    (``_build_tts_config``)."""
+    """A frozen dataclass from a dict: the fields ``data`` names (lists as
+    tuples, a list of lists as a tuple of tuples, a dict under a dataclass
+    field as that dataclass, built the same way), the defaults for the
+    rest."""
+    import typing
+
+    hints = typing.get_type_hints(cls)
     kwargs = {}
     for f in dataclasses.fields(cls):
         if f.name not in data:
             continue
         v = data[f.name]
-        if isinstance(v, list):
+        if isinstance(v, dict) and dataclasses.is_dataclass(hints.get(f.name)):
+            v = config_from_dict(hints[f.name], v)
+        elif isinstance(v, list):
             v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
         kwargs[f.name] = v
     return cls(**kwargs)
@@ -388,31 +598,4 @@ def load_config(path: str | None = None, overrides: dict | None = None) -> TTSCo
             _merge(data, json.load(f))
     if overrides:
         _merge(data, overrides)
-    return _build_tts_config(data)
-
-
-def _build_tts_config(data: dict) -> TTSConfig:
-    llm_d = data.get("llm", {})
-    llm = dataclasses.replace(config_from_dict(LMConfig, {**llm_d, "backbone": {}}),
-                              backbone=config_from_dict(Qwen2Config, llm_d.get("backbone", {})))
-    flow_d = data.get("flow", {})
-    flow = dataclasses.replace(
-        config_from_dict(FlowConfig, {**flow_d, "encoder": {}, "estimator": {}, "cfm": {}}),
-        encoder=config_from_dict(ConformerConfig, flow_d.get("encoder", {})),
-        estimator=config_from_dict(EstimatorConfig, flow_d.get("estimator", {})),
-        cfm=config_from_dict(CFMConfig, flow_d.get("cfm", {})),
-    )
-    hift_d = data.get("hift", {})
-    hift = dataclasses.replace(
-        config_from_dict(HiFTConfig, {**hift_d, "f0_predictor": {}}),
-        f0_predictor=config_from_dict(F0PredictorConfig, hift_d.get("f0_predictor", {})))
-    top = {k: v for k, v in data.items()
-           if k in ("sample_rate", "token_frame_rate", "token_mel_ratio", "chunk_size")}
-    return TTSConfig(
-        llm=llm, flow=flow, hift=hift,
-        mel=config_from_dict(MelConfig, data.get("mel", {})),
-        whisper_mel=config_from_dict(WhisperMelConfig, data.get("whisper_mel", {})),
-        stream=config_from_dict(StreamConfig, data.get("stream", {})),
-        frontend=config_from_dict(FrontendConfig, data.get("frontend", {})),
-        **top,
-    )
+    return config_from_dict(TTSConfig, data)

@@ -1,8 +1,10 @@
 """Qwen text tokenizer wrapper (host-side), the port's own copy.
 
 Counterpart of ``cosyvoice2_eu_tpu/frontend/tokenizer.py``: an HF
-AutoTokenizer plus CosyVoice's paralinguistic / control special tokens, and a
-deterministic byte-level tokenizer when no HF vocabulary is available.
+AutoTokenizer plus CosyVoice's paralinguistic / control special tokens, the
+v1 family's whisper-tiktoken tokenizer (``legacy_tokenizer.py``) over a
+``*.tiktoken`` ranks asset, and a deterministic byte-level tokenizer when no
+vocabulary is available.
 """
 
 from __future__ import annotations
@@ -73,15 +75,19 @@ class ByteFallbackTokenizer:
 
 @lru_cache(maxsize=None)
 def get_tokenizer(token_path: str = "", skip_special_tokens: bool = True):
-    """Resolve a tokenizer from a model dir: HF tokenizer files select the
-    Qwen tokenizer; an empty path gives the byte tokenizer."""
+    """Resolve a tokenizer from a model dir.  A ``*.tiktoken`` ranks asset
+    (and no ``tokenizer_config.json``) selects the legacy whisper-tiktoken
+    tokenizer, the first such file by name; HF tokenizer files select the
+    Qwen tokenizer; an empty path, or a dir with neither, gives the byte
+    tokenizer."""
+    from cosyvoice2_eu_torch.frontend.legacy_tokenizer import get_legacy_tokenizer
+
     if not token_path:
         return ByteFallbackTokenizer()
     if os.path.isdir(token_path):
-        if any(f.endswith(".tiktoken") for f in os.listdir(token_path)) and not \
-                os.path.exists(os.path.join(token_path, "tokenizer_config.json")):
-            raise NotImplementedError(
-                "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 9")
+        ranks = sorted(f for f in os.listdir(token_path) if f.endswith(".tiktoken"))
+        if ranks and not os.path.exists(os.path.join(token_path, "tokenizer_config.json")):
+            return get_legacy_tokenizer(os.path.join(token_path, ranks[0]))
         if not any(
             os.path.exists(os.path.join(token_path, f))
             for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json")
@@ -89,6 +95,5 @@ def get_tokenizer(token_path: str = "", skip_special_tokens: bool = True):
             logging.warning("no tokenizer files in %s; using byte-fallback tokenizer", token_path)
             return ByteFallbackTokenizer()
     elif token_path.endswith(".tiktoken"):
-        raise NotImplementedError(
-            "the legacy tiktoken tokenizer (v1 family) is not ported yet: ROADMAP item 9")
+        return get_legacy_tokenizer(token_path)
     return QwenTokenizer(token_path, skip_special_tokens)

@@ -99,9 +99,27 @@ def init_conv_transpose1d(gen, in_ch: int, out_ch: int, k: int, bias: bool = Tru
     return p
 
 
+def init_conv2d(gen, in_ch: int, out_ch: int, k: int, bias: bool = True) -> dict:
+    fan_in = in_ch * k * k
+    p = {"weight": _kaiming_uniform(gen, (out_ch, in_ch, k, k), fan_in)}
+    if bias:
+        p["bias"] = _kaiming_uniform(gen, (out_ch,), fan_in)
+    return p
+
+
+def init_batch_norm(gen, dim: int) -> dict:
+    ones, zeros = torch.ones(dim, device=gen.device), torch.zeros(dim, device=gen.device)
+    return {"weight": ones, "bias": zeros, "running_mean": zeros.clone(),
+            "running_var": ones.clone()}
+
+
 def init_layer_norm(gen, dim: int) -> dict:
     return {"weight": torch.ones(dim, device=gen.device),
             "bias": torch.zeros(dim, device=gen.device)}
+
+
+def init_group_norm(gen, dim: int) -> dict:
+    return init_layer_norm(gen, dim)  # the same affine: weight 1, bias 0
 
 
 def init_rms_norm(gen, dim: int) -> dict:
@@ -188,6 +206,25 @@ def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return y * p["weight"].to(x.dtype) + p["bias"].to(x.dtype)
 
 
+def group_norm(p: dict, x: torch.Tensor, groups: int, eps: float = 1e-5) -> torch.Tensor:
+    """torch.nn.GroupNorm over (B, C, T), stats in the input dtype (as the JAX layer)."""
+    b, c, t = x.shape
+    xg = x.reshape(b, groups, c // groups, t)
+    mean = xg.mean(dim=(2, 3), keepdim=True)
+    var = (xg - mean).square().mean(dim=(2, 3), keepdim=True)
+    y = ((xg - mean) * torch.rsqrt(var + eps)).reshape(b, c, t)
+    return y * p["weight"].to(x.dtype)[None, :, None] + p["bias"].to(x.dtype)[None, :, None]
+
+
+def batch_norm1d(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """Inference-mode torch.nn.BatchNorm1d over (B, C, T) from the running stats, in fp32."""
+    mean = p["running_mean"].float()[None, :, None]
+    var = p["running_var"].float()[None, :, None]
+    y = (x.float() - mean) * torch.rsqrt(var + eps)
+    y = y * p["weight"].float()[None, :, None] + p["bias"].float()[None, :, None]
+    return y.to(x.dtype)
+
+
 def rms_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     y = xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps)
@@ -210,6 +247,12 @@ def conv1d(
     b = p["bias"].to(x.dtype) if "bias" in p else None
     return F.conv1d(x, p["weight"].to(x.dtype), b, stride=stride, dilation=dilation,
                     groups=groups)
+
+
+def conv2d(p: dict, x: torch.Tensor, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """torch.nn.Conv2d semantics.  x: (B, C_in, H, W) -> (B, C_out, H', W')."""
+    b = p["bias"].to(x.dtype) if "bias" in p else None
+    return F.conv2d(x, p["weight"].to(x.dtype), b, stride=stride, padding=padding)
 
 
 def causal_conv1d(p: dict, x: torch.Tensor, dilation: int = 1, groups: int = 1) -> torch.Tensor:

@@ -85,8 +85,23 @@ def test_speakers_and_sft_match_jax(shims, apis, tmp_path):  # noqa: F811
 
 
 def test_unported_and_unsupported_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP item 9"):
-        port_compat.CosyVoice("model_dir")
+    """The v1 class builds on ``load_v1`` (a tiny bundle on the CPU) and
+    answers ``inference_sft``; ``CosyVoice2.inference_instruct`` raises."""
+    from torch_parity import tiny_v1_bundle, tiny_v1_params
+
+    from cosyvoice2_eu_torch import config as port_config
+
+    cfg = tiny_v1_bundle(port_config)
+    cv = port_compat.CosyVoice(config=cfg, params=tiny_v1_params(cfg), device="cpu")
+    rng = np.random.default_rng(0)
+    cv.frontend.add_zero_shot_spk("spk0", {
+        "prompt_feat": rng.standard_normal((8, cfg.flow.output_size)).astype(np.float32),
+        "speech_tokens": np.arange(5, dtype=np.int32),
+        "embedding": rng.standard_normal(cfg.llm.spk_embed_dim).astype(np.float32)})
+    out = list(cv.inference_sft("\x01\x02\x03", "spk0", text_frontend=False))
+    assert len(out) == 1 and out[0]["tts_speech"].shape[0] == 1
+    assert out[0]["tts_speech"].shape[1] % cfg.hift.upsample_scale == 0
+    assert np.isfinite(out[0]["tts_speech"].numpy()).all()
     shim = object.__new__(port_compat.CosyVoice2)
     with pytest.raises(NotImplementedError, match="not implemented for CosyVoice2"):
         shim.inference_instruct("x")
