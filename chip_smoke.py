@@ -145,6 +145,15 @@ Phases (any failure ends the run with a non-zero exit code):
      its fp32 design; prints LM ms/token, flow ms a call, HiFT ms, RTF, the
      first chunk's latency and peak memory; then K1 checked at each flow
      call's (2, 8, T, 64) and (2, 8, ceil(T / 2), 64);
+  5h. the evaluation harness (counts set to 0 before it, read after):
+     ``run_eval.evaluate_model`` over ``Cosy2EU.tts`` at ``TTSConfig()``
+     (random weights, seed 0; the frontend phase's seeded FSQ tokenizer and
+     CAM++ on the card) on 4 utterances of 2 speakers written from seeded
+     harmonics, SECS on the card's CAM++.  Gates: 4 rows, none failed; rtf,
+     mcd, mcd_rel, lsd and secs finite; the pitch metrics finite unless a
+     side has under 5 voiced frames (then NaN, as the JAX package's guard);
+     K1 560 times a flow call.  Prints each sample's synthesis ms and
+     metric host ms, and the summary;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -187,6 +196,23 @@ Phases (any failure ends the run with a non-zero exit code):
      fp32 design, no launch in the LM's runs; then K3/K4 checked against
      their plain version at every flow step's shape.  Prints the
      pipeline's ms a batch beside each step's ms, and peak memory;
+  6e. several processes: (a) a world-1 NCCL group in this process, one
+     data-parallel flow step at ``TTSConfig().flow`` on the training path's
+     B=4 batch against the plain step under the same draws; (b) 2 spawned
+     ranks sharing the card over gloo (NCCL takes one rank a GPU), the same
+     batch split 2 / 2: a DP step and a ``--fsdp 2`` step, each held to the
+     one-process step (loss within 1e-5 relative, parameters and Adam's
+     first moment within 1e-4 x max + 1e-7), 56 launches each of K1, K3
+     and K4 a step and rank; (c) the same 2 ranks, Qwen2-0.5B split tp=2:
+     fp32 prefill logits against tp=1's within 1e-5 x max|logits| with the
+     K/V kept in fp32, and within 1e-3 x max|logits| through the bf16 KV
+     cache ``lm_prefill`` writes (its roundings turn the sums' reordering
+     into steps of 2^-8: ``cosyvoice2_eu_torch/tools/tp_fp32_drift.py``),
+     and 64 decoded tokens equal to tp=1's, bf16 and int8 ms a step beside tp=1's (the ranks
+     share the card: not a scaling figure), K2 168 + 169 x steps a rank at
+     the int8 slices, prefill on the wgmma design and steps on the decode
+     design.  The kernels are built before the ranks start; the ranks
+     print nothing, and a failing or hung rank fails the run;
   7. kernel timings at the shapes of the paths: K1 on all of them (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one; the v1 path's
@@ -207,13 +233,14 @@ is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
 bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine,
 tts_batch6, bistream and qwen3 paths, fp32 on the training path, the
-trainer command line's "cli" and the v1 path's "v1"), K2's over
-the shapes of the int8 path, the int8 stream, the int8 engine and the int8
-bistream requests, Qwen3's included (each under ``by_shape``,
+trainer command line's "cli", the v1 path's "v1" and the parallel
+phase's "parallel"; the eval phase's "eval" among the bf16 ones), K2's over
+the shapes of the int8 path, the int8 stream, the int8 engine, the int8
+bistream requests, Qwen3's included, and the tp=2 slices (each under ``by_shape``,
 with ``bf16_linear_ms`` and at decode ``fma_ms``; each design's under
 ``by_design``: the wgmma one at prefill, the decode one at decode); K3's
-and K4's times are means per launch over the training path and the
-command line's (each path's under ``by_path``), their
+and K4's times are means per launch over the training path, the
+command line's and the parallel phase's (each path's under ``by_path``), their
 ``plain_ms`` time the plain dQ and dK/dV alone, their
 ``library_ms`` is null (no library call computes one of them alone), and
 ``backward_*ms`` time the whole backward as delta + K3 + K4, the plain
@@ -554,13 +581,21 @@ def check_flash_backward(cases=None) -> tuple[float, float]:
     return worst["dq"], worst["dkv"]
 
 
-def _k2_shapes(cfg) -> list:
+def _k2_shapes(cfg, tp: int = 1) -> list:
     """(N, K, launches per layer) of the int8 LM's projections: q, k/v, o,
-    gate/up, down; then the speech head (N, K, 0), launched once per step."""
+    gate/up, down; then the speech head (N, K, 0), launched once per step.
+    ``tp``: one process's slices under tensor parallelism (``parallel/tp.py``)."""
+    from cosyvoice2_eu_torch.parallel.tp import heads_split
+
     bb = cfg.llm.backbone
     h, q, kv = bb.hidden_size, bb.num_heads * bb.head_dim, bb.num_kv_heads * bb.head_dim
-    return [(q, h, 1), (kv, h, 2), (h, q, 1), (bb.intermediate_size, h, 2),
-            (h, bb.intermediate_size, 1), (cfg.llm.full_vocab, h, 0)]
+    inter, vocab = bb.intermediate_size, cfg.llm.full_vocab
+    if tp > 1:
+        a = tp if heads_split(tp, bb.num_heads, bb.num_kv_heads) else 1
+        m = tp if inter % tp == 0 else 1
+        q, kv, inter = q // a, kv // a, inter // m
+        vocab = vocab // tp if vocab % tp == 0 else vocab
+    return [(q, h, 1), (kv, h, 2), (h, q, 1), (inter, h, 2), (h, inter, 1), (vocab, h, 0)]
 
 
 def _with_backbone(bb=None):
@@ -2834,12 +2869,14 @@ def time_training_kernels(paths: dict, card: str) -> tuple[dict, dict, dict, lis
     gen.manual_seed(3)
     timed = {}
 
-    def timed_at(lens, chunk, dtype):
-        """K1 + LSE, K3 and K4 at one shape, timed once."""
+    def timed_at(lens, chunk, dtype, t=None):
+        """K1 + LSE, K3 and K4 at one shape (T: ``t``, else the longest
+        row), timed once."""
         lens = tuple(lens)
-        if (lens, chunk, dtype) in timed:
-            return timed[(lens, chunk, dtype)]
-        b, t = len(lens), max(lens)
+        t = t or max(lens)
+        if (lens, chunk, dtype, t) in timed:
+            return timed[(lens, chunk, dtype, t)]
+        b = len(lens)
         k1 = _time_k1(lens, t, chunk, dtype, True, gen)
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
         q, k, v, do = (torch.randn((b, h, t, d), generator=gen, device="cuda").to(dtype)
@@ -2877,7 +2914,7 @@ def time_training_kernels(paths: dict, card: str) -> tuple[dict, dict, dict, lis
                 library_ms=None, bound_ms=max(ops_ms, bytes_ms),
                 fma_bound_ms=max(ops / H100_FP32_FLOPS * 1e3, bytes_ms), ops_ms=ops_ms,
                 bytes_ms=bytes_ms, gflop=ops / 1e9, **backward)
-        r = timed[(lens, chunk, dtype)] = dict(k1=k1, **kern)
+        r = timed[(lens, chunk, dtype, t)] = dict(k1=k1, **kern)
         k3, k4 = kern["K3"], kern["K4"]
         print(f"K1/K3/K4 timing lengths={list(lens)} T={t} {str(dtype)[6:]} chunk={chunk} [{card}]: "
               f"K1+LSE {k1['ms']:.4f} ms ({k1['tflops']:.1f} TFLOP/s, {100 * k1['share']:.1f}% of "
@@ -2898,7 +2935,7 @@ def time_training_kernels(paths: dict, card: str) -> tuple[dict, dict, dict, lis
 
     k1_paths, bwd_parts = {}, {}
     for name, (steps, k1_launches, cv_lens) in paths.items():
-        per_step = [timed_at(r["lens"], r["chunk"], torch.float32) for r in steps]
+        per_step = [timed_at(r["lens"], r["chunk"], torch.float32, r.get("t")) for r in steps]
         n = k1_launches // (len(steps) + len(cv_lens))  # each kernel's launches per step
         cv_parts = []
         for lens in cv_lens:
@@ -2998,7 +3035,8 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
     engine ran, weighted by its launches there.
 
     ``decodes`` holds each LM decode's (batch, prompt bucket, steps), and
-    optionally its backbone config (default: Qwen2-0.5B): the prefill runs
+    optionally its backbone config (default, or None: Qwen2-0.5B) and its
+    tensor-parallel size (one process's slices; default 1): the prefill runs
     the 7 projections of each layer at M = batch x bucket, each decode step
     runs them and the speech head at M = batch (the engine's
     ``prefill_row`` is (1, bucket, 0) and its slot decode (4, 0, steps); a
@@ -3014,10 +3052,10 @@ def time_int8_matmul(decodes: list, launches: int, card: str) -> dict:
         if c and shape[0]:  # a prefill alone (steps 0) or a decode alone (bucket 0)
             counts[shape] = counts.get(shape, 0) + c
 
-    for b, p_bucket, steps, *bb in decodes:
-        cfg = _with_backbone(*bb)
+    for b, p_bucket, steps, *rest in decodes:
+        cfg = _with_backbone(rest[0] if rest else None)
         n_layers = cfg.llm.backbone.num_layers
-        for n, k, per_layer in _k2_shapes(cfg):
+        for n, k, per_layer in _k2_shapes(cfg, rest[1] if len(rest) > 1 else 1):
             if per_layer:  # a projection of every layer: at prefill and at each step
                 add((b * p_bucket, n, k), n_layers * per_layer)
                 add((b, n, k), n_layers * per_layer * steps)
@@ -4183,6 +4221,467 @@ def time_v1_flash_attention(flow_ts: list, card: str) -> dict:
     return _weighted(parts)
 
 
+# ---------------------------------------------------------------------------
+# several processes: data parallelism, sharded optimizer state, tensor-
+# parallel decode (parallel_path); the evaluation harness (eval_path)
+# ---------------------------------------------------------------------------
+
+# the tp phase's decodes: fp32 tokens held to tp=1's, and the steps of each
+# timed bf16 / int8 decode
+TP_TOKENS, TP_TIMED = 64, 16
+# (b)'s and (c)'s ranks share the one card over gloo (NCCL takes one rank a GPU)
+PARALLEL_WORLD = 2
+
+
+def _rank_entry(job: str, rank: int, world: int, init_file: str, out_file: str) -> None:
+    """A spawned rank: joins the gloo group on the one card, runs ``job``
+    (``_rank_dp`` or ``_rank_tp``) and saves its result; prints nothing."""
+    import traceback
+
+    import torch
+
+    sys.path.insert(0, REPO)
+    try:
+        import torch.distributed as dist
+
+        from cosyvoice2_eu_torch.ops import int8_matmul as i8
+
+        torch.cuda.set_device(0)
+        _record_k2_launches(i8)
+        dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                                world_size=world)
+        try:
+            out = {"dp": _rank_dp, "tp": _rank_tp}[job](rank, world)
+        finally:
+            dist.destroy_process_group()
+        torch.save({"ok": out}, out_file)
+    except BaseException:
+        torch.save({"error": traceback.format_exc()}, out_file)
+        raise
+
+
+def _run_ranks(job: str, world: int, timeout: float) -> list:
+    """``world`` spawned ranks of ``job`` on the one card (the kernels are
+    built already: the ranks load the libraries); every rank's result.  A
+    rank that fails, or that does not finish in ``timeout`` s, ends the run;
+    every process is stopped before this returns."""
+    import multiprocessing as mp
+
+    import torch
+
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory(prefix=f"cosy_{job}_") as d:
+        outs = [os.path.join(d, f"rank{r}.pt") for r in range(world)]
+        procs = [ctx.Process(target=_rank_entry,
+                             args=(job, r, world, os.path.join(d, "rendezvous"), outs[r]))
+                 for r in range(world)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + timeout
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+        if hung:
+            raise SystemExit(f"parallel {job}: ranks {hung} did not finish in {timeout:.0f} s")
+        results = []
+        for r, path in enumerate(outs):
+            res = torch.load(path, weights_only=False) if os.path.exists(path) else {
+                "error": f"exit code {procs[r].exitcode}, no result"}
+            if "error" in res:
+                raise SystemExit(f"parallel {job}: rank {r} failed:\n{res['error']}")
+            results.append(res["ok"])
+    return results
+
+
+def _tree_err(got, want) -> float:
+    """The worst leaf's max|got - want| as a share of 1e-4 x max|want| + 1e-7."""
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    return max(((a.float() - b.float()).abs().max().item()
+                / (1e-4 * b.float().abs().max().item() + 1e-7))
+               for a, b in zip(tree_leaves(got), tree_leaves(want)))
+
+
+def _flow_dp_inputs():
+    """``TTSConfig().flow``'s parameters (seed 0), ``train_path``'s B=4 batch
+    of [740, 690, 610, 520] mel frames and one step's draws (seed 1) on the
+    card, and ``TrainConfig()`` with an update every step."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TrainConfig, TTSConfig
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.parallel.train_step import make_flow_draws
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+
+    dev = resolve_device("cuda")  # fp32 stays fp32: no TF32
+    cfg = TTSConfig().flow
+    params = init_flow(torch.Generator(device=dev).manual_seed(0), cfg)
+    batch = _flow_batch(cfg, TRAIN_SHAPES[0], 100, dev)
+    draws = make_flow_draws(torch.Generator(device=dev).manual_seed(1), batch, cfg.output_size)
+    return cfg, TrainConfig(accum_grad=1), params, batch, draws
+
+
+def _dp_step(cfg, tc, params, batch, draws, mesh):
+    """One flow step, data-parallel over ``mesh`` on this process's rows of
+    ``batch`` and ``draws`` (None: the plain one-process step on all of
+    them); returns (loss, the new parameters, the whole Adam first moment,
+    ms, K1/K3/K4 launches)."""
+    import torch
+
+    from cosyvoice2_eu_torch.parallel.mesh import shard_batch, shard_rows
+    from cosyvoice2_eu_torch.parallel.train_step import init_train_state, make_flow_train_step
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+
+    tx = make_optimizer(tc, mesh)
+    step = make_flow_train_step(cfg, tc, tx, mesh=mesh)
+    state = init_train_state(params, tx)
+    mine, my_draws = ((batch, draws) if mesh is None
+                      else (shard_batch(batch, mesh), shard_rows(draws, mesh)))
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = step(state, mine, my_draws, streaming=False)
+    loss = float(metrics["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = [f.launches for f in _counters()[:3]]
+    mu = tx.gather_state(state.opt_state, state.params)["mu"]
+    return loss, state.params, mu, ms, launched
+
+
+def _rank_dp(rank: int, world: int) -> dict:
+    """(b) on one rank: the DP flow step (rows split 2 / 2) and the
+    ``--fsdp 2`` step, each held to the one-process step on the whole batch
+    (loss within 1e-5 relative, parameters and Adam's first moment within
+    1e-4 x max + 1e-7)."""
+    from cosyvoice2_eu_torch.parallel.mesh import make_mesh, row_block
+
+    cfg, tc, params, batch, draws = _flow_dp_inputs()
+    ref_loss, ref_params, ref_mu, _, _ = _uncounted(_dp_step)(cfg, tc, params, batch, draws, None)
+    out = {"rows": row_block(len(TRAIN_SHAPES[0]), make_mesh(dp=world))}
+    for name, fsdp in (("dp", 1), ("fsdp", world)):
+        mesh = make_mesh(dp=world // fsdp, fsdp=fsdp)
+        loss, p, mu, ms, launched = _dp_step(cfg, tc, params, batch, draws, mesh)
+        out[name] = {"loss": loss, "ref_loss": ref_loss,
+                     "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
+                     "param_err": _tree_err(p, ref_params), "mu_err": _tree_err(mu, ref_mu),
+                     "ms": ms, "launched": launched}
+    return out
+
+
+def _tp_decode(params, cfg, prompt, n: int = TP_TOKENS):
+    """(tokens, ms a step, steps) of an ``n``-token decode under the draws
+    of a generator seeded 7 on the card."""
+    import torch
+
+    from cosyvoice2_eu_torch.models import llm as llm_mod
+
+    ids, src, plen, _ = prompt
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    lens = torch.tensor([n], device=ids.device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks, lens, steps = llm_mod.lm_decode(params, cfg.llm, ids, src, plen, lens, lens, n,
+                                          draws=llm_mod.generator_draws(gen, 1, cfg.llm))
+    torch.cuda.synchronize()
+    return toks[0, :int(lens[0])].cpu(), (time.perf_counter() - t0) * 1e3 / max(steps, 1), steps
+
+
+def _tp_logits(params, cfg, prompt, cache):
+    """The prefill's last logits with its K/V through a cache of dtype
+    ``cache`` (``lm_prefill``'s is bf16)."""
+    from cosyvoice2_eu_torch.models import llm as llm_mod
+    from cosyvoice2_eu_torch.models.qwen2 import KVCache, local_kv_heads, qwen2_prefill
+
+    ids, src, plen, p_bucket = prompt
+    bb = cfg.llm.backbone
+    kv = KVCache.zeros(bb, 1, p_bucket + TP_TOKENS, ids.device, dtype=cache,
+                       num_kv_heads=local_kv_heads(params["backbone"], bb))
+    last, _ = qwen2_prefill(params["backbone"], bb, llm_mod.embed_mixed(params, ids, src), plen,
+                            kv)
+    return llm_mod.head_logits(params, cfg.llm, last)
+
+
+def _rank_tp(rank: int, world: int) -> dict:
+    """(c) on one rank: Qwen2-0.5B at its published widths (seed 0), its tp=2
+    slices beside the whole LM on the same card.  fp32: the prefill's logits
+    (K/V in fp32, and through ``lm_prefill``'s bf16 cache) and
+    ``TP_TOKENS`` decoded tokens against tp=1's; bf16 and int8: ms a
+    step over ``TP_TIMED`` steps at tp=2 and tp=1, and K2's launches and
+    designs at the int8 slices."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.models import llm as llm_mod
+    from cosyvoice2_eu_torch.parallel.tp import make_tp_mesh, shard_lm_tp
+    from cosyvoice2_eu_torch.tools.tp_fp32_drift import tp_prompt
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import cast_floating, quantize_lm_params
+
+    dev = resolve_device("cuda")
+    cfg = TTSConfig()
+    mesh = make_tp_mesh(world)
+    prompt = tp_prompt(cfg, dev)
+    ids, src, plen, p_bucket = prompt
+    out = {"p_bucket": p_bucket}
+    with torch.no_grad():
+        whole = llm_mod.init_lm(torch.Generator(device=dev).manual_seed(0), cfg.llm)
+        local = shard_lm_tp(whole, mesh, cfg.llm)
+        want = llm_mod.head_logits(whole, cfg.llm, llm_mod.lm_prefill(
+            whole, cfg.llm, ids, src, plen, TP_TOKENS).last_hidden)
+        got = llm_mod.head_logits(local, cfg.llm, llm_mod.lm_prefill(
+            local, cfg.llm, ids, src, plen, TP_TOKENS).last_hidden)
+        out["logits_err"] = (got - want).abs().max().item()
+        out["logits_peak"] = want.abs().max().item()
+        want = _tp_logits(whole, cfg, prompt, torch.float32)
+        out["logits_err_fp32_kv"] = (_tp_logits(local, cfg, prompt, torch.float32)
+                                     - want).abs().max().item()
+        out["logits_peak_fp32_kv"] = want.abs().max().item()
+        tok1, _, _ = _tp_decode(whole, cfg, prompt)
+        tok2, _, _ = _tp_decode(local, cfg, prompt)
+        out["tokens"] = (len(tok1), len(tok2))
+        out["tokens_equal"] = bool(torch.equal(tok1, tok2))
+        out["q_rows"] = tuple(local["backbone"]["layers"][0]["q_proj"]["weight"].shape)
+        bf16 = cast_floating(whole, torch.bfloat16)
+        del whole, local
+        for name, tree in (("bf16", bf16), ("int8", quantize_lm_params(bf16))):
+            sliced = shard_lm_tp(tree, mesh, cfg.llm)
+            _tp_decode(sliced, cfg, prompt, 2)  # the first call's allocations, off the clock
+            _, ms1, _ = _tp_decode(tree, cfg, prompt, TP_TIMED)
+            K2_LAUNCHED.clear()
+            _reset_counts()
+            _, ms2, steps = _tp_decode(sliced, cfg, prompt, TP_TIMED)
+            out[name] = {"ms1": ms1, "ms2": ms2, "steps": steps,
+                         "k2": _counters()[3].launches, "designs": dict(K2_LAUNCHED)}
+            del sliced
+    return out
+
+
+def parallel_path(card: str) -> dict:
+    """(a) the data-parallel flow step at world 1 on NCCL against the plain
+    step; (b) 2 ranks sharing the card over gloo: the DP flow step and the
+    ``--fsdp 2`` step against the one-process step; (c) tp=2 Qwen2-0.5B
+    against tp=1.  The ranks share one card: no time here is a multi-GPU
+    figure.  Returns the K1/K3/K4 step records and launches of (a) and
+    (b), and (c)'s K2 decodes and launches."""
+    import torch
+    import torch.distributed as dist
+
+    from cosyvoice2_eu_torch.parallel.mesh import make_mesh
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="cosy_nccl_") as d:
+        dist.init_process_group("nccl", init_method=f"file://{d}/rendezvous", rank=0,
+                                world_size=1)
+        try:
+            backend = dist.get_backend()
+            cfg, tc, params, batch, draws = _flow_dp_inputs()
+            ref_loss, ref_params, ref_mu, ref_ms, _ = _uncounted(_dp_step)(
+                cfg, tc, params, batch, draws, None)
+            loss, p, mu, ms, launched_a = _dp_step(cfg, tc, params, batch, draws, make_mesh())
+        finally:
+            dist.destroy_process_group()
+    rel, p_err, mu_err = (abs(loss - ref_loss) / abs(ref_loss), _tree_err(p, ref_params),
+                          _tree_err(mu, ref_mu))
+    ok = (backend == "nccl" and rel <= 1e-5 and p_err <= 1.0 and mu_err <= 1.0
+          and launched_a == [56] * 3)
+    print(f"parallel (a) world 1 on {backend}: the DP flow step at TTSConfig().flow on B=4 "
+          f"{TRAIN_SHAPES[0]}: loss {loss:.6f} vs plain {ref_loss:.6f} (rel {rel:.2e}, tol "
+          f"1e-5); parameters at {p_err:.3f} and Adam's first moment at {mu_err:.3f} of 1e-4 x "
+          f"max + 1e-7; {ms:.1f} ms a step (plain {ref_ms:.1f} ms); K1/K3/K4 launches "
+          f"{launched_a} [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("parallel (a): the world-1 NCCL step disagrees with the plain step")
+    del params, ref_params, ref_mu, p, mu, batch, draws
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    steps = [{"step": 0, "lens": TRAIN_SHAPES[0], "chunk": 0}]
+    launched = list(launched_a)
+    for r, res in enumerate(_run_ranks("dp", PARALLEL_WORLD, 600)):
+        start, stop = res["rows"]
+        for name in ("dp", "fsdp"):
+            m = res[name]
+            ok = (m["loss_rel"] <= 1e-5 and m["param_err"] <= 1.0 and m["mu_err"] <= 1.0
+                  and m["launched"] == [56] * 3)
+            print(f"parallel (b) rank {r} {name} (2 ranks sharing the card over gloo; rows "
+                  f"{start}-{stop - 1} of B=4): loss {m['loss']:.6f} vs one process "
+                  f"{m['ref_loss']:.6f} (rel {m['loss_rel']:.2e}, tol 1e-5); parameters at "
+                  f"{m['param_err']:.3f}, Adam's first moment at {m['mu_err']:.3f} of 1e-4 x max "
+                  f"+ 1e-7; {m['ms']:.1f} ms a step; K1/K3/K4 launches {m['launched']} "
+                  f"[{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"parallel (b): rank {r}'s {name} step disagrees with the "
+                                 "one-process step")
+            launched = [a + b for a, b in zip(launched, m["launched"])]
+            steps.append({"step": len(steps), "lens": TRAIN_SHAPES[0][start:stop], "chunk": 0,
+                          "t": max(TRAIN_SHAPES[0])})
+    print(f"parallel (b): 2 ranks in {time.perf_counter() - t0:.1f} s, their start included "
+          f"[{card}]")
+
+    t0 = time.perf_counter()
+    decodes, k2 = [], 0
+    for r, res in enumerate(_run_ranks("tp", PARALLEL_WORLD, 600)):
+        tol32, tol16 = 1e-5 * res["logits_peak_fp32_kv"], 1e-3 * res["logits_peak"]
+        ok = (res["logits_err_fp32_kv"] <= tol32 and res["logits_err"] <= tol16
+              and res["tokens_equal"] and res["tokens"] == (TP_TOKENS, TP_TOKENS)
+              and res["q_rows"] == (448, 896))
+        print(f"parallel (c) rank {r}: tp=2 Qwen2-0.5B fp32 (q_proj slice {res['q_rows']}): "
+              f"prefill logits max_abs_err with fp32 K/V {res['logits_err_fp32_kv']:.3e} (tol "
+              f"1e-5 x max|logits| = {tol32:.3e}), through the bf16 KV cache "
+              f"{res['logits_err']:.3e} (tol 1e-3 x max|logits| = {tol16:.3e}); "
+              f"{res['tokens']} tokens at tp=1 / tp=2, equal: {res['tokens_equal']} "
+              f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"parallel (c): rank {r}'s tp=2 decode disagrees with tp=1")
+        for name in ("bf16", "int8"):
+            m = res[name]
+            want_k2 = 168 + 169 * m["steps"] if name == "int8" else 0
+            designs = {f"{src}@M={rows}": n for (src, rows), n in sorted(m["designs"].items())}
+            ok = m["k2"] == want_k2 and (name == "bf16" or set(m["designs"]) == {
+                ("int8_matmul_sm90.cu", res["p_bucket"]), ("int8_matmul_decode_sm90.cu", 1)})
+            print(f"parallel (c) rank {r} {name}: {m['ms2']:.2f} ms a step at tp=2 beside "
+                  f"{m['ms1']:.2f} at tp=1 ({m['steps']} steps; both ranks share the card: not "
+                  f"a scaling figure); K2 launches {m['k2']} (expected {want_k2}) {designs} "
+                  f"[{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"parallel (c): rank {r}'s {name} decode launched K2 wrongly")
+        decodes.append((1, res["p_bucket"], res["int8"]["steps"], None, PARALLEL_WORLD))
+        k2 += res["int8"]["k2"]
+    print(f"parallel (c): 2 ranks in {time.perf_counter() - t0:.1f} s; parallel phase "
+          f"{time.perf_counter() - t_phase:.1f} s; K1/K3/K4 launches {launched} over "
+          f"{len(steps)} rank-steps, K2 {k2} [{card}]")
+    return {"steps": steps, "launches": launched, "decodes": decodes, "k2": k2}
+
+
+def _write_pcm16(path: str, sig, sr: int) -> None:
+    import wave
+
+    import numpy as np
+
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(sr)
+        w.writeframes((np.clip(sig, -1, 1) * 32767).astype(np.int16).tobytes())
+
+
+def eval_path(card: str) -> tuple[list, int]:
+    """``run_eval.evaluate_model`` through ``Cosy2EU.tts`` at ``TTSConfig()``
+    (random weights, seed 0) with ``frontend_path``'s seeded frontend models
+    (the FSQ tokenizer and CAM++ on the card), over a 4-utterance,
+    2-speaker dataset written from seeded harmonics; SECS on the card's
+    CAM++.  Gates: 4 rows, none failed; rtf, mcd, mcd_rel, lsd and secs
+    finite; each pitch metric finite exactly where the JAX package's guards
+    leave it defined (``metrics.defined_pitch_metrics``: none under 5 voiced
+    frames on a side, only vuv_error under 5 frames voiced on both sides
+    after the alignment), NaN elsewhere; K1 560 times a flow call.  Prints the summary and each
+    sample's synthesis ms and metric host ms.  Returns the flow calls' K1
+    shapes and K1's launches."""
+    import csv
+
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.eval import metrics as eval_metrics
+    from cosyvoice2_eu_torch.eval import run_eval
+    from cosyvoice2_eu_torch.frontend import frontend as fe_mod
+    from cosyvoice2_eu_torch.models import campplus as cam
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+    from cosyvoice2_eu_torch.train.pitch import estimate_f0
+
+    t_phase = time.perf_counter()
+    st_cfg, cam_cfg = st.SpeechTokenizerConfig(), cam.CAMPPlusConfig()
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    st_params = st.init_speech_tokenizer(gen, st_cfg)
+    cam_params = _perturbed_norms(cam.init_campplus(gen, cam_cfg), gen)
+    model = cosy.load(seed=0, download=False, device="cuda")
+    cfg = model._cfg
+    spk_fn = fe_mod.make_spk_embedding_fn(cam_params, cam_cfg, device="cuda")
+    fe = fe_mod.Frontend(cfg, tokenizer=model._frontend.tokenizer,
+                         speech_tokenizer_fn=fe_mod.make_speech_tokenizer_fn(
+                             st_params, st_cfg, device="cuda"),
+                         spk_embedding_fn=spk_fn, device="cuda")
+    api = cosy.Cosy2EU(model._model, fe, cfg)
+    tm = model._model
+    texts = {"spk1": ("Bonjour.", "Merci!"), "spk2": ("Salut!", "Danke.")}
+    rng = np.random.default_rng(0)
+    synth_ms, metric_ms, gen_voiced, defined, calls = [], [], [], [], []
+    _record_flow_calls(tm, calls)
+    metrics_for_pair = run_eval.metrics_for_pair
+
+    def timed_metrics(ref, wav, *args, **kwargs):
+        gen_voiced.append(int((estimate_f0(wav, cfg.sample_rate) > 0).sum()))
+        t0 = time.perf_counter()
+        row = metrics_for_pair(ref, wav, *args, **kwargs)
+        metric_ms.append((time.perf_counter() - t0) * 1e3)
+        defined.append(eval_metrics.defined_pitch_metrics(ref, wav, args[0]))
+        return row
+
+    def synthesize(text, prompt_path):
+        t0 = time.perf_counter()
+        wav, _ = api.tts(text, prompt_path)
+        secs = time.perf_counter() - t0
+        synth_ms.append(secs * 1e3)
+        return wav[0], secs
+
+    run_eval.metrics_for_pair = timed_metrics
+    try:
+        with tempfile.TemporaryDirectory(prefix="cosy_eval_") as d:
+            for spk, f0 in (("spk1", 140.0), ("spk2", 220.0)):
+                os.makedirs(os.path.join(d, "data", spk, "a"))
+                for i, text in enumerate(texts[spk]):
+                    stem = os.path.join(d, "data", spk, "a", f"{spk}_utt{i}")
+                    _write_pcm16(stem + ".wav", _harmonic(rng, 3.0, f0 + 15 * i, 4.0, 5.0),
+                                 cfg.sample_rate)
+                    with open(stem + ".normalized.txt", "w") as f:
+                        f.write(text)
+            samples = run_eval.read_dataset(os.path.join(d, "data"))
+            ref_voiced = {s.utt_id: int((estimate_f0(fe_mod.load_wav(
+                s.wav_path, cfg.sample_rate), cfg.sample_rate) > 0).sum()) for s in samples}
+            _reset_counts()
+            _reset_peak()
+            summary = run_eval.evaluate_model(synthesize, samples, os.path.join(d, "out"),
+                                              "port_eval", sr=cfg.sample_rate, embed_fn=spk_fn)
+            with open(os.path.join(d, "out", "port_eval_results.csv")) as f:
+                rows = list(csv.DictReader(f))
+    finally:
+        run_eval.metrics_for_pair = metrics_for_pair
+    pitch = ("gpe", "f0_rmse", "f0_corr", "vuv_error")
+    finite = lambda r, k: math.isfinite(float(r[k]))  # noqa: E731
+    ok = (summary["n"] == 4 and summary["n_failed"] == 0 and len(rows) == 4
+          and len(synth_ms) == len(metric_ms) == len(gen_voiced) == len(defined) == 4)
+    for r, s_ms, m_ms, g_voiced, r_defined in zip(rows, synth_ms, metric_ms, gen_voiced,
+                                                   defined):
+        row_ok = (all(finite(r, k) for k in ("rtf", "mcd", "mcd_rel", "lsd", "secs"))
+                  and all(finite(r, k) == (k in r_defined) for k in pitch))
+        ok = ok and row_ok
+        print(f"eval sample {r['utt_id']} ({r['speaker']}): synthesis {s_ms:.1f} ms, metrics "
+              f"{m_ms:.1f} ms on the host; " + ", ".join(f"{k} {r[k]}" for k in (
+                  "audio_duration", "rtf", "mcd", "mcd_rel", "lsd", "secs") + pitch)
+              + f"; voiced frames: reference {ref_voiced[r['utt_id']]}, synthesis {g_voiced}; "
+              f"defined pitch metrics {len(r_defined)} of 4 [{card}] "
+              f"{'ok' if row_ok else 'FAIL'}")
+    print(f"eval summary: {json.dumps(summary)}; synthesis {sum(synth_ms):.1f} ms, metrics "
+          f"{sum(metric_ms):.1f} ms over {len(rows)} samples; phase "
+          f"{time.perf_counter() - t_phase:.1f} s [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the eval phase failed its checks")
+    launches = _path_launches("eval phase", card, len(calls))
+    del model, api, tm, fe, st_params, cam_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [_k1_shape(cfg, *c[:3]) for c in calls], launches
+
+
 def main() -> None:
     import torch
 
@@ -4274,6 +4773,8 @@ def main() -> None:
     q3_shapes, q3_launches, q3_decodes, q3_k2 = bistream_path(card, "hf:Qwen/Qwen3-0.6B")
     new_paths["bistream"] = (bis_shapes, bis_launches)
     new_paths["qwen3"] = (q3_shapes, q3_launches)
+    # the evaluation harness over Cosy2EU.tts, SECS on the card's CAM++
+    new_paths["eval"] = eval_path(card)
     for name, (shapes_, _) in new_paths.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
         worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
@@ -4292,6 +4793,9 @@ def main() -> None:
     cli_cases = sorted({(tuple(r["lens"]), r["chunk"]) for r in cli_steps})
     cli_dq, cli_dkv = check_flash_backward([(list(lens), (torch.float32,), (chunk,))
                                             for lens, chunk in cli_cases])
+    # several processes: DP at world 1 on NCCL, DP and --fsdp 2 on 2 ranks,
+    # tp=2 decode (the ranks share the card over gloo)
+    par = parallel_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
@@ -4308,8 +4812,9 @@ def main() -> None:
     # and the int8 bistream requests' (extends at M = 64, steps at M = 1; the
     # Qwen3 backbone's at its own (N, K))
     k2_times = time_int8_matmul(
-        decodes + [int8_stream_decode] + engine_decodes + bis_decodes + q3_decodes,
-        int8_launches[3] + int8_stream_k2 + engine_k2 + bis_k2 + q3_k2, card)
+        decodes + [int8_stream_decode] + engine_decodes + bis_decodes + q3_decodes
+        + par["decodes"],
+        int8_launches[3] + int8_stream_k2 + engine_k2 + bis_k2 + q3_k2 + par["k2"], card)
     k2 = _kernel_row("int8_matmul", i8.DECODE_SOURCE, "int8_matmul.py:31", k2_times,
                      bf16_linear_ms=k2_times["bf16_linear_ms"], by_shape=k2_times["by_shape"],
                      by_design=k2_times["by_design"])
@@ -4317,15 +4822,17 @@ def main() -> None:
     _print_prefill(k2_times["by_shape"], prefill_ms, card)
     _print_decode_step(k2_times["by_shape"], card)
     k1_fp32, k3, k4, step_kernel_ms = time_training_kernels(
-        {"train": (steps, train_launches[0], [CV_SHAPE]), "cli": (cli_steps, cli_k1, cli_cv)},
+        {"train": (steps, train_launches[0], [CV_SHAPE]), "cli": (cli_steps, cli_k1, cli_cv),
+         "parallel": (par["steps"], par["launches"][0], [])},
         card)
     k1_fp32["v1"] = time_v1_flash_attention(v1_ts, card)
     if k1_fp32["v1"]["launches"] != v1_launches:
         raise SystemExit("K1's v1 launches do not match the v1 path's flow calls")
     per_cli = cli_k1 // (len(cli_steps) + len(cli_cv))
-    if [k3["launches"], k4["launches"]] != [n + per_cli * len(cli_steps)
-                                            for n in train_launches[1:3]]:
-        raise SystemExit("K3/K4 launches do not match the training and command-line paths")
+    if [k3["launches"], k4["launches"]] != [n + per_cli * len(cli_steps) + p for n, p in
+                                            zip(train_launches[1:3], par["launches"][1:])]:
+        raise SystemExit("K3/K4 launches do not match the training, command-line and "
+                         "parallel paths")
     # K1's times are means per launch over the paths; each path's stand beside them
     paths = {"tts": k1_tts, "int8": k1_int8, "stream": k1_stream, **k1_new, **k1_fp32}
     # eager_ms: the same launches made eagerly from Python, beside the replayed ms

@@ -39,6 +39,7 @@ from cosyvoice2_eu_torch.models.qwen2 import (
     KVCache,
     _layer_forward,
     init_qwen2,
+    local_kv_heads,
     qwen2_decode_step,
     qwen2_forward,
     qwen2_prefill,
@@ -46,6 +47,7 @@ from cosyvoice2_eu_torch.models.qwen2 import (
 )
 from cosyvoice2_eu_torch.ops.masks import NEG_INF
 from cosyvoice2_eu_torch.ops.sampling import gumbel, ras_sample
+from cosyvoice2_eu_torch.parallel import tp
 from cosyvoice2_eu_torch.utils.params import (
     dense,
     embedding,
@@ -98,7 +100,7 @@ def lm_prefill(params, cfg: LMConfig, ids, src, prompt_len, max_gen: int) -> Dec
     b, p_bucket = ids.shape
     dev = ids.device
     embeds = embed_mixed(params, ids, src)
-    kv = KVCache.zeros(cfg.backbone, b, p_bucket + max_gen, device=dev)
+    kv = _kv_cache(params, cfg, b, p_bucket + max_gen, dev)
     last, kv = qwen2_prefill(params["backbone"], cfg.backbone, embeds, prompt_len, kv)
     return DecodeState(
         kv=kv,
@@ -111,9 +113,29 @@ def lm_prefill(params, cfg: LMConfig, ids, src, prompt_len, max_gen: int) -> Dec
     )
 
 
+def head_logits(params, cfg: LMConfig, hidden: torch.Tensor) -> torch.Tensor:
+    """The speech head's fp32 logits over the whole vocabulary; a
+    tensor-parallel slice of the head (``parallel/tp.py``) gathers every
+    process's columns first, so every process samples alike."""
+    head = params["llm_decoder"]
+    logits = dense(head, hidden).float()
+    if isinstance(head, tp.Sliced):
+        logits = tp.gather_columns(logits, cfg.full_vocab, head.mesh)
+    elif logits.shape[-1] != cfg.full_vocab:
+        raise ValueError(f"{logits.shape[-1]} of {cfg.full_vocab} logits from a head without "
+                         "its tensor-parallel group: the tree lost its tp.Sliced marks")
+    return logits
+
+
+def _kv_cache(params, cfg: LMConfig, batch: int, max_len: int, device, **kw) -> KVCache:
+    """A cache of the backbone's local kv heads (all of them unless sliced)."""
+    return KVCache.zeros(cfg.backbone, batch, max_len, device=device,
+                         num_kv_heads=local_kv_heads(params["backbone"], cfg.backbone), **kw)
+
+
 def _sample_tokens(params, cfg: LMConfig, state: DecodeState, min_len, gumbel_nuc, gumbel_full):
     """Sample one token per batch element from state.last_hidden."""
-    logits = dense(params["llm_decoder"], state.last_hidden).float()
+    logits = head_logits(params, cfg, state.last_hidden)
     logp = torch.log_softmax(logits, dim=-1)
     ignore_eos = (state.lengths < min_len) | (state.step == 0)
     return ras_sample(
@@ -240,7 +262,7 @@ def _device(params) -> torch.device:
 def bs_init(params, cfg: LMConfig, max_cache: int) -> BistreamState:
     dev = _device(params)
     return BistreamState(
-        kv=KVCache.zeros(cfg.backbone, 1, max_cache, device=dev),
+        kv=_kv_cache(params, cfg, 1, max_cache, dev),
         cache_len=0,
         last_hidden=torch.zeros((1, cfg.backbone.hidden_size), device=dev),
         recent=torch.full((cfg.win_size,), -1, dtype=torch.long, device=dev),
@@ -311,7 +333,7 @@ def bs_decode(params, cfg: LMConfig, state: BistreamState, next_fill_index: int,
     out: list = []
     nfi, stop = next_fill_index, 0
     while stop == 0 and len(out) < max_emit and state.cache_len < max_cache - 1:
-        logits = dense(params["llm_decoder"], state.last_hidden).float()
+        logits = head_logits(params, cfg, state.last_hidden)
         logp = torch.log_softmax(logits, dim=-1)
         if not allow_eos:
             logp = logp + eos_ban
@@ -505,7 +527,7 @@ def prefill_row(params, cfg: LMConfig, ids, src, prompt_len: int, max_cache: int
     """The prompt prefilled into a KV row of its own: (row, last_hidden
     (1, H)).  It needs no ``SlotState``, so the engine runs it when a request
     arrives and merges the row with ``slot_insert`` when a slot frees."""
-    row = KVCache.zeros(cfg.backbone, 1, max_cache, device=ids.device, dtype=dtype)
+    row = _kv_cache(params, cfg, 1, max_cache, ids.device, dtype=dtype)
     last, row = qwen2_prefill(params["backbone"], cfg.backbone, embed_mixed(params, ids, src),
                               torch.tensor([prompt_len], device=ids.device), row)
     return row, last
@@ -537,7 +559,7 @@ def slots_decode(params, cfg: LMConfig, state: SlotState, k_steps: int,
         run = state.active & ~state.finished
         if not bool(run.any()):
             break
-        logits = dense(params["llm_decoder"], state.last_hidden).float()
+        logits = head_logits(params, cfg, state.last_hidden)
         logp = torch.log_softmax(logits, dim=-1)
         ignore_eos = (state.lengths < state.min_len) | (state.gen_step == 0)
         gumbel_nuc, gumbel_full = draws(state.step)

@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from cosyvoice2_eu_torch.config import Qwen2Config
 from cosyvoice2_eu_torch.ops.masks import NEG_INF
+from cosyvoice2_eu_torch.parallel import tp
 from cosyvoice2_eu_torch.utils.params import (
     dense,
     init_dense,
@@ -34,10 +35,17 @@ class KVCache:
 
     @classmethod
     def zeros(cls, cfg: Qwen2Config, batch: int, max_len: int, device,
-              dtype=torch.bfloat16):
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len, cfg.head_dim)
+              dtype=torch.bfloat16, num_kv_heads: int | None = None):
+        """``num_kv_heads``: a tensor-parallel slice's local count
+        (``local_kv_heads``); the config's by default."""
+        shape = (cfg.num_layers, batch, num_kv_heads or cfg.num_kv_heads, max_len, cfg.head_dim)
         return cls(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))
+
+
+def local_kv_heads(params: dict, cfg: Qwen2Config) -> int:
+    """The kv heads a backbone's (possibly tensor-parallel) slice holds."""
+    return tp.out_dim(params["layers"][0]["k_proj"]) // cfg.head_dim
 
 
 def init_qwen2(gen: torch.Generator, cfg: Qwen2Config) -> dict:
@@ -108,19 +116,29 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
     """One decoder layer.  If kv is given, k/v are written at slot ``write_at``
     and attention runs over the first ``attn_len`` cache slots (the whole
     cache when None).  A (B,) tensor ``write_at`` writes each row's one new
-    K/V at its own slot (the slot-batched decode)."""
+    K/V at its own slot (the slot-batched decode).
+
+    The head counts come from the projections' shapes, so a tensor-parallel
+    slice (``parallel/tp.py``) runs its local heads; its row-parallel
+    ``o_proj`` and ``down_proj`` are summed over the group, and their
+    biases added once, after the sum."""
     b, t, _ = x.shape
+    hd = cfg.head_dim
     h = rms_norm(lp["input_layernorm"], x, cfg.rms_norm_eps)
-    q = dense(lp["q_proj"], h).reshape(b, t, cfg.num_heads, cfg.head_dim).transpose(1, 2)
-    k = dense(lp["k_proj"], h).reshape(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
-    v = dense(lp["v_proj"], h).reshape(b, t, cfg.num_kv_heads, cfg.head_dim).transpose(1, 2)
+    q = dense(lp["q_proj"], h)
+    hq = q.shape[-1] // hd
+    q = q.reshape(b, t, hq, hd).transpose(1, 2)
+    k = dense(lp["k_proj"], h)
+    hkv = k.shape[-1] // hd
+    k = k.reshape(b, t, hkv, hd).transpose(1, 2)
+    v = dense(lp["v_proj"], h).reshape(b, t, hkv, hd).transpose(1, 2)
     if "q_norm" in lp:  # qwen3-style per-head norms (applied pre-RoPE)
         q = rms_norm(lp["q_norm"], q, cfg.rms_norm_eps)
         k = rms_norm(lp["k_norm"], k, cfg.rms_norm_eps)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
 
-    groups = cfg.num_heads // cfg.num_kv_heads
+    groups = hq // hkv
     if kv is not None:
         if torch.is_tensor(write_at):  # one new position a row, at its own slot
             rows = torch.arange(b, device=write_at.device)
@@ -136,12 +154,27 @@ def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None =
     else:
         att = _attention(q, k, v, bias, groups)
 
-    att = att.transpose(1, 2).reshape(b, t, cfg.num_heads * cfg.head_dim)
-    x = x + dense(lp["o_proj"], att)
+    att = att.transpose(1, 2).reshape(b, t, hq * hd)
+    x = x + _row_parallel(lp["o_proj"], att, cfg.num_heads * hd)
 
     h = rms_norm(lp["post_attention_layernorm"], x, cfg.rms_norm_eps)
     gated = F.silu(dense(lp["gate_proj"], h)) * dense(lp["up_proj"], h)
-    return x + dense(lp["down_proj"], gated)
+    return x + _row_parallel(lp["down_proj"], gated, cfg.intermediate_size)
+
+
+def _row_parallel(p: dict, x: torch.Tensor, full: int) -> torch.Tensor:
+    """``dense(p, x)``; on a tensor-parallel slice of the input dim
+    (``tp.Sliced``), the partial products summed over its group, then the
+    bias.  An input narrower than ``full`` in a module that is not
+    ``Sliced`` is a slice that lost its mark: it raises."""
+    if not isinstance(p, tp.Sliced):
+        if x.shape[-1] != full:
+            raise ValueError(f"a row-parallel input of width {x.shape[-1]} (of {full}) in a "
+                             "module without its tensor-parallel group: the tree lost its "
+                             "tp.Sliced marks")
+        return dense(p, x)
+    y = tp.all_reduce_sum(dense({k: v for k, v in p.items() if k != "bias"}, x), p.mesh)
+    return y + p["bias"].to(y.dtype) if "bias" in p else y
 
 
 def qwen2_forward(params, cfg: Qwen2Config, embeds: torch.Tensor,

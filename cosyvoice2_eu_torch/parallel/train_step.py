@@ -3,7 +3,9 @@
 Counterpart of ``cosyvoice2_eu_tpu/parallel/train_step.py``
 (``TrainState``, ``init_train_state``, ``lm_loss_fn``,
 ``make_lm_train_step``, ``flow_loss_fn``, ``make_flow_train_step``), on one
-device.  The random draws that JAX makes from a key are a dict of tensors
+device or data-parallel over a process group (``DataParallel``, where the
+JAX package lets XLA insert the gradient all-reduce over its mesh).  The
+random draws that JAX makes from a key are a dict of tensors
 (``make_flow_draws`` makes them from a ``torch.Generator``); gradients come
 from ``torch.autograd.grad`` over the parameter tree, and a leaf that gets
 none (the fixed inference noise ``rand_noise``) gets zeros, as
@@ -16,12 +18,14 @@ import contextlib
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 from cosyvoice2_eu_torch.config import FlowConfig, LMConfig, TrainConfig
 from cosyvoice2_eu_torch.models.encoder import upsample_conformer_forward
 from cosyvoice2_eu_torch.models.estimator import estimator_forward
 from cosyvoice2_eu_torch.models.llm import lm_training_hidden
 from cosyvoice2_eu_torch.ops.masks import make_non_pad_mask
+from cosyvoice2_eu_torch.parallel.distributed import in_group
 from cosyvoice2_eu_torch.train.losses import cfm_loss, label_smoothing_ce
 from cosyvoice2_eu_torch.train.optim import Optimizer, global_norm
 from cosyvoice2_eu_torch.utils.params import dense, embedding, tree_leaves, tree_map
@@ -45,19 +49,22 @@ def init_train_state(params, tx: Optimizer) -> TrainState:
 def lm_loss_fn(params, cfg: LMConfig, batch: dict, train_cfg: TrainConfig):
     """batch: packed ids/src/target (B, T) and lengths (B,), as
     ``train/sequences.py::build_lm_batch`` makes them (unistream or
-    bistream rows).  Returns (loss, {"loss", "acc"}): the label-smoothing CE
-    of the logits over the valid positions."""
+    bistream rows).  Returns (loss, {"loss", "acc", "denom", "acc_denom"}):
+    the label-smoothing CE of the logits over the valid positions, and the
+    counts the loss and the accuracy divide by."""
     valid = make_non_pad_mask(batch["lengths"], batch["ids"].shape[1])
     logits = lm_training_hidden(params, cfg, batch["ids"], batch["src"], valid)
-    loss, acc = label_smoothing_ce(logits, batch["target"], smoothing=cfg.lsm_weight,
-                                   normalize_length=cfg.length_normalized_loss)
-    return loss, {"loss": loss, "acc": acc}
+    loss, acc, denom, acc_denom = label_smoothing_ce(
+        logits, batch["target"], smoothing=cfg.lsm_weight,
+        normalize_length=cfg.length_normalized_loss, with_counts=True)
+    return loss, {"loss": loss, "acc": acc, "denom": denom, "acc_denom": acc_denom}
 
 
 def make_lm_train_step(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer,
-                       timer: Optional[StageTimer] = None):
-    """step(state, batch) -> (state, {"loss", "acc", "grad_norm"})."""
-    return make_step(lambda p, batch: lm_loss_fn(p, cfg, batch, train_cfg), tx, timer)
+                       timer: Optional[StageTimer] = None, mesh=None):
+    """step(state, batch) -> (state, {"loss", "acc", "grad_norm"});
+    data-parallel over ``mesh`` (this process's rows of the batch)."""
+    return make_step(lambda p, batch: lm_loss_fn(p, cfg, batch, train_cfg), tx, timer, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -84,7 +91,8 @@ def make_flow_draws(gen: torch.Generator, batch: dict, n_mels: int) -> dict:
 def flow_loss_fn(params, cfg: FlowConfig, batch: dict, draws: dict, streaming: bool):
     """batch: speech_token (B, T_tok), speech_token_len, speech_feat
     (B, T_mel, 80), speech_feat_len, embedding (B, 192); draws as
-    ``make_flow_draws``.  Returns (loss, {"loss": loss}).
+    ``make_flow_draws``.  Returns (loss, {"loss": loss, "denom": count}),
+    the count being what the masked sum is divided by.
 
     Mirrors CausalMaskedDiffWithXvec.forward (reference flow.py:189-233):
     unified streaming/non-streaming training, random prompt conditioning.
@@ -125,50 +133,187 @@ def flow_loss_fn(params, cfg: FlowConfig, batch: dict, draws: dict, streaming: b
         return estimator_forward(params["estimator"], cfg.estimator, y, m, mu, t, s, c,
                                  streaming=streaming)
 
-    loss = cfm_loss(
+    loss, denom = cfm_loss(
         est_fn, feat.transpose(1, 2), mask, h.transpose(1, 2) * mask, spk, conds,
         draws["u_t"], draws["z"], draws["u_cfg"],
         sigma_min=cfg.cfm.sigma_min,
         training_cfg_rate=cfg.cfm.training_cfg_rate,
         t_scheduler=cfg.cfm.t_scheduler,
+        with_count=True,
     )
-    return loss, {"loss": loss}
+    return loss, {"loss": loss, "denom": denom}
 
 
 def _no_stage(name):
     return contextlib.nullcontext()
 
 
-def value_and_grad(loss_fn, params, stage=_no_stage):
+def value_and_grad(loss_fn, params, stage=_no_stage, scale=None):
     """(loss, metrics), grads of ``loss_fn(params) -> (loss, metrics)`` over
     every leaf of the parameter tree, as ``jax.value_and_grad(has_aux=True)``.
 
     The leaves enter as fresh tensors that require grad (the caller's are
     left alone); a leaf the loss does not reach gets a zero gradient.
     ``stage(name)`` wraps the "forward" and the "backward" pass.
+    ``scale(loss, metrics)`` (optional), called between them, gives the
+    tensor that is differentiated in place of the loss (the returned loss
+    is the loss itself).
     """
     p = tree_map(lambda x: x.detach().requires_grad_(True), params)
     with torch.enable_grad():
         with stage("forward"):
             loss, metrics = loss_fn(p)
+        scaled = loss if scale is None else scale(loss, metrics)
         with stage("backward"):
-            grads = iter(torch.autograd.grad(loss, tree_leaves(p), allow_unused=True))
+            grads = iter(torch.autograd.grad(scaled, tree_leaves(p), allow_unused=True))
             grads = tree_map(lambda x: torch.zeros_like(x) if (g := next(grads)) is None
                              else g, p)
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
 
 
-def make_step(loss_fn, tx: Optimizer, timer: Optional[StageTimer] = None):
+def _denom_keys(metrics: dict) -> list:
+    return sorted(k for k in metrics if k == "denom" or k.endswith("_denom"))
+
+
+class DataParallel:
+    """The collectives of a data-parallel step over the process group.
+
+    Every loss of the port divides a masked sum by a count that it reports
+    in its metrics (``denom``; a metric ``m`` with a count of its own
+    reports it as ``m_denom``).  The JAX package divides by the count over
+    the *global* batch, so a plain mean of the processes' losses (DDP's) is
+    another number whenever their counts differ, which the frame batcher
+    makes them do in every real step.  Here each process's loss is weighted
+    by ``count / sum of counts`` before its backward pass, the gradients are
+    summed with one all-reduce of a flat buffer, and each metric is the
+    count-weighted sum over the processes: the step is the one-process step
+    on the global batch.  A loss that is a sum of terms with counts of
+    their own (DPO: a token mean plus a row mean) names them in ``terms``;
+    each is weighted by its own share.
+    """
+
+    def __init__(self, terms: tuple = ("loss",)):
+        self.terms = terms
+        self.shares: dict = {}
+
+    def share(self, name: str) -> torch.Tensor:
+        return self.shares.get(f"{name}_denom", self.shares["denom"])
+
+    def scale(self, loss: torch.Tensor, metrics: dict) -> torch.Tensor:
+        keys = _denom_keys(metrics)
+        if "denom" not in keys:
+            raise KeyError("a data-parallel loss must report its count as metrics['denom']")
+        counts = torch.stack([metrics[k].detach().float() for k in keys])
+        totals = counts.clone()
+        dist.all_reduce(totals)
+        self.shares = dict(zip(keys, counts / totals.clamp_min(1.0)))
+        if self.terms == ("loss",):
+            return loss * self.share("loss")
+        return sum(metrics[t] * self.share(t) for t in self.terms)
+
+    def metrics(self, metrics: dict) -> dict:
+        names = [k for k in metrics if k not in self.shares]
+        vals = torch.stack([metrics[k].float() * self.share(k) for k in names])
+        dist.all_reduce(vals)
+        out = dict(zip(names, vals.unbind()))
+        if self.terms != ("loss",):
+            out["loss"] = sum(out[t] for t in self.terms)
+        return out
+
+    @staticmethod
+    def sum_metrics(metrics: dict) -> dict:
+        """Each metric summed over the processes (one all-reduce)."""
+        vals = torch.stack([v.float() for v in metrics.values()])
+        dist.all_reduce(vals)
+        return dict(zip(metrics, vals.unbind()))
+
+    @staticmethod
+    def sum_grads(grads):
+        """The gradients summed over the processes: one all-reduce per dtype
+        of a flat buffer of every leaf."""
+        leaves = tree_leaves(grads)
+        out = list(leaves)
+        by_dtype: dict = {}
+        for i, g in enumerate(leaves):
+            by_dtype.setdefault(g.dtype, []).append(i)
+        for idx in by_dtype.values():
+            buf = torch.cat([leaves[i].reshape(-1) for i in idx])
+            dist.all_reduce(buf)
+            off = 0
+            for i in idx:
+                n = leaves[i].numel()
+                out[i] = buf[off:off + n].view(leaves[i].shape)
+                off += n
+        it = iter(out)
+        return tree_map(lambda _: next(it), grads)
+
+
+class _GatherRows(torch.autograd.Function):
+    """The global batch's rows of ``x`` on every process: one all-reduce of
+    a zero-filled (rows, ...) buffer into which each process writes its
+    block; the backward pass takes this process's block of the gradient
+    (every process differentiates the same global function)."""
+
+    @staticmethod
+    def forward(ctx, x, start: int, total: int):
+        buf = x.new_zeros((total,) + tuple(x.shape[1:]))
+        buf[start:start + x.shape[0]] = x
+        dist.all_reduce(buf)
+        ctx.block = (start, x.shape[0])
+        return buf
+
+    @staticmethod
+    def backward(ctx, grad):
+        start, n = ctx.block
+        return grad[start:start + n], None, None
+
+
+class RowShare:
+    """This process's rows of a global batch, for losses that average over
+    rows and terms that read every row (``train/gan.py``): ``share`` is the
+    rows' fraction of the global batch, ``gather(x)`` the global rows of a
+    per-row tensor.  All processes build it together (one all-reduce)."""
+
+    def __init__(self, n_rows: int, mesh, device):
+        counts = torch.zeros(mesh.world, dtype=torch.float64, device=device)
+        counts[mesh.rank] = n_rows
+        dist.all_reduce(counts)
+        self.world = mesh.world
+        self.total = int(counts.sum())
+        self.start = int(counts[:mesh.rank].sum())
+        self.share = n_rows / self.total
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        return _GatherRows.apply(x, self.start, self.total)
+
+
+def make_step(loss_fn, tx: Optimizer, timer: Optional[StageTimer] = None, mesh=None,
+              terms: tuple = ("loss",)):
     """step(state, *args) -> (state, metrics): ``loss_fn(params, *args) ->
     (loss, metrics)`` differentiated over ``state.params``, then the
     optimizer; the metrics gain ``grad_norm``, the global norm of the
     gradients.  ``timer`` (optional) records the stages "forward",
-    "backward" and "optimizer" of every step."""
+    "backward" and "optimizer" of every step.
+
+    With a ``mesh`` (``parallel/mesh.py``) in a process group, of any size,
+    ``args`` are this process's rows of the global batch (and of its
+    draws), and the step is the one-process step on the global batch
+    (``DataParallel``).  ``terms``: the metrics whose sum is the loss,
+    when they have counts of their own.  The counts (``*denom`` keys) are
+    not among the metrics returned.
+    """
     stage = timer.stage if timer is not None else _no_stage
+    dp = DataParallel(terms) if mesh is not None and in_group() else None
 
     def step(state: TrainState, *args, **kwargs):
         (_, metrics), grads = value_and_grad(lambda p: loss_fn(p, *args, **kwargs),
-                                             state.params, stage)
+                                             state.params, stage,
+                                             None if dp is None else dp.scale)
+        if dp is not None:
+            with stage("all_reduce"):
+                grads = dp.sum_grads(grads)
+                metrics = dp.metrics(metrics)
+        metrics = {k: v for k, v in metrics.items() if k not in _denom_keys(metrics)}
         with stage("optimizer"):
             params, opt_state = tx.step(state.params, grads, state.opt_state)
             metrics = dict(metrics, grad_norm=global_norm(grads))
@@ -178,7 +323,8 @@ def make_step(loss_fn, tx: Optimizer, timer: Optional[StageTimer] = None):
 
 
 def make_flow_train_step(cfg: FlowConfig, train_cfg: TrainConfig, tx: Optimizer,
-                         timer: Optional[StageTimer] = None):
-    """step(state, batch, draws, streaming=False) -> (state, {"loss", "grad_norm"})."""
+                         timer: Optional[StageTimer] = None, mesh=None):
+    """step(state, batch, draws, streaming=False) -> (state, {"loss", "grad_norm"});
+    data-parallel over ``mesh`` (this process's rows of the batch and draws)."""
     return make_step(lambda p, batch, draws, streaming=False:
-                     flow_loss_fn(p, cfg, batch, draws, streaming), tx, timer)
+                     flow_loss_fn(p, cfg, batch, draws, streaming), tx, timer, mesh)

@@ -32,8 +32,11 @@ pieces, as the reference does for backbones other than BlankEN;
 package, ``tts_batch``, ``vc`` and the serving engine do not route through
 it.
 
-Not ported yet, and raising ``NotImplementedError``: tensor-parallel decode
-(ROADMAP item 8g).
+``tp=N`` (N > 1) runs inside a process group (``torchrun``): each process
+holds its slices of the LM (``parallel/tp.py``) and the whole flow and
+HiFT, and every process makes the same calls with the same seed, so every
+process gets the same tokens and audio (process 0's is the answer).  The
+serving engine does not run under it (ROADMAP item 8h).
 """
 
 from __future__ import annotations
@@ -116,12 +119,14 @@ class TTSModel:
         session reaches that cap, re-prime a fresh state over the prompt and
         the last ``stream_rollover_window`` generated tokens and go on
         streaming (False ends the cached schedule there and vocodes the rest
-        in the final recompute)."""
+        in the final recompute).  tp: above 1, the LM's tensor-parallel
+        slices over a group of ``tp`` processes of the process group (a
+        ``tp`` above the world size, or one that divides no LM tensor,
+        raises ``ValueError``)."""
         if lm_quant not in (None, "int8"):
             raise ValueError(f"unknown lm_quant {lm_quant!r}: expected None or 'int8'")
-        if tp:
-            raise NotImplementedError("tensor-parallel decode is not ported yet: ROADMAP item 8g")
         self.cfg = cfg
+        self.tp = tp
         self.seed = seed
         self.device = resolve_device(device)
         params = _to_device(params, self.device)
@@ -133,6 +138,10 @@ class TTSModel:
                       "hift": params["hift"]}
         if lm_quant == "int8":
             params = dict(params, llm=quantize_lm_params(params["llm"]))
+        if tp and tp > 1:
+            from cosyvoice2_eu_torch.parallel.tp import make_tp_mesh, shard_lm_tp
+
+            params = dict(params, llm=shard_lm_tp(params["llm"], make_tp_mesh(tp), cfg.llm))
         self.params = params
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

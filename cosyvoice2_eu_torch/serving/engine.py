@@ -303,6 +303,18 @@ class RequestHandle:
             yield chunk
 
 
+def refuse_tensor_parallel(model) -> None:
+    """Raise for a model (a ``TTSModel`` or a ``Cosy2EU``) that decodes
+    tensor-parallel: every process of its group must make the same calls,
+    and serving would need process 0 to broadcast each request to the group
+    (ROADMAP item 8h)."""
+    tm = getattr(model, "_model", model)
+    if getattr(tm, "tp", 0) > 1:
+        raise NotImplementedError(
+            f"serving a tensor-parallel model (tp={tm.tp}) needs process 0 to broadcast each "
+            "request to its group: ROADMAP item 8h")
+
+
 class TTSEngine:
     """Slot-batched continuous serving over one ``TTSModel``, on its device.
 
@@ -323,6 +335,7 @@ class TTSEngine:
     def __init__(self, model, n_slots: int = 4, chunk_steps: int = 25, max_cache: int = 1024,
                  max_gen: int = 640, lm_draws: Optional[llm_mod.Draws] = None,
                  hift_draws: Optional[rt.HiftDraws] = None):
+        refuse_tensor_parallel(model)
         self.model = model
         self.cfg = model.cfg
         self.n_slots = n_slots

@@ -24,6 +24,9 @@ log = logging.getLogger(__name__)
 
 class CosyVoiceServicer:
     def __init__(self, model):
+        from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+
+        refuse_tensor_parallel(model)
         self.model = model
         self.pb2 = build_messages()
 

@@ -50,7 +50,11 @@ def _decode_wav_bytes(data: bytes, target_sr: int = 16000) -> np.ndarray:
 
 def _routes(model):
     """Route -> generator of PCM byte chunks, over ``model``'s ``stream``
-    (a ``Cosy2EU`` or an ``EngineAPI``)."""
+    (a ``Cosy2EU`` or an ``EngineAPI``; not a tensor-parallel one)."""
+    from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+
+    refuse_tensor_parallel(model)
+
     def inference_zero_shot(tts_text: str, prompt_text: str, prompt_wav: bytes):
         prompt = _decode_wav_bytes(prompt_wav)
         for chunk in model.stream(tts_text, prompt, prompt_text=prompt_text, mode="zero_shot"):

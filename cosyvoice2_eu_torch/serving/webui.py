@@ -103,6 +103,9 @@ def validate_request(mode: str, prompt_available: bool, prompt_text: str,
 
 
 def build_demo(model):
+    from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+
+    refuse_tensor_parallel(model)
     import gradio as gr
 
     from cosyvoice2_eu_torch.frontend.frontend import resample

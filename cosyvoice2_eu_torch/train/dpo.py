@@ -38,7 +38,9 @@ def dpo_loss_fn(params, ref_params, cfg: LMConfig, batch: dict, beta: float = 0.
     """batch: the chosen rows' ids/src/target/lengths and the rejected
     rows' reject_ids/reject_src/reject_target/reject_lengths, padded to one
     length.  The reference policy runs without gradients.  Returns (loss,
-    {"loss", "ce", "acc", "dpo", "chosen_reward", "rejected_reward"})."""
+    {"loss", "ce", "acc", "dpo", "chosen_reward", "rejected_reward"} and the
+    counts: ``denom`` (the CE's), ``acc_denom``, and the rows of the row
+    means)."""
     ids = torch.cat([batch["ids"], batch["reject_ids"]])
     src = torch.cat([batch["src"], batch["reject_src"]])
     target = torch.cat([batch["target"], batch["reject_target"]])
@@ -50,21 +52,28 @@ def dpo_loss_fn(params, ref_params, cfg: LMConfig, batch: dict, beta: float = 0.
     with torch.no_grad():
         ref_logits = lm_training_hidden(ref_params, cfg, ids, src, valid)
 
-    ce, acc = label_smoothing_ce(logits[:b], target[:b], smoothing=cfg.lsm_weight,
-                                 normalize_length=cfg.length_normalized_loss)
+    ce, acc, denom, acc_denom = label_smoothing_ce(
+        logits[:b], target[:b], smoothing=cfg.lsm_weight,
+        normalize_length=cfg.length_normalized_loss, with_counts=True)
     logps = _sequence_logps(logits, target)
     ref_logps = _sequence_logps(ref_logits, target)
     pref, chosen_r, rejected_r = dpo_loss(logps[:b], logps[b:], ref_logps[:b], ref_logps[b:],
                                           beta=beta)
     loss = ce + pref
+    rows = torch.tensor(float(b), device=ids.device)
     return loss, {"loss": loss, "ce": ce, "acc": acc, "dpo": pref,
-                  "chosen_reward": chosen_r, "rejected_reward": rejected_r}
+                  "chosen_reward": chosen_r, "rejected_reward": rejected_r,
+                  "denom": denom, "acc_denom": acc_denom, "dpo_denom": rows,
+                  "chosen_reward_denom": rows, "rejected_reward_denom": rows}
 
 
 def make_dpo_train_step(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, ref_params: dict,
-                        beta: float = 0.01, timer: Optional[StageTimer] = None):
+                        beta: float = 0.01, timer: Optional[StageTimer] = None, mesh=None):
     """step(state, batch) -> (state, metrics, with ``grad_norm``).  The
     reference parameters are copied once, detached, so an update of the
-    trained ones never reaches them."""
+    trained ones never reaches them.  Data-parallel over ``mesh``: the CE
+    and the preference term are weighted by their own shares (a token count
+    and a row count)."""
     ref = tree_map(lambda a: a.detach().clone(), ref_params)
-    return make_step(lambda p, batch: dpo_loss_fn(p, ref, cfg, batch, beta), tx, timer)
+    return make_step(lambda p, batch: dpo_loss_fn(p, ref, cfg, batch, beta), tx, timer, mesh,
+                     terms=("ce", "dpo"))

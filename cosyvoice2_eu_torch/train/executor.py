@@ -20,8 +20,14 @@ import time
 from typing import Callable, Iterable, Optional
 
 import torch
+import torch.distributed as dist
 
 from cosyvoice2_eu_torch.config import TrainConfig
+from cosyvoice2_eu_torch.parallel.distributed import (
+    collective_device,
+    is_distributed,
+    rank_and_world,
+)
 from cosyvoice2_eu_torch.utils.params import tree_map
 
 
@@ -58,19 +64,25 @@ def load_params(path: str, like):
     return _like(like, _load(path))
 
 
-def restore_train_state(model_dir: str, info: dict, state):
+def restore_train_state(model_dir: str, info: dict, state, tx=None):
     """Rebuild a TrainState from a checkpoint.
 
     ``state`` is a freshly initialised TrainState used as the template of
     structure, devices and dtypes.  Restores the parameters, the optimizer
     state when the checkpoint has one (Adam moments, the schedule's count
-    and the MultiSteps sum resume exactly) and the step counter.
+    and the MultiSteps sum resume exactly) and the step counter.  A
+    checkpoint holds the whole optimizer state; ``tx`` (an ``Optimizer``
+    with a mesh) takes this process's slices of it, so a checkpoint written
+    at any fsdp size restores at any other.
     """
     path = os.path.join(model_dir, info["tag"])
     params = load_params(path, state.params)
     opt_state = state.opt_state
     if info.get("has_opt"):
-        opt_state = _like(state.opt_state, _load(path + "-opt"))
+        if tx is None:
+            opt_state = _like(state.opt_state, _load(path + "-opt"))
+        else:
+            opt_state = tx.shard_state(_like(tx.init(params, shard=False), _load(path + "-opt")))
     return type(state)(params, opt_state, int(info.get("step", 0)))
 
 
@@ -120,6 +132,10 @@ class Executor:
     (as floats, with step and epoch) every ``log_interval`` steps;
     ``on_step(step)`` runs after every step (the trainer hangs
     ``StragglerGuard.beat`` on it).
+
+    In a process group, CV losses combine over the processes, and ``tx``
+    (the step's ``Optimizer``, when its state is sharded) gathers the whole
+    optimizer state for each checkpoint, which process 0 alone writes.
     """
 
     def __init__(
@@ -129,8 +145,10 @@ class Executor:
         cv_fn: Optional[Callable] = None,
         model_dir: str = "exp",
         log_fn: Optional[Callable[[dict], None]] = None,
+        tx=None,
     ):
         self.cfg = train_cfg
+        self.tx = tx
         self.step_fn = step_fn
         self.cv_fn = cv_fn
         self.model_dir = model_dir
@@ -153,7 +171,20 @@ class Executor:
                 n = int(next(iter(batch.values())).shape[0])
                 total += float(metrics["loss"]) * n
                 weight += n
+        if is_distributed():
+            sums = torch.tensor([total, weight], dtype=torch.float64,
+                                device=collective_device())
+            dist.all_reduce(sums)
+            total, weight = float(sums[0]), int(sums[1])
         return total / max(weight, 1)
+
+    def save(self, tag: str, state, info: dict) -> None:
+        """The checkpoint ``tag`` of ``state``, with the whole optimizer
+        state, written by process 0."""
+        opt_state = (self.tx.gather_state(state.opt_state, state.params)
+                     if self.tx is not None else state.opt_state)
+        if rank_and_world()[0] == 0:
+            save_checkpoint(self.model_dir, tag, state.params, info, opt_state=opt_state)
 
     def train_epoch(self, state, train_batches: Iterable[dict], cv_batches=None):
         cfg = self.cfg
@@ -170,15 +201,13 @@ class Executor:
                     and cv_batches is not None:
                 cv_loss = self.cross_validate(state, cv_batches)
                 tag = f"epoch_{self.epoch}_step_{self.step}"
-                save_checkpoint(self.model_dir, tag, state.params,
-                                {"epoch": self.epoch, "step": self.step, "cv_loss": cv_loss},
-                                opt_state=state.opt_state)
+                self.save(tag, state, {"epoch": self.epoch, "step": self.step,
+                                       "cv_loss": cv_loss})
                 logging.info("saved %s cv_loss=%.4f", tag, cv_loss)
         # end of epoch
         info = {"epoch": self.epoch, "step": self.step}
         if cv_batches is not None:
             info["cv_loss"] = self.cross_validate(state, cv_batches)
-        save_checkpoint(self.model_dir, f"epoch_{self.epoch}_whole", state.params, info,
-                        opt_state=state.opt_state)
+        self.save(f"epoch_{self.epoch}_whole", state, info)
         self.epoch += 1
         return state

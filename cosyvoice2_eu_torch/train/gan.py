@@ -232,19 +232,26 @@ def generator_step_loss(
     mel_weight: float = 45.0,
     tpr_weight: float = 1.0,
     tpr_tau: float = 0.04,
+    rows=None,
 ):
-    """The generator's turn (hifigan.py:32 forward_generator): (loss, metrics)."""
+    """The generator's turn (hifigan.py:32 forward_generator): (loss, metrics).
+
+    ``rows`` (``parallel/train_step.py::RowShare``, data-parallel turns):
+    ``batch`` is this process's rows of the global batch; the mean terms
+    are weighted by the rows' share, the TPR term reads the global batch's
+    scores (its median is over every row), and each metric is this
+    process's part of the global value (summed over the processes)."""
     f0, gen, real = _generate(gen_params, hift_cfg, batch, draws)
     yr, yg, fr, fg = discriminator_forward(disc_params, real, gen)
     loss_gen = generator_adv_loss(yg)
     loss_fm = feature_loss(fr, fg)
     loss_mel = multi_mel_loss(real, gen, mel_cfg)
-    loss_tpr = tpr_loss(yg, yr, tpr_tau) if tpr_weight else torch.zeros((), device=gen.device)
+    loss_tpr = (tpr_loss(*_gathered(rows, yg, yr), tpr_tau) if tpr_weight
+                else torch.zeros((), device=gen.device))
     loss_f0 = torch.mean(torch.abs(f0 - batch["pitch_feat"]))
-    total = (loss_gen + feat_match_weight * loss_fm + mel_weight * loss_mel
-             + tpr_weight * loss_tpr + loss_f0)
-    return total, {"loss": total, "loss_gen": loss_gen, "loss_fm": loss_fm,
-                   "loss_mel": loss_mel, "loss_tpr": loss_tpr, "loss_f0": loss_f0}
+    means = {"loss_gen": loss_gen, "loss_fm": loss_fm, "loss_mel": loss_mel, "loss_f0": loss_f0}
+    local = loss_gen + feat_match_weight * loss_fm + mel_weight * loss_mel + loss_f0
+    return _turn(rows, local, means, loss_tpr, tpr_weight, tpr_weight * loss_tpr)
 
 
 def discriminator_step_loss(
@@ -255,14 +262,37 @@ def discriminator_step_loss(
     draws: tuple,
     tpr_weight: float = 1.0,
     tpr_tau: float = 0.04,
+    rows=None,
 ):
     """The discriminator's turn (hifigan.py forward_discriminator): (loss,
     metrics).  The generated waveform is detached: no gradient reaches the
-    generator."""
+    generator.  ``rows``: as ``generator_step_loss``."""
     _, gen, real = _generate(gen_params, hift_cfg, batch, draws)
     gen = gen.detach()
     yr, yg, _, _ = discriminator_forward(disc_params, real, gen)
     loss_disc = discriminator_adv_loss(yr, yg)
-    loss_tpr = tpr_loss(yg, yr, tpr_tau) if tpr_weight else torch.zeros((), device=real.device)
-    total = loss_disc + tpr_weight * loss_tpr
-    return total, {"loss": total, "loss_disc": loss_disc, "loss_tpr": loss_tpr}
+    loss_tpr = (tpr_loss(*_gathered(rows, yg, yr), tpr_tau) if tpr_weight
+                else torch.zeros((), device=real.device))
+    return _turn(rows, loss_disc, {"loss_disc": loss_disc}, loss_tpr, tpr_weight,
+                 tpr_weight * loss_tpr)
+
+
+def _gathered(rows, yg, yr):
+    if rows is None:
+        return yg, yr
+    return [rows.gather(s) for s in yg], [rows.gather(s) for s in yr]
+
+
+def _turn(rows, local, means: dict, loss_tpr, tpr_weight: float, tpr_term):
+    """(loss, metrics) of a turn: ``local`` (the weighted sum of the mean
+    terms) plus the TPR term.  In one process, ``local + tpr_term``; under
+    ``rows``, the differentiated loss weights ``local`` by the rows' share
+    (the TPR term is global already) and the metrics are the process's
+    parts of the global values."""
+    if rows is None:
+        total = local + tpr_term
+        return total, {"loss": total, **means, "loss_tpr": loss_tpr}
+    share, world = rows.share, rows.world
+    metrics = {"loss": share * local + tpr_term / world,
+               **{k: share * v for k, v in means.items()}, "loss_tpr": loss_tpr / world}
+    return share * local + tpr_term, metrics

@@ -70,9 +70,10 @@ def merge_lora(base_params: dict, lora: dict, alpha: float = 16.0) -> dict:
 
 def make_lora_lm_train_step(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer,
                             base_params: dict, alpha: float = 16.0,
-                            timer: Optional[StageTimer] = None):
+                            timer: Optional[StageTimer] = None, mesh=None):
     """step(state, batch) -> (state, {"loss", "acc", "grad_norm"}) over a
-    state whose params are the adapters; the base is held detached."""
+    state whose params are the adapters; the base is held detached.
+    Data-parallel over ``mesh``."""
     base = tree_map(torch.Tensor.detach, base_params)
     return make_step(lambda lora, batch: lm_loss_fn(apply_lora(base, lora, alpha), cfg, batch,
-                                                    train_cfg), tx, timer)
+                                                    train_cfg), tx, timer, mesh)

@@ -24,14 +24,16 @@ IGNORE_ID = -1
 
 
 def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: float = 0.0,
-                       normalize_length: bool = True) -> tuple:
+                       normalize_length: bool = True, with_counts: bool = False) -> tuple:
     """(B, T, V) logits against (B, T) targets padded with IGNORE_ID ->
     (loss, accuracy).
 
     KL-style smoothing: the true class gets 1 - smoothing and the others
     share smoothing / (V - 1), as the reference's LabelSmoothingLoss.  The
     loss is summed and divided by the supervised positions
-    (``normalize_length``) or by the rows that have any.
+    (``normalize_length``) or by the rows that have any.  ``with_counts``:
+    (loss, accuracy, the loss's count, the accuracy's count), the counts
+    unclamped.
     """
     v = logits.shape[-1]
     mask = targets != IGNORE_ID
@@ -49,6 +51,8 @@ def label_smoothing_ce(logits: torch.Tensor, targets: torch.Tensor, smoothing: f
     loss = kl.sum() / denom.clamp_min(1)
     pred = logits.argmax(-1)
     acc = ((pred == targets) & mask).sum() / mask.sum().clamp_min(1)
+    if with_counts:
+        return loss, acc, denom, mask.sum()
     return loss, acc
 
 
@@ -65,13 +69,15 @@ def cfm_loss(
     sigma_min: float = 1e-6,
     training_cfg_rate: float = 0.2,
     t_scheduler: str = "cosine",
-) -> torch.Tensor:
+    with_count: bool = False,
+):
     """OT-CFM loss: y_t = (1-(1-sigma)t) z + t x1, target u = x1 - (1-sigma) z.
 
     x1/mu/cond: (B, C, T); mask: (B, 1, T); spks: (B, C).  Draws: u_t
     (B, 1, 1) uniform [0, 1) for the time, z (B, C, T) standard normal noise,
     u_cfg (B,) uniform [0, 1) for the CFG keep coin.
     estimator_fn(y, mask, mu, t, spks, cond) -> velocity prediction.
+    ``with_count``: (loss, the count its sum is divided by, unclamped).
     """
     c = x1.shape[1]
     t = u_t.to(x1.dtype)
@@ -88,7 +94,8 @@ def cfm_loss(
 
     pred = estimator_fn(y, mask, mu, t[:, 0, 0], spks, cond)
     sq = torch.square(pred * mask - u * mask)
-    return torch.sum(sq) / (torch.clamp_min(torch.sum(mask), 1.0) * c)
+    loss = torch.sum(sq) / (torch.clamp_min(torch.sum(mask), 1.0) * c)
+    return (loss, torch.sum(mask) * c) if with_count else loss
 
 
 def dpo_loss(chosen_logps: torch.Tensor, rejected_logps: torch.Tensor,

@@ -23,8 +23,10 @@ import math
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cosyvoice2_eu_torch.config import TrainConfig
+from cosyvoice2_eu_torch.parallel.mesh import param_sharding_spec
 from cosyvoice2_eu_torch.utils.params import tree_leaves, tree_map
 
 _F32 = torch.float32
@@ -193,8 +195,11 @@ def global_norm(tree) -> torch.Tensor:
 
 def _all_finite(leaves: list) -> bool:
     # x * 0 is 0 for a finite x and NaN for an inf or a NaN
-    return bool(torch.isfinite(torch.stack(torch._foreach_norm(
-        torch._foreach_mul(leaves, 0.0))).sum()))
+    return bool(torch.isfinite(_finite_sum(leaves)))
+
+
+def _finite_sum(leaves: list) -> torch.Tensor:
+    return torch.stack(torch._foreach_norm(torch._foreach_mul(leaves, 0.0))).sum()
 
 
 def _bias_correction(decay: float, count: int) -> float:
@@ -218,21 +223,87 @@ class Optimizer:
     modify its arguments; on a step that emits no update the parameters come
     back as the same tensors.  Each elementwise stage is one multi-tensor
     (``torch._foreach_*``) operation over all leaves.
+
+    With a ``mesh`` of ``fsdp`` > 1 (``parallel/mesh.py``) the state is
+    sharded, ZeRO-2 style: each process of an fsdp group keeps the moments
+    and the MultiSteps sum only for its slice of each leaf, along
+    ``param_sharding_spec``'s axis (leaves with no such axis stay whole on
+    every process).  Parameters and gradients stay whole: each process
+    updates its slices and rebuilds every parameter with one all-reduce over
+    the group.  The global norm of the clip and the finite check are taken
+    over the group, so every process clips and skips alike.
+    ``gather_state`` / ``shard_state`` convert to and from the whole state
+    that checkpoints hold, so a checkpoint restores at any fsdp size.
     """
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
     MAX_CONSECUTIVE_ERRORS = 100000  # apply_if_finite's give-up count
+    SHARDED = ("mu", "nu", "acc_grads")
 
-    def __init__(self, cfg: TrainConfig):
+    def __init__(self, cfg: TrainConfig, mesh=None):
         if cfg.optim not in ("adam", "adamw"):
             raise ValueError(f"unknown optimizer {cfg.optim}")
         self.cfg = cfg
         self.schedule = make_schedule(cfg)
         self.weight_decay = cfg.weight_decay if cfg.optim == "adamw" else None
         self.k = cfg.accum_grad
+        self.mesh = mesh if mesh is not None and mesh.fsdp > 1 else None
 
-    def init(self, params) -> dict:
-        zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+    # -- the fsdp slices ------------------------------------------------------
+
+    def _axes(self, leaves: list) -> list:
+        if self.mesh is None:
+            return [None] * len(leaves)
+        return [param_sharding_spec(x, self.mesh.fsdp) for x in leaves]
+
+    def _slices(self, leaves: list, axes: list) -> list:
+        """This process's slice of each leaf (a view; the leaf where unsharded)."""
+        if self.mesh is None:
+            return leaves
+        r, n = self.mesh.fsdp_rank, self.mesh.fsdp
+        return [x if ax is None else x.chunk(n, ax)[r] for x, ax in zip(leaves, axes)]
+
+    def _gather(self, full_like: list, slices: list, axes: list) -> list:
+        """Whole leaves from every process's slices: one all-reduce over the
+        group of a zero-filled flat buffer into which each writes its slices
+        (unsharded leaves are the process's own, equal on every process)."""
+        sharded = [i for i, ax in enumerate(axes) if ax is not None]
+        out = list(slices)
+        if not sharded:
+            return out
+        buf = torch.cat([torch.zeros_like(full_like[i]).reshape(-1) for i in sharded])
+        views, off = [], 0
+        for i in sharded:
+            n = full_like[i].numel()
+            whole = buf[off:off + n].view(full_like[i].shape)
+            whole.chunk(self.mesh.fsdp, axes[i])[self.mesh.fsdp_rank].copy_(slices[i])
+            views.append(whole)
+            off += n
+        dist.all_reduce(buf, group=self.mesh.fsdp_group)
+        for i, v in zip(sharded, views):
+            out[i] = v
+        return out
+
+    def _norm_and_finite(self, g: list, axes: list) -> tuple:
+        """(global norm, all finite) of the gradient whose slices are ``g``:
+        a leaf kept whole counts once, on the group's first process."""
+        if self.mesh is None:
+            return float(global_norm(g)), _all_finite(g)
+        own = [x for x, ax in zip(g, axes) if ax is not None or self.mesh.fsdp_rank == 0]
+        sq = torch.stack(torch._foreach_norm(own)).square().sum() if own \
+            else torch.zeros((), device=g[0].device)
+        nf = _finite_sum(own) if own else torch.zeros((), device=g[0].device)
+        both = torch.stack([sq.float(), nf.float()])
+        dist.all_reduce(both, group=self.mesh.fsdp_group)
+        return float(both[0].sqrt()), bool(torch.isfinite(both[1]))
+
+    def init(self, params, shard: bool = True) -> dict:
+        """The initial state; ``shard=False`` gives the whole state a
+        checkpoint holds, whatever the mesh."""
+        leaves = tree_leaves(params)
+        axes = self._axes(leaves) if shard else [None] * len(leaves)
+        zeros = lambda: _unflatten(params, [  # noqa: E731
+            torch.zeros_like(x) for x in self._slices(leaves, axes)])
         state = {
             # apply_if_finite
             "notfinite_count": 0, "last_finite": True, "total_notfinite": 0,
@@ -243,11 +314,40 @@ class Optimizer:
             state.update(mini_step=0, gradient_step=0, acc_grads=zeros())
         return state
 
-    def _inner(self, grads, state, params):
-        """apply_if_finite(chain(clip_by_global_norm, adam|adamw)) then apply_updates."""
+    def gather_state(self, state: dict, params) -> dict:
+        """The whole state from every process's slices (a collective over the
+        fsdp group; ``params`` gives the whole shapes); the state as it is
+        without a mesh."""
+        if self.mesh is None:
+            return state
+        full = tree_leaves(params)
+        axes = self._axes(full)
+        out = dict(state)
+        for key in self.SHARDED:
+            if key in state:
+                out[key] = _unflatten(state[key],
+                                      self._gather(full, tree_leaves(state[key]), axes))
+        return out
+
+    def shard_state(self, state: dict) -> dict:
+        """This process's slices of a whole state (a checkpoint's)."""
+        if self.mesh is None:
+            return state
+        out = dict(state)
+        for key in self.SHARDED:
+            if key in state:
+                leaves = tree_leaves(state[key])
+                axes = self._axes(leaves)
+                out[key] = _unflatten(state[key], [x.clone() for x in
+                                                   self._slices(leaves, axes)])
+        return out
+
+    def _inner(self, g: list, state, params, p: list, axes: list):
+        """apply_if_finite(chain(clip_by_global_norm, adam|adamw)) then
+        apply_updates, on this process's slices ``g`` of the gradient of the
+        parameters ``p`` (whole leaves, sharded along ``axes``)."""
         state = dict(state)
-        g = tree_leaves(grads)
-        finite = _all_finite(g)
+        g_norm, finite = self._norm_and_finite(g, axes)
         state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
         state["last_finite"] = finite
         state["total_notfinite"] += 0 if finite else 1
@@ -257,7 +357,6 @@ class Optimizer:
         # clip_by_global_norm: g * max / |g| unless |g| < max (the norm is
         # an fp32 value, so its Python float is exact)
         max_norm = self.cfg.grad_clip
-        g_norm = float(global_norm(grads))
         if not g_norm < max_norm:
             g = torch._foreach_div(g, g_norm)
             torch._foreach_mul_(g, max_norm)
@@ -274,25 +373,30 @@ class Optimizer:
         torch._foreach_add_(denom, self.EPS)
         upd = torch._foreach_div(mu, bc1)                        # (m / bc1) / denom
         torch._foreach_div_(upd, denom)
-        p = tree_leaves(params)
+        p_own = self._slices(p, axes)
         if self.weight_decay is not None:
-            torch._foreach_add_(upd, p, alpha=self.weight_decay)
+            torch._foreach_add_(upd, p_own, alpha=self.weight_decay)
         # scale_by_learning_rate (lr(count) is a float32 value, exact as a
         # float), then apply_updates: p + (-lr u)
         torch._foreach_mul_(upd, -float(self.schedule(state["schedule_count"])))
-        torch._foreach_add_(upd, p)
-        params = _unflatten(params, upd)
-        state.update(mu=_unflatten(params, mu), nu=_unflatten(params, nu), count=count,
-                     schedule_count=state["schedule_count"] + 1)
-        return params, state
+        torch._foreach_add_(upd, p_own)
+        if self.mesh is not None:
+            upd = self._gather(p, upd, axes)
+        params_out = _unflatten(params, upd)
+        state.update(mu=_unflatten(state["mu"], mu), nu=_unflatten(state["nu"], nu),
+                     count=count, schedule_count=state["schedule_count"] + 1)
+        return params_out, state
 
     def step(self, params, grads, state):
+        p = tree_leaves(params)
+        axes = self._axes(p)
+        g = self._slices(tree_leaves(grads), axes)
         if self.k == 1:
-            return self._inner(grads, state, params)
+            return self._inner(g, state, params, p, axes)
         n = state["mini_step"]
         # Welford running mean, as MultiSteps(use_grad_mean=True): a + (g - a) / (n + 1)
         a = tree_leaves(state["acc_grads"])
-        acc = torch._foreach_sub(tree_leaves(grads), a)
+        acc = torch._foreach_sub(g, a)
         torch._foreach_div_(acc, n + 1)
         torch._foreach_add_(acc, a)
         state = dict(state)
@@ -300,18 +404,20 @@ class Optimizer:
             # optax also runs the inner update here and multiplies it by 0;
             # it is zero (the inner update of a finite mean is finite, and a
             # non-finite one is rejected), so it is skipped
-            state.update(mini_step=n + 1, acc_grads=_unflatten(params, acc))
+            state.update(mini_step=n + 1, acc_grads=_unflatten(state["acc_grads"], acc))
             return params, state
         inner = {k: v for k, v in state.items()
                  if k not in ("mini_step", "gradient_step", "acc_grads")}
-        params, inner = self._inner(_unflatten(params, acc), inner, params)
+        params, inner = self._inner(acc, inner, params, p, axes)
         state.update(inner)
         state.update(mini_step=0, gradient_step=state["gradient_step"] + 1,
-                     acc_grads=_unflatten(params, torch._foreach_mul(acc, 0.0)))  # (1 - emit) acc
+                     acc_grads=_unflatten(state["acc_grads"],
+                                          torch._foreach_mul(acc, 0.0)))  # (1 - emit) acc
         return params, state
 
 
-def make_optimizer(cfg: TrainConfig) -> Optimizer:
+def make_optimizer(cfg: TrainConfig, mesh=None) -> Optimizer:
     """clip-by-global-norm -> adam/adamw(schedule), skipping non-finite
-    updates, accumulated over ``cfg.accum_grad`` micro-steps."""
-    return Optimizer(cfg)
+    updates, accumulated over ``cfg.accum_grad`` micro-steps; its state
+    sharded over ``mesh``'s fsdp groups when given."""
+    return Optimizer(cfg, mesh)

@@ -6,7 +6,10 @@ cosy_repo/cosyvoice/bin/train.py:80-168: ``--model {llm,flow,hifigan}``,
 ``--resume``, the tensorboard dir).  The speech LM trains plain, with DPO
 against a frozen copy, or as LoRA adapters over a frozen base; the flow
 with the unified-training streaming coin on each step; ``hifigan`` is
-``train_gan``'s.  One process, on the card unless ``--device cpu``.
+``train_gan``'s.  On the card unless ``--device cpu``; under ``torchrun``,
+one process per GPU, each reading its own shards of the parquet lists (the
+reference's DistributedSampler), and ``--fsdp K`` shards the optimizer
+state over groups of K processes (ZeRO-2, ``train/optim.py``).
 
 ``main`` parses the arguments and opens the parquet shards; ``run`` does
 the rest from an opener of sample dicts (the pipeline after
@@ -18,6 +21,7 @@ Usage:
   python -m cosyvoice2_eu_torch.train.train --model llm \\
       --train_data data/train.list --cv_data data/cv.list \\
       --model_dir exp/llm --qwen_pretrain_path <tokenizer dir> [--device cpu]
+  torchrun --nproc-per-node N -m cosyvoice2_eu_torch.train.train ... [--fsdp K]
 """
 
 from __future__ import annotations
@@ -47,7 +51,7 @@ def make_lm_step_fn(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, params
                     dpo: bool = False, dpo_beta: float = 0.01, lora: bool = False,
                     lora_rank: int = 8, lora_alpha: float = 16.0,
                     gen: Optional[torch.Generator] = None,
-                    timer: Optional[StageTimer] = None):
+                    timer: Optional[StageTimer] = None, mesh=None):
     """The LM branch: (trained params, step_fn(state, batch), cv_fn(params,
     batch) -> metrics).
 
@@ -55,12 +59,13 @@ def make_lm_step_fn(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, params
     frozen reference (the batches carry the rejected rows).  ``lora``: the
     trained params are adapters of rank ``lora_rank`` drawn from ``gen``
     over ``params`` as the frozen base; the CV loss runs on the adapted
-    weights.
+    weights.  Each step is data-parallel over ``mesh`` when given.
     """
     if dpo:
         from cosyvoice2_eu_torch.train.dpo import dpo_loss_fn, make_dpo_train_step
 
-        step_fn = make_dpo_train_step(cfg, train_cfg, tx, params, beta=dpo_beta, timer=timer)
+        step_fn = make_dpo_train_step(cfg, train_cfg, tx, params, beta=dpo_beta, timer=timer,
+                                      mesh=mesh)
         # the optimizer never writes a tensor in place, so ``params`` stays the reference
         return params, step_fn, lambda p, b: dpo_loss_fn(p, params, cfg, b, dpo_beta)[1]
     if lora:
@@ -68,10 +73,10 @@ def make_lm_step_fn(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, params
 
         adapters = init_lora(gen, params, rank=lora_rank)
         step_fn = make_lora_lm_train_step(cfg, train_cfg, tx, params, alpha=lora_alpha,
-                                          timer=timer)
+                                          timer=timer, mesh=mesh)
         return adapters, step_fn, lambda lo, b: lm_loss_fn(apply_lora(params, lo, lora_alpha),
                                                           cfg, b, train_cfg)[1]
-    return (params, make_lm_train_step(cfg, train_cfg, tx, timer),
+    return (params, make_lm_train_step(cfg, train_cfg, tx, timer, mesh),
             lambda p, b: lm_loss_fn(p, cfg, b, train_cfg)[1])
 
 
@@ -209,23 +214,6 @@ def lm_batches(paths, tokenizer, mel_fn, cfg: TTSConfig, rank, world, epoch, rng
         cfg, rng, pad_multiple, dpo)
 
 
-def pad_batch_rows(batch: dict, multiple: int) -> dict:
-    """Pad the rows to a multiple of ``multiple`` (the data-parallel size);
-    pad rows carry zero lengths, which every loss masks, and IGNORE targets."""
-    from cosyvoice2_eu_torch.train.losses import IGNORE_ID
-
-    b = next(iter(batch.values())).shape[0]
-    pad = (-b) % multiple
-    if pad == 0:
-        return batch
-    out = {}
-    for k, v in batch.items():
-        v = np.asarray(v)
-        block = np.full((pad,) + v.shape[1:], IGNORE_ID if k.endswith("target") else 0, v.dtype)
-        out[k] = np.concatenate([v, block], axis=0)
-    return out
-
-
 def parse_args(argv=None) -> argparse.Namespace:
     parser = argparse.ArgumentParser()
     parser.add_argument("--model", required=True, choices=["llm", "flow", "hifigan"])
@@ -269,9 +257,9 @@ def main(argv=None):
 
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO)
-    # the rank's shards, as the reference's DistributedSampler gives them
-    # (dataset/dataset.py:51-104)
-    rank, world = init_distributed()
+    # one process per GPU under torchrun; the rank's shards, as the
+    # reference's DistributedSampler gives them (dataset/dataset.py:51-104)
+    rank, world = init_distributed(device=args.device)
     return run(args, lambda list_path, epoch: ds.parquet_opener(
         ds.shard_list(read_list(list_path), rank, world, epoch)))
 
@@ -285,10 +273,18 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
     ``StragglerGuard`` and ``join_uneven_inputs``.  ``timer`` (optional)
     records the stages "batch" (the pipeline and the copy to the device),
     "step" and "cv_step".  Returns {"state", "executor", "beats",
-    "metrics"} (the last step's metrics)."""
+    "metrics"} (the last step's metrics).
+
+    In a process group (``init_distributed``), the samples are this
+    process's (its shards): each step is data-parallel over the mesh
+    ``(dp=-1, fsdp=args.fsdp)``, the update the one-process update on every
+    process's batch together (``parallel/train_step.py::make_step``); the
+    processes stop together at the shortest shard, CV losses combine over
+    them, and process 0 writes the checkpoints and the metric logs."""
     from cosyvoice2_eu_torch.frontend.tokenizer import get_tokenizer
     from cosyvoice2_eu_torch.ops.mel import host_mel_fn
     from cosyvoice2_eu_torch.parallel.distributed import StragglerGuard, join_uneven_inputs
+    from cosyvoice2_eu_torch.parallel.mesh import make_mesh
     from cosyvoice2_eu_torch.parallel.train_step import init_train_state, make_flow_train_step
     from cosyvoice2_eu_torch.train import dataset as ds
     from cosyvoice2_eu_torch.train.executor import (
@@ -302,10 +298,8 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
 
     if args.model == "hifigan":
         raise SystemExit("GAN training loop: use cosyvoice2_eu_torch/train/train_gan.py")
-    if args.fsdp > 1:
-        raise NotImplementedError(f"--fsdp {args.fsdp}: sharding parameters over several "
-                                  "devices is not ported yet: ROADMAP item 8g")
     device = resolve_device(args.device)
+    mesh = make_mesh(dp=-1, fsdp=args.fsdp)
     stage = timer.stage if timer is not None else (lambda name: contextlib.nullcontext())
     if args.config:
         from cosyvoice2_eu_torch.config import load_config
@@ -319,7 +313,9 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
     # the host numpy featurizer: a device mel per utterance would cost a
     # round trip to the card per sample
     mel_fn = host_mel_fn(cfg.mel)
-    tx = make_optimizer(train_cfg)
+    tx = make_optimizer(train_cfg, mesh)
+    # the flow's streaming coin: drawn once a step from one seed on every
+    # process, so the processes of a step take the same branch
     rng = np.random.default_rng(args.seed)
 
     def pipeline(list_path, epoch, shuffle_seed):
@@ -334,8 +330,10 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
                 b = next(it, None)
                 if b is None:
                     return
-                b = pad_batch_rows(b, 1)  # one data-parallel process (ROADMAP item 8g)
-                b = {k: torch.as_tensor(v, device=device) for k, v in b.items()
+                # each process's batch is its own rows (its shards of the
+                # lists): nothing is padded across processes, and the step
+                # weights each process by its share of the global count
+                b = {k: torch.as_tensor(np.asarray(v), device=device) for k, v in b.items()
                      if keys is None or k in keys}
             yield b
 
@@ -348,7 +346,7 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
         params, step_fn, cv_fn = make_lm_step_fn(
             cfg.llm, train_cfg, tx, params, dpo=args.dpo, dpo_beta=args.dpo_beta,
             lora=args.lora, lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,
-            gen=torch.Generator(device=device).manual_seed(args.seed + 1))
+            gen=torch.Generator(device=device).manual_seed(args.seed + 1), mesh=mesh)
 
         def train_iter(epoch):
             return on_device(pack_lm_batches(pipeline(args.train_data, epoch, args.seed + epoch),
@@ -361,8 +359,11 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
         from cosyvoice2_eu_torch.models.flow import init_flow
 
         params = init_flow(torch.Generator(device=device).manual_seed(args.seed), cfg.flow)
-        step_fn = make_flow_step_fn(make_flow_train_step(cfg.flow, train_cfg, tx), cfg.flow,
-                                    torch.Generator(device=device).manual_seed(args.seed), rng)
+        # the draws: a generator of the process's own, for its own rows
+        step_fn = make_flow_step_fn(make_flow_train_step(cfg.flow, train_cfg, tx, mesh=mesh),
+                                    cfg.flow,
+                                    torch.Generator(device=device).manual_seed(args.seed + mesh.rank),
+                                    rng)
         cv_fn = make_flow_cv_fn(cfg.flow)
 
         def flow_batches(list_path, epoch, shuffle_seed):
@@ -387,10 +388,11 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
             return cv_fn(p, batch)
 
     state = init_train_state(params, tx)
-    logger = make_logger(args.tensorboard_dir or os.path.join(args.model_dir, "tb"),
-                         use_wandb=args.wandb, wandb_project=args.wandb_project,
-                         run_name=os.path.basename(args.model_dir.rstrip("/")))
-    executor = Executor(train_cfg, timed_step, timed_cv, args.model_dir, log_fn=logger)
+    logger = (make_logger(args.tensorboard_dir or os.path.join(args.model_dir, "tb"),
+                          use_wandb=args.wandb, wandb_project=args.wandb_project,
+                          run_name=os.path.basename(args.model_dir.rstrip("/")))
+              if mesh.rank == 0 else None)
+    executor = Executor(train_cfg, timed_step, timed_cv, args.model_dir, log_fn=logger, tx=tx)
     start_epoch = 0
     if args.resume:
         info = latest_checkpoint(args.model_dir)
@@ -398,7 +400,7 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
             logging.info("resuming from %s", info["tag"])
             # params, optimizer moments, the schedule's count and step/epoch
             # (reference bin/train.py:420-473)
-            state = restore_train_state(args.model_dir, info, state)
+            state = restore_train_state(args.model_dir, info, state, tx)
             executor.step = int(info.get("step", 0))
             start_epoch = int(info.get("epoch", 0)) + (1 if info["tag"].endswith("_whole") else 0)
     try:
@@ -414,7 +416,8 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
                     # epoch's end, each pass on a fresh iterator
                     lambda e=epoch: join_uneven_inputs(cv_iter(), tag=f"cv{e}"))
     finally:
-        logger.close()
+        if logger is not None:
+            logger.close()
     return {"state": state, "executor": executor, "beats": guard.beats,
             "metrics": last.get("metrics")}
 

@@ -30,9 +30,13 @@ import torch.nn.functional as F
 
 def tree_map(fn, tree, *rest):
     """Apply ``fn`` to every leaf of a dict/list/tuple tree (and the matching
-    leaves of the trees in ``rest``, which share its structure)."""
+    leaves of the trees in ``rest``, which share its structure).  A dict
+    that carries state of its own (``parallel/tp.py::Sliced``) comes back
+    as its ``with_leaves``."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        out = {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        rebuild = getattr(tree, "with_leaves", None)
+        return rebuild(out) if rebuild is not None else out
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, v, *(r[i] for r in rest)) for i, v in enumerate(tree))
     return fn(tree, *rest)
@@ -148,10 +152,15 @@ def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
     takes XLA's route instead, ``(x @ w_q^T.astype(x.dtype)) *
     scale.astype(x.dtype)``.  In fp32 the two agree up to the order of the
     sums; in bf16 they round at different places.
+
+    A ``weight_q_xla`` layer (the key of a tree the JAX package sharded for
+    tensor parallelism) takes that XLA route, in plain PyTorch on any
+    device; the port's own tensor-parallel slices keep ``weight_q`` and K2.
     """
     if "weight_q_xla" in p:
-        raise NotImplementedError(
-            "tensor-parallel int8 weights are not ported yet: ROADMAP item 8g")
+        w_q = p["weight_q_xla"]
+        y = (x @ w_q.T.to(x.dtype)) * p["scale"].to(x.dtype)
+        return y + p["bias"].to(x.dtype) if "bias" in p else y
     if "weight_q" in p:
         from cosyvoice2_eu_torch.ops.int8_matmul import int8_matmul
 

@@ -1,5 +1,6 @@
 """The port's training data pipeline (``train/dataset.py``) and the LM's
-batches (``train/train.py``: ``lm_batches``, ``pad_batch_rows``) against
+batches (``train/train.py::lm_batches``; the row padding,
+``parallel/mesh.py::pad_rows``) against
 the JAX package's, on synthetic parquet shards made from a seed: every
 stage, and the whole pipeline for the LM and the GAN, give the same arrays.
 
@@ -24,6 +25,7 @@ import cosyvoice2_eu_tpu.utils.native as jax_native
 from cosyvoice2_eu_torch import config as port_config
 from cosyvoice2_eu_torch.frontend.tokenizer import ByteFallbackTokenizer as PortTokenizer
 from cosyvoice2_eu_torch.ops.mel import host_mel_fn
+from cosyvoice2_eu_torch.parallel import mesh as port_mesh
 from cosyvoice2_eu_torch.train import dataset as pds
 from cosyvoice2_eu_torch.train import train as port_train
 from cosyvoice2_eu_torch.train.train_gan import gan_mel_fn
@@ -240,8 +242,7 @@ def test_pad_batch_rows_matches_jax(multiple):
              "target": rng.integers(0, 9, (5, 7)).astype(np.int32),
              "lengths": np.arange(5, dtype=np.int32),
              "speech_feat": rng.standard_normal((5, 3, 2)).astype(np.float32)}
-    got, want = port_train.pad_batch_rows(batch, multiple), jax_train.pad_batch_rows(batch,
-                                                                                     multiple)
+    got, want = port_mesh.pad_rows(batch, multiple), jax_train.pad_batch_rows(batch, multiple)
     _eq(got, want)
     assert next(iter(got.values())).shape[0] == (5 if multiple == 1 else 8)
 

@@ -123,10 +123,22 @@ def test_dense_int8_matches_jax(lead):
 
 
 def test_dense_tensor_parallel_int8_raises():
-    """The JAX package's tensor-parallel key stays unported and says where it waits."""
-    pq = port_params.quantize_dense({k: t(v) for k, v in _dense_params(1).items()})
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8g"):
-        port_params.dense({"weight_q_xla": pq["weight_q"], "scale": pq["scale"]}, torch.ones(2, 80))
+    """The JAX package's tensor-parallel key, ``weight_q_xla``, no longer
+    raises: since tensor parallelism is ported, ``dense`` computes JAX's XLA
+    route on it, ``(x @ w_q^T.astype(x.dtype)) * scale.astype(x.dtype)`` +
+    bias: equal to JAX's on the same codes, fp32 atol 1e-5, and in bf16
+    within one bf16 rounding of the output (2^-7 x max|want|)."""
+    p = _dense_params(1)
+    x = np.random.default_rng(3).standard_normal((2, 5, 80)).astype(np.float32)
+    jq = jax_params.quantize_dense({k: jnp.asarray(v) for k, v in p.items()})
+    jxla = {("weight_q_xla" if k == "weight_q" else k): v for k, v in jq.items()}
+    pq = port_params.quantize_dense({k: t(v) for k, v in p.items()})
+    pxla = {("weight_q_xla" if k == "weight_q" else k): v for k, v in pq.items()}
+    for dt, jdt in ((torch.float32, jnp.float32), (torch.bfloat16, jnp.bfloat16)):
+        want = np.asarray(jax_params.dense(jxla, jnp.asarray(x, jdt)).astype(jnp.float32))
+        got = port_params.dense(pxla, t(x).to(dt)).float().numpy()
+        tol = 1e-5 if dt == torch.float32 else 2.0**-7 * np.abs(want).max()
+        np.testing.assert_allclose(got, want, atol=tol)
 
 
 def test_int8_matmul_wrapper_checks_device():

@@ -127,8 +127,14 @@ def test_paths_not_in_this_slice_raise(what, tmp_path, models, monkeypatch):
     were here before the prompt frontend was ported now hold it to the JAX
     package: a wav prompt on a model without a speech tokenizer raises its
     ``ValueError``, and ``mode="instruct2"`` gives JAX's audio (atol 1e-3)
-    under JAX's draws."""
+    under JAX's draws.  ``tp``: tensor-parallel decode is ported
+    (tests/test_torch_tp.py); ``load(tp=2)`` outside a process group of two
+    raises ``ValueError`` instead of a ROADMAP item."""
     model = port.load(config=PCFG, seed=0, device="cpu", compute_dtype="float32")
+    if what == "tp":
+        with pytest.raises(ValueError, match="world size 1"):
+            port.load(config=PCFG, device="cpu", tp=2)
+        return
     if what == "wav_prompt":
         with pytest.raises(ValueError, match="no speech tokenizer available"):
             model.tts("x", np.zeros(16000, np.float32))
@@ -160,12 +166,9 @@ def test_paths_not_in_this_slice_raise(what, tmp_path, models, monkeypatch):
         np.testing.assert_allclose(got, want, atol=1e-3)
         return
     with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        if what == "model_dir":
-            for key in ("llm", "flow", "hift"):
-                (tmp_path / key).mkdir()
-            port.load(config=PCFG, device="cpu", model_dir=str(tmp_path))
-        else:
-            port.load(config=PCFG, device="cpu", tp=2)
+        for key in ("llm", "flow", "hift"):
+            (tmp_path / key).mkdir()
+        port.load(config=PCFG, device="cpu", model_dir=str(tmp_path))
 
 
 def test_fade_in_out_matches_jax():

@@ -162,13 +162,20 @@ def _opener():
 
 
 def test_train_main_refuses_what_is_not_ported(data, tmp_path, monkeypatch):
+    """``hifigan`` belongs to ``train_gan``.  Since multi-process training
+    is ported (tests/test_torch_distributed.py), what is refused is a
+    layout the processes cannot make: ``--fsdp 2`` in one process, and a
+    ``WORLD_SIZE`` of 2 whose process group cannot form (no rendezvous
+    address): that raises and never falls back to one process."""
     with pytest.raises(SystemExit, match="train_gan"):
         port_train.main(_common(data, "hifigan", tmp_path / "g", 400))
-    with pytest.raises(NotImplementedError, match="8g"):
+    with pytest.raises(ValueError, match=r"fsdp\(2\) != world size \(1\)"):
         port_train.main(_common(data, "flow", tmp_path / "f", 400) + ["--fsdp", "2"])
     monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="8g"):
+    monkeypatch.delenv("MASTER_ADDR", raising=False)
+    with pytest.raises(ValueError, match="MASTER_ADDR"):
         port_train.main(_common(data, "flow", tmp_path / "f", 400))
+    assert not torch.distributed.is_initialized()
 
 
 def test_train_main_raises_without_a_gpu_unless_asked_for_the_cpu(data, tmp_path, monkeypatch):
@@ -186,8 +193,9 @@ def test_train_gan_main_one_batch(data, tmp_path, monkeypatch):
     seen = []
     make = port_train_gan.make_gan_steps
 
-    def spy(cfg, tx_g, tx_d):
-        gen_step, disc_step = make(cfg, tx_g, tx_d)
+    def spy(cfg, tx_g, tx_d, mesh=None):
+        assert mesh is None  # one process: no data-parallel mesh
+        gen_step, disc_step = make(cfg, tx_g, tx_d, mesh)
 
         def g(*a):
             out = gen_step(*a)
