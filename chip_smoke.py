@@ -154,6 +154,27 @@ Phases (any failure ends the run with a non-zero exit code):
      side has under 5 voiced frames (then NaN, as the JAX package's guard);
      K1 560 times a flow call.  Prints each sample's synthesis ms and
      metric host ms, and the summary;
+  5i. (run after 5d) native checkpoints, the ONNX graph executor and the ASR decoder, each
+     with the counts set to 0 before it and read after: the seed-0 model at
+     ``TTSConfig()`` written by the trainer's ``save_checkpoint`` (HiFT as a
+     GAN whole tree with the published-width discriminators), extracted by
+     ``tools/extract_for_inference`` with a run id and loaded by
+     ``load(model_dir=..., final=False, *_run_id=...)``: the extracted trees
+     bit-equal to the written ones, every parameter ``torch.equal`` to the
+     in-memory ``load(seed=0)``'s, one ``Cosy2EU.tts`` with its tokens and
+     audio within 1e-3, K1 560 a flow call; bytes written and read, load
+     seconds; then the JAX package's orbax checkpoint committed under
+     ``tests/data/`` read bit-equal to its ``.npz`` (the reader and the
+     system's libzstd); the speech tokenizer and CAM++ ONNX graphs written
+     at the default ``SpeechTokenizerConfig`` / ``CAMPPlusConfig`` widths
+     (this script's own copy of the tests' graph writer), a 3 s prompt
+     through ``load_frontend_fns`` structurally and under
+     ``COSY2EU_ONNX_EXECUTOR=1``: equal FSQ codes, x-vector cosine at least
+     0.9999, each way's ms a prompt second; the ASR decoder at
+     ``AsrDecoderConfig()`` (an n-best of 10 x 20 tokens over 75 frames,
+     the batched forward and 20 one-step calls) and ``moe_ffn`` (8 experts,
+     top 2, 256 -> 2048) on the card against the CPU within 1e-5 relative;
+     the last two launch no kernel;
   6. training path: 8 flow-matching steps at the published widths through
      ``Executor.train_epoch`` (``TrainConfig()`` defaults, accum_grad 4),
      then CV and an end-of-epoch checkpoint; checks finite losses, the
@@ -231,8 +252,8 @@ Phases (any failure ends the run with a non-zero exit code):
 The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
-bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, engine,
-tts_batch6, bistream and qwen3 paths, fp32 on the training path, the
+bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, native,
+engine, tts_batch6, bistream and qwen3 paths, fp32 on the training path, the
 trainer command line's "cli", the v1 path's "v1" and the parallel
 phase's "parallel"; the eval phase's "eval" among the bf16 ones), K2's over
 the shapes of the int8 path, the int8 stream, the int8 engine, the int8
@@ -4682,6 +4703,541 @@ def eval_path(card: str) -> tuple[list, int]:
     return [_k1_shape(cfg, *c[:3]) for c in calls], launches
 
 
+# ---------------------------------------------------------------------------
+# native checkpoints, the ONNX graph executor, the ASR decoder
+# ---------------------------------------------------------------------------
+
+ORBAX_FIXTURE = os.path.join(REPO, "tests", "data", "orbax_fixture")
+ORBAX_FIXTURE_NPZ = ORBAX_FIXTURE + ".npz"
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(path) for f in fs)
+
+
+def _check_orbax_fixture(card: str) -> None:
+    """``load_pytree`` on the JAX package's orbax checkpoint committed under
+    ``tests/data/`` (fp32, bf16 and int32 leaves, a leaf of 8 chunks, a
+    value held in a data file): every leaf bit-equal to the ``.npz`` beside
+    it.  Shows the reader and the system's libzstd on this machine."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.runtime import orbax_read
+    from cosyvoice2_eu_torch.runtime.checkpoint import load_pytree
+
+    got = {k.lstrip("/"): v for k, v in _by_path(load_pytree(ORBAX_FIXTURE)).items()}
+    with np.load(ORBAX_FIXTURE_NPZ) as z:
+        want = {k.split("@")[0]: (k.endswith("@bf16"), z[k]) for k in z.files}
+    bad = sorted(set(got) ^ set(want))
+    for k, (bf16, bits) in want.items():
+        g = got.get(k)
+        if g is None:
+            continue
+        same = (g.dtype == torch.bfloat16 and np.array_equal(
+            g.view(torch.int16).numpy().view(np.uint16), bits)) if bf16 else (
+            g.numpy().dtype == bits.dtype and np.array_equal(g.numpy(), bits))
+        if not same:
+            bad.append(k)
+    ok = not bad
+    print(f"orbax fixture: {len(want)} leaves of {ORBAX_FIXTURE} read with "
+          f"{orbax_read.ZSTD_LIBRARY}, bit-equal to its .npz: {ok} {bad or ''} [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the orbax reader disagrees with the committed fixture")
+
+
+def native_path(card: str) -> tuple[list, int]:
+    """A training run's output served: the seed-0 model's parameters
+    written as the port's trainer writes them (``save_checkpoint`` into one
+    experiment dir a component, HiFT as a GAN whole tree with the
+    published-width discriminators), extracted by
+    ``tools/extract_for_inference`` with a run id, then ``load(model_dir=...,
+    final=False, *_run_id=...)`` on the card.  Gates: the extracted trees
+    bit-equal to the written ones, every parameter of the loaded model
+    ``torch.equal`` to the in-memory ``load(seed=0)``'s, and one
+    ``Cosy2EU.tts`` with its tokens and audio within 1e-3; prints the bytes
+    written and read and the load seconds.  Then the committed orbax
+    fixture (``_check_orbax_fixture``).  Returns the flow calls' K1 shapes
+    and K1's launches."""
+    import numpy as np
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.runtime.checkpoint import load_pytree
+    from cosyvoice2_eu_torch.tools import extract_for_inference
+    from cosyvoice2_eu_torch.train.executor import save_checkpoint
+    from cosyvoice2_eu_torch.train.gan import init_discriminator
+
+    cfg = TTSConfig()
+    prompt = _prompt(cfg, 3.0)
+    text = "Bonjour, Paris"
+    run = "1500-averaged-blanken-FR"
+    gen = torch.Generator(device="cuda")  # the weights load(seed=0) draws
+    gen.manual_seed(0)
+    params = {"llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
+              "hift": init_hift(gen, cfg.hift)}
+    disc = init_discriminator(torch.Generator(device="cuda").manual_seed(1))
+    with tempfile.TemporaryDirectory(prefix="cosy_native_") as root:
+        t0 = time.perf_counter()
+        for key in ("llm", "flow"):
+            os.makedirs(os.path.join(root, f"exp_{key}"))
+            save_checkpoint(os.path.join(root, f"exp_{key}"), "epoch_3_step_1200",
+                            params[key], {"epoch": 3, "step": 1200, "cv_loss": 1.25})
+        os.makedirs(os.path.join(root, "exp_hift"))
+        save_checkpoint(os.path.join(root, "exp_hift"), "epoch_2_whole",
+                        {"generator": params["hift"], "discriminator": disc},
+                        {"epoch": 2, "step": 900})
+        write_s = time.perf_counter() - t0
+        written = sum(_dir_bytes(os.path.join(root, f"exp_{k}")) for k in ("llm", "flow", "hift"))
+        model_dir = os.path.join(root, "model")
+        t0 = time.perf_counter()
+        for key, comp in (("llm", "llm"), ("flow", "flow"), ("hift", "hifigan")):
+            extract_for_inference.main(["--exp-dir", os.path.join(root, f"exp_{key}"),
+                                        "--component", comp, "--out-dir", model_dir,
+                                        "--run-id", run])
+        extract_s = time.perf_counter() - t0
+        extracted = _dir_bytes(model_dir)
+        trees_equal = True
+        for key in ("llm", "flow", "hift"):
+            back, wrote = (_by_path(load_pytree(os.path.join(model_dir, f"{key}-{run}"))),
+                           _by_path(params[key]))
+            trees_equal &= sorted(back) == sorted(wrote) and all(
+                back[k].dtype == wrote[k].dtype and torch.equal(back[k], wrote[k].cpu())
+                for k in wrote)
+        del params, disc
+
+        _reset_counts()
+        calls, tokens_ref, tokens_got = [], {}, {}
+        ref = cosy.load(config=cfg, seed=0, device="cuda")
+        _record_flow_calls(ref._model, calls)
+        _record_tokens(ref._model, tokens_ref)
+        want = ref.tts(text, prompt)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got_api = cosy.load(config=cfg, model_dir=model_dir, final=False, llm_run_id=run,
+                            flow_run_id=run, hifigan_run_id=run, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got_p, ref_p = (_by_path(m._model.params) for m in (got_api, ref))
+        exact = sorted(got_p) == sorted(ref_p) and all(
+            got_p[k].dtype == ref_p[k].dtype and torch.equal(got_p[k], ref_p[k]) for k in ref_p)
+        _record_flow_calls(got_api._model, calls)
+        _record_tokens(got_api._model, tokens_got)
+        got = got_api.tts(text, prompt)[0]
+    n_tok = got_api._model.last_n_tokens
+    same_tokens = np.array_equal(tokens_ref["tokens"], tokens_got["tokens"])
+    err = float(np.abs(got - want).max()) if got.shape == want.shape else float("inf")
+    ok = (trees_equal and exact and same_tokens and err <= 1e-3 and np.isfinite(got).all()
+          and got.shape == (1, n_tok * 960) and not os.path.exists(root))
+    print(f"native checkpoint: the trainer's checkpoints {written} bytes written in "
+          f"{write_s:.2f} s; extract_for_inference wrote {extracted} bytes in {extract_s:.2f} s, "
+          f"trees bit-equal to the written ones: {trees_equal}; load(model_dir=..., final=False, "
+          f"run ids, device='cuda') read {extracted} bytes in {load_s:.2f} s "
+          f"({extracted / load_s / 1e9:.2f} GB/s, the files warm in the page cache); every "
+          f"parameter torch.equal to the in-memory model's: {exact}; tts of "
+          f"{len(text.encode())} text bytes: the same {n_tok} tokens: {same_tokens}, audio "
+          f"max_abs_err={err:.3e} (tol 1e-3) [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the native checkpoint path failed its checks")
+    launches = _path_launches("native checkpoint", card, len(calls))
+    _check_orbax_fixture(card)
+    del ref, got_api
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [_k1_shape(cfg, *c[:3]) for c in calls], launches
+
+
+class _OnnxGraph:
+    """A minimal ONNX protobuf writer (the model, graph, node, attribute and
+    tensor messages the frontend graphs need), after ``tests/onnx_builder.py``;
+    parts are joined once, so a graph of hundreds of MB writes in one pass."""
+
+    _TYPES = {"float32": 1, "int32": 6, "int64": 7}
+
+    def __init__(self):
+        self.nodes, self.inits, self._n = [], {}, 0
+
+    @staticmethod
+    def _varint(v: int) -> bytes:
+        v = v + (1 << 64) if v < 0 else v
+        out = bytearray()
+        while True:
+            b, v = v & 0x7F, v >> 7
+            out.append(b | 0x80 if v else b)
+            if not v:
+                return bytes(out)
+
+    def _key(self, field: int, wire: int) -> bytes:
+        return self._varint(field << 3 | wire)
+
+    def _len(self, field: int, data: bytes) -> bytes:
+        return self._key(field, 2) + self._varint(len(data)) + data
+
+    def _int(self, field: int, v: int) -> bytes:
+        return self._key(field, 0) + self._varint(v)
+
+    def _tensor(self, name: str, arr) -> bytes:
+        import numpy as np
+
+        arr = np.ascontiguousarray(arr)
+        return b"".join([*(self._int(1, d) for d in arr.shape),
+                         self._int(2, self._TYPES[arr.dtype.name]), self._len(8, name.encode()),
+                         self._len(9, arr.tobytes())])
+
+    def _attr(self, name: str, value) -> bytes:
+        import struct
+
+        out = self._len(1, name.encode())
+        if isinstance(value, int):
+            return out + (self._int(3, value) if value else b"") + self._int(20, 2)
+        if isinstance(value, float):
+            return out + (self._key(2, 5) + struct.pack("<f", value) if value else b"") + \
+                self._int(20, 1)
+        if isinstance(value, (list, tuple)):
+            return out + b"".join(self._int(8, v) for v in value) + self._int(20, 7)
+        raise TypeError(f"attribute {name}={value!r}")
+
+    def init(self, arr) -> str:
+        import numpy as np
+
+        self._n += 1
+        name = f"w_{self._n}"
+        self.inits[name] = np.asarray(arr)
+        return name
+
+    def add(self, op: str, inputs, n_out: int = 1, **attrs):
+        outs = []
+        for _ in range(n_out):
+            self._n += 1
+            outs.append(f"{op.lower()}_{self._n}")
+        self.nodes.append(b"".join([*(self._len(1, i.encode()) for i in inputs),
+                                    *(self._len(2, o.encode()) for o in outs),
+                                    self._len(3, f"{op}_{outs[0]}".encode()),
+                                    self._len(4, op.encode()),
+                                    *(self._len(5, self._attr(k, v)) for k, v in attrs.items())]))
+        return outs[0] if n_out == 1 else outs
+
+    def save(self, path: str, inputs, outputs) -> str:
+        def value_info(name, elem):
+            tensor = self._len(2, self._len(1, self._int(1, elem))) if elem else b""
+            return self._len(1, name.encode()) + tensor
+
+        graph = b"".join([*(self._len(1, n) for n in self.nodes), self._len(2, b"synthetic"),
+                          *(self._len(5, self._tensor(k, v)) for k, v in self.inits.items()),
+                          *(self._len(11, value_info(i, 1)) for i in inputs),
+                          *(self._len(12, value_info(o, 0)) for o in outputs)])
+        with open(path, "wb") as f:
+            f.write(self._int(1, 8) + self._len(7, graph) + self._len(8, self._int(2, 17)))
+        return path
+
+
+def _gelu_nodes(g, x):
+    """Erf-decomposed GELU, as torch exports it."""
+    import numpy as np
+
+    d = g.add("Div", [x, g.init(np.float32(math.sqrt(2.0)))])
+    a = g.add("Add", [g.add("Erf", [d]), g.init(np.float32(1.0))])
+    return g.add("Mul", [g.add("Mul", [x, a]), g.init(np.float32(0.5))])
+
+
+def write_tokenizer_onnx(path: str, cfg, rng, t_in: int) -> str:
+    """A speech-tokenizer graph shaped like ``torch.onnx.export``'s (the
+    builder of ``tests/test_onnx_convert.py``) at ``cfg``'s widths, random
+    weights from ``rng``, positions frozen for ``t_in`` whisper frames."""
+    import numpy as np
+
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+
+    g, d, heads = _OnnxGraph(), cfg.d_model, cfg.num_heads
+    hd = d // heads
+    t_out = ((t_in - 1) // 2) // 2 + 1
+
+    def conv(x, cin, cout):
+        w = g.init(rng.standard_normal((cout, cin, 3), np.float32) * 0.2)
+        b = g.init(rng.standard_normal(cout, np.float32) * 0.1)
+        return g.add("Conv", [x, w, b], strides=[2], pads=[1, 1], dilations=[1], group=1)
+
+    def linear(x, cin, cout, bias=True):
+        w = rng.standard_normal((cin, cout), np.float32) * np.float32(0.4 / math.sqrt(cin))
+        y = g.add("MatMul", [x, g.init(w)])  # MatMul stores (in, out)
+        return g.add("Add", [y, g.init(rng.standard_normal(cout, np.float32) * 0.05)]) \
+            if bias else y
+
+    def ln(x):
+        return g.add("LayerNormalization",
+                     [x, g.init(1.0 + 0.1 * rng.standard_normal(d, np.float32)),
+                      g.init(rng.standard_normal(d, np.float32) * 0.05)], axis=-1,
+                     epsilon=1e-5)
+
+    x = _gelu_nodes(g, conv("mel", cfg.n_mels, d))
+    x = g.add("Transpose", [_gelu_nodes(g, conv(x, d, d))], perm=[0, 2, 1])
+    x = g.add("Add", [x, g.init(st._sinusoid_pos(t_out, d).numpy().astype(np.float32))])
+    shape4 = g.init(np.asarray([1, t_out, heads, hd], np.int64))
+    shape3 = g.init(np.asarray([1, t_out, d], np.int64))
+    for _ in range(cfg.num_layers):
+        h = ln(x)
+        q, k, v = linear(h, d, d), linear(h, d, d, bias=False), linear(h, d, d)
+        qt, kt, vt = (g.add("Transpose", [g.add("Reshape", [y, shape4])], perm=perm)
+                      for y, perm in ((q, [0, 2, 1, 3]), (k, [0, 2, 3, 1]), (v, [0, 2, 1, 3])))
+        sc = g.add("Mul", [g.add("MatMul", [qt, kt]), g.init(np.float32(1.0 / math.sqrt(hd)))])
+        ctx = g.add("MatMul", [g.add("Softmax", [sc], axis=-1), vt])
+        ctx = g.add("Reshape", [g.add("Transpose", [ctx], perm=[0, 2, 1, 3]), shape3])
+        x = g.add("Add", [x, linear(ctx, d, d)])
+        x = g.add("Add", [x, linear(_gelu_nodes(g, linear(ln(x), d, cfg.ffn_dim)),
+                                    cfg.ffn_dim, d)])
+    th = g.add("Tanh", [linear(x, d, cfg.fsq_dim)])
+    r = g.add("Round", [g.add("Mul", [th, g.init(np.float32(st.FSQ_TANH_SCALE))])])
+    dg = g.add("Add", [r, g.init(np.float32(1.0))])
+    pw = g.add("Mul", [dg, g.init((3.0 ** np.arange(cfg.fsq_dim)).astype(np.float32))])
+    s = g.add("ReduceSum", [pw], axes=[-1], keepdims=0)
+    return g.save(path, ["mel"], [g.add("Cast", [s], to=7)])
+
+
+def write_campplus_onnx(path: str, cfg, rng, t_in: int) -> str:
+    """A CAM++ graph shaped like ``torch.onnx.export``'s (the builder of
+    ``tests/test_onnx_convert.py``) at ``cfg``'s widths, random weights and
+    norm statistics from ``rng``, for ``t_in`` fbank frames."""
+    import numpy as np
+
+    g = _OnnxGraph()
+
+    def i64(v):
+        return g.init(np.asarray(v, np.int64))
+
+    def conv2(x, cin, cout, k, stride=(1, 1), pad=(1, 1)):
+        w = rng.standard_normal((cout, cin, k, k), np.float32) * np.float32(
+            0.5 / math.sqrt(cin * k * k))
+        return g.add("Conv", [x, g.init(w)], strides=list(stride),
+                     pads=[pad[0], pad[1], pad[0], pad[1]], dilations=[1, 1], group=1)
+
+    def conv1(x, cin, cout, k, stride=1, pad=0, dil=1, bias=False):
+        ins = [x, g.init(rng.standard_normal((cout, cin, k), np.float32)
+                         * np.float32(0.5 / math.sqrt(cin * k)))]
+        if bias:
+            ins.append(g.init(rng.standard_normal(cout, np.float32) * 0.05))
+        return g.add("Conv", ins, strides=[stride], pads=[pad, pad], dilations=[dil], group=1)
+
+    def bn(x, c):
+        stats = [(0.5 + rng.random(c)).astype(np.float32),
+                 rng.standard_normal(c, np.float32) * 0.1,
+                 rng.standard_normal(c, np.float32) * 0.1, (0.5 + rng.random(c)).astype(np.float32)]
+        return g.add("BatchNormalization", [x, *(g.init(a) for a in stats)], epsilon=1e-5)
+
+    def relu(x):
+        return g.add("Relu", [x])
+
+    fc = cfg.fcm_channels
+    x = g.add("Unsqueeze", [g.add("Transpose", ["fbank"], perm=[0, 2, 1]), i64([1])])
+    x = relu(bn(conv2(x, 1, fc, 3), fc))
+    for n_blocks in cfg.fcm_blocks:
+        for bi in range(n_blocks):
+            stride = 2 if bi == 0 else 1
+            h = bn(conv2(relu(bn(conv2(x, fc, fc, 3, (stride, 1)), fc)), fc, fc, 3), fc)
+            sc = bn(conv2(x, fc, fc, 1, (stride, 1), (0, 0)), fc) if stride != 1 else x
+            x = relu(g.add("Add", [h, sc]))
+    x = relu(bn(conv2(x, fc, fc, 3, (2, 1)), fc))
+    freq = cfg.feat_dim // (2 ** (len(cfg.fcm_blocks) + 1))
+    x = g.add("Reshape", [x, i64([1, fc * freq, t_in])])
+    x = relu(bn(conv1(x, fc * freq, cfg.init_channels, 5, stride=2, pad=2), cfg.init_channels))
+    t = (t_in + 4 - 5) // 2 + 1
+
+    def seg_pool(h, c):
+        sp = g.add("AveragePool", [h], kernel_shape=[cfg.seg_len], strides=[cfg.seg_len],
+                   ceil_mode=1)
+        e = g.add("Expand", [g.add("Unsqueeze", [sp, i64([3])]),
+                             i64([1, c, -(-t // cfg.seg_len), cfg.seg_len])])
+        r = g.add("Reshape", [e, i64([1, c, -1])])
+        return g.add("Slice", [r, i64([0]), i64([t]), i64([2]), i64([1])])
+
+    channels = cfg.init_channels
+    for n_layers, dil in zip(cfg.block_layers, cfg.block_dilations):
+        for _ in range(n_layers):
+            h = relu(bn(conv1(relu(bn(x, channels)), channels, cfg.bn_channels, 1),
+                        cfg.bn_channels))
+            y = conv1(h, cfg.bn_channels, cfg.growth_rate, cfg.kernel_size,
+                      pad=dil * (cfg.kernel_size - 1) // 2, dil=dil)
+            ctx = g.add("Add", [g.add("ReduceMean", [h], axes=[2], keepdims=1),
+                                seg_pool(h, cfg.bn_channels)])
+            g1 = relu(conv1(ctx, cfg.bn_channels, cfg.bn_channels // 2, 1, bias=True))
+            gate = g.add("Sigmoid", [conv1(g1, cfg.bn_channels // 2, cfg.growth_rate, 1,
+                                           bias=True)])
+            x = g.add("Concat", [x, g.add("Mul", [y, gate])], axis=1)
+            channels += cfg.growth_rate
+        x = conv1(relu(bn(x, channels)), channels, channels // 2, 1)
+        channels //= 2
+    x = relu(bn(x, channels))
+    mean = g.add("ReduceMean", [x], axes=[2], keepdims=1)
+    dev = g.add("Sub", [x, mean])
+    var = g.add("Mul", [g.add("ReduceSum", [g.add("Mul", [dev, dev])], axes=[2], keepdims=0),
+                        g.init(np.float32(1.0 / (t - 1)))])
+    stats = g.add("Concat", [g.add("Squeeze", [mean, i64([2])]), g.add("Sqrt", [var])], axis=1)
+    e = conv1(g.add("Unsqueeze", [stats, i64([2])]), channels * 2, cfg.embedding_size, 1)
+    emb = g.add("Squeeze", [bn(e, cfg.embedding_size), i64([2])])
+    return g.save(path, ["fbank"], [emb])
+
+
+def _no_launches(what: str, card: str) -> None:
+    """Read the counts after a path that must launch no kernel."""
+    launches = [f.launches for f in _counters()]
+    print(f"{what}: K1/K3/K4/K2 launches {launches} (none expected) [{card}]")
+    if any(launches):
+        raise SystemExit(f"{what} launched a kernel")
+
+
+def onnx_path(card: str) -> None:
+    """The reference's frontend binaries as a user's model dir holds them:
+    ``speech_tokenizer_v2.onnx`` and ``campplus.onnx`` written at the
+    port's default ``SpeechTokenizerConfig`` (128 mels, d 1280, 20 heads, 6
+    layers, ffn 5120) and ``CAMPPlusConfig`` widths with seeded weights, a
+    3 s synthetic prompt through ``load_frontend_fns`` structurally (the
+    converted models on the card) and with ``COSY2EU_ONNX_EXECUTOR=1`` (the
+    graph executor, its convolutions and pools on the card).  Gates: equal
+    FSQ codes, x-vectors at a cosine of at least 0.9999, no kernel launched;
+    prints each way's ms a prompt second."""
+    import numpy as np
+    import torch
+
+    from cosyvoice2_eu_torch.models import campplus as cam
+    from cosyvoice2_eu_torch.models import speech_tokenizer as st
+    from cosyvoice2_eu_torch.runtime.onnx_fallback import load_frontend_fns
+
+    seconds = 3.0
+    rng = np.random.default_rng(0)
+    t = np.arange(int(seconds * 16000)) / 16000
+    phase = 2 * np.pi * np.cumsum(120.0 + 80.0 * t / seconds) / 16000
+    wav = (sum(0.3 / k * np.sin(k * phase) for k in (1, 2, 3, 4))
+           + 0.01 * rng.standard_normal(t.size)).astype(np.float32)
+    frames = int(seconds * 100)  # whisper frames of the prompt
+    fbank_frames = (wav.size - 400) // 160 + 1
+    _reset_counts()
+    with tempfile.TemporaryDirectory(prefix="cosy_onnx_") as d:
+        t0 = time.perf_counter()
+        st_path = write_tokenizer_onnx(os.path.join(d, "speech_tokenizer_v2.onnx"),
+                                       st.SpeechTokenizerConfig(), rng, frames)
+        cam_path = write_campplus_onnx(os.path.join(d, "campplus.onnx"), cam.CAMPPlusConfig(),
+                                       rng, fbank_frames)
+        sizes = [os.path.getsize(p) for p in (st_path, cam_path)]
+        print(f"onnx: graphs written ({sizes[0]} + {sizes[1]} bytes) in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+        out = {}
+        for way in ("structural", "executor"):
+            if way == "executor":
+                os.environ["COSY2EU_ONNX_EXECUTOR"] = "1"
+            try:
+                t0 = time.perf_counter()
+                st_fn, cam_fn = load_frontend_fns(st_path, cam_path, device="cuda")
+                build_s = time.perf_counter() - t0
+            finally:
+                os.environ.pop("COSY2EU_ONNX_EXECUTOR", None)
+            st_fn(wav), cam_fn(wav)  # first calls (allocations, cuDNN plans)
+            torch.cuda.synchronize()
+            runs = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                codes = st_fn(wav)
+                t1 = time.perf_counter()
+                emb = cam_fn(wav)
+                torch.cuda.synchronize()
+                runs.append(((t1 - t0) * 1e3, (time.perf_counter() - t1) * 1e3))
+            st_ms, cam_ms = (float(np.median([r[i] for r in runs])) for i in (0, 1))
+            out[way] = (codes, emb, st_ms, cam_ms)
+            print(f"onnx {way}: load_frontend_fns {build_s:.2f} s; {len(codes)} codes; speech "
+                  f"tokenizer {st_ms:.1f} ms ({st_ms / seconds:.1f} ms a prompt second), CAM++ "
+                  f"{cam_ms:.1f} ms ({cam_ms / seconds:.1f} ms a prompt second), median of 3 "
+                  f"warm [{card}]")
+    (c_s, e_s, st_s, cam_s), (c_x, e_x, st_x, cam_x) = out["structural"], out["executor"]
+    cos = float(np.dot(e_s, e_x) / (np.linalg.norm(e_s) * np.linalg.norm(e_x)))
+    equal = c_s.shape == c_x.shape and np.array_equal(c_s, c_x)
+    ok = equal and len(c_s) == frames // 4 and cos >= 0.9999 and np.isfinite(e_s).all()
+    print(f"onnx: structural vs executor on a {seconds:.0f} s prompt: FSQ codes equal: {equal} "
+          f"({int((c_s == c_x).sum()) if c_s.shape == c_x.shape else 0}/{len(c_s)}), x-vector "
+          f"cosine {cos:.7f} (gate 0.9999); executor {(st_x + cam_x) / seconds:.1f} ms a prompt "
+          f"second beside the structural path's {(st_s + cam_s) / seconds:.1f} [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the ONNX executor disagrees with the structural conversion")
+    _no_launches("onnx phase", card)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+ASR_REL_TOL = 1e-5  # fp32 on the card (TF32 off) vs the CPU, relative to the largest value
+
+
+def asr_decoder_path(card: str) -> None:
+    """The ASR decoder at ``AsrDecoderConfig()``'s widths (6 blocks, d 256,
+    4 heads, ffn 2048, 4233 tokens; seeded weights, fp32): an n-best of 10
+    hypotheses of 20 tokens over 75 memory frames rescored by the batched
+    forward and by 20 one-step calls through the layer-output cache, and
+    ``moe_ffn`` at 8 experts, top 2, idim 256, hidden 2048, each on the
+    card against the CPU with the same weights, within ``ASR_REL_TOL`` of
+    the largest value.  Plain PyTorch: no kernel launched."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import AsrDecoderConfig
+    from cosyvoice2_eu_torch.models import decoder as dec
+    from cosyvoice2_eu_torch.utils.device import resolve_device
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    resolve_device("cuda")  # TF32 off
+    cfg = AsrDecoderConfig()
+    gen = torch.Generator().manual_seed(0)
+    params = dec.init_transformer_decoder(gen, cfg)
+    moe = dec.init_moe_ffn(gen, 8, 256, 2048)
+    n, l, t_mem = 10, 20, 75
+    memory = torch.randn(n, t_mem, cfg.encoder_output_size, generator=gen)
+    mem_lens = torch.full((n,), t_mem)
+    ys = torch.randint(0, cfg.vocab_size, (n, l), generator=gen)
+    ys_lens = torch.randint(12, l + 1, (n,), generator=gen)
+    ys_lens[0] = l
+    x = torch.randn(4, 50, 256, generator=gen)
+
+    def run(dev):
+        p, m = (tree_map(lambda a: a.to(dev), t) for t in (params, moe))
+        args = [a.to(dev) for a in (memory, mem_lens)]
+        with torch.inference_mode():
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, _ = dec.transformer_decoder_forward(p, cfg, *args, ys.to(dev),
+                                                        ys_lens.to(dev))
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            fwd_ms = (time.perf_counter() - t0) * 1e3
+            cache, steps = None, []
+            t0 = time.perf_counter()
+            for i in range(1, l + 1):
+                out, cache = dec.decoder_forward_one_step(p, cfg, *args, ys[:, :i].to(dev), cache)
+                steps.append(out)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3
+            y = dec.moe_ffn(m, x.to(dev), 2)
+        return [logits.cpu(), torch.stack(steps, 1).cpu(), cache[-1].cpu(), y.cpu()], fwd_ms, \
+            step_ms
+
+    _reset_counts()
+    run(torch.device("cuda"))  # warm
+    _reset_counts()
+    got, fwd_ms, step_ms = run(torch.device("cuda"))
+    want, _, _ = run(torch.device("cpu"))
+    names = ("forward logits", "one-step log-probs", "last layer's cache", "moe_ffn")
+    rel = [float((g - w).abs().max() / w.abs().max()) for g, w in zip(got, want)]
+    ok = all(r <= ASR_REL_TOL for r in rel) and all(torch.isfinite(g).all() for g in got)
+    print("asr decoder: n-best of 10 x 20 tokens over 75 frames: "
+          + ", ".join(f"{k} max rel err {r:.2e}" for k, r in zip(names, rel))
+          + f" (tol {ASR_REL_TOL:.0e}); batched forward {fwd_ms:.2f} ms, 20 one-step calls "
+          f"{step_ms:.1f} ms [{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the ASR decoder on the card disagrees with the CPU")
+    _no_launches("asr decoder phase", card)
+
+
 def main() -> None:
     import torch
 
@@ -4764,6 +5320,11 @@ def main() -> None:
     # frontend: each path read on its own
     new_paths = {"checkpoint": checkpoint_path(card), "long": long_path(card),
                  "vc": vc_path(card, stream_tokens), "frontend": frontend_path(card)}
+    # a training run's output served (native checkpoints, the orbax fixture),
+    # the ONNX graph executor against the structural conversion, the ASR decoder
+    new_paths["native"] = native_path(card)
+    onnx_path(card)
+    asr_decoder_path(card)
     # the serving engine (with the HTTP round trip), then tts_batch past 4 HiFT rows
     engine_shapes, engine_launches, engine_decodes, engine_k2 = engine_path(card)
     new_paths["engine"] = (engine_shapes, engine_launches)

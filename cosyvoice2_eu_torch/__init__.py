@@ -58,9 +58,10 @@ def resolve_checkpoint_files(
     As the reference: ``final`` loads {llm,flow,hift}.pt; otherwise each
     component named in ``setting`` that has a run id loads
     ``{key}-{run_id}.pt`` and the rest ``{key}-original.pt``.  Where the
-    ``.pt`` file is missing but a directory of the same stem exists (the
-    JAX package's training output, extracted for inference), the directory
-    is resolved; ``load`` cannot read one yet (ROADMAP item 10).
+    ``.pt`` file is missing but a directory of the same stem exists (a
+    native checkpoint that ``tools/extract_for_inference.py`` wrote from a
+    training run, the port's or the JAX package's), the directory is
+    resolved, and ``load`` reads it with ``runtime/checkpoint.py::load_pytree``.
     """
     if final:
         tokens = {"llm", "flow", "hifigan"}
@@ -311,10 +312,11 @@ def load(
 
     The weights, in this order: ``params`` (a {"llm", "flow", "hift"} tree
     of numpy arrays or tensors, e.g. the JAX package's parameters through
-    ``np.asarray``); else the reference checkpoints in ``model_dir``
-    (``llm.pt``, ``flow.pt``, ``hift.pt``, picked by ``setting``, the run
-    ids and ``final`` as ``resolve_checkpoint_files`` says, and converted by
-    ``runtime/checkpoint.py``); else random weights drawn from a
+    ``np.asarray``); else the checkpoints in ``model_dir`` (``llm.pt``,
+    ``flow.pt``, ``hift.pt``, picked by ``setting``, the run ids and
+    ``final`` as ``resolve_checkpoint_files`` says: a reference ``.pt`` is
+    converted by ``runtime/checkpoint.py``, a native directory, the port's
+    or the JAX package's orbax one, is read as it is by ``load_pytree``); else random weights drawn from a
     ``torch.Generator`` seeded with ``seed`` on ``device``.  With no
     ``model_dir``, ``config`` or ``params``, the hub snapshot ``repo_id`` is
     fetched first (``_snapshot_download``: ``download=True`` requires it,
@@ -326,7 +328,8 @@ def load(
     store that does not load raises), and its ``speech_tokenizer_v2.onnx``
     and ``campplus.onnx`` become the frontend's speech tokenizer and speaker
     embedding on ``device`` (``runtime/onnx_fallback.py``; a graph the
-    converter cannot map raises), so wav prompts work.
+    structural converter cannot map runs through the ONNX graph executor,
+    with a warning), so wav prompts work.
 
     ``config`` defaults to the published widths.  ``device`` defaults to
     "cuda" and raises when there is no GPU; pass "cpu" for the plain
@@ -362,19 +365,21 @@ def load(
             convert_flow,
             convert_hift,
             convert_llm,
+            load_pytree,
             load_torch_state,
         )
 
         files = resolve_checkpoint_files(model_dir, setting, llm_run_id, flow_run_id,
                                          hifigan_run_id, final=True if final is None else final)
-        native = sorted(p for p in files.values() if os.path.isdir(p))
-        if native:
-            raise NotImplementedError(
-                f"native checkpoint directories {native} (the JAX package's training output) "
-                "cannot be read yet: ROADMAP item 10")
-        params = {"llm": convert_llm(load_torch_state(files["llm"]), cfg.llm),
-                  "flow": convert_flow(load_torch_state(files["flow"]), cfg.flow),
-                  "hift": convert_hift(load_torch_state(files["hift"]), cfg.hift)}
+
+        def component(key, convert, sub_cfg):
+            if os.path.isdir(files[key]):  # a native tree, already in the port's layout
+                return load_pytree(files[key])
+            return convert(load_torch_state(files[key]), sub_cfg)
+
+        params = {"llm": component("llm", convert_llm, cfg.llm),
+                  "flow": component("flow", convert_flow, cfg.flow),
+                  "hift": component("hift", convert_hift, cfg.hift)}
     elif params is None:
         from cosyvoice2_eu_torch.models.flow import init_flow
         from cosyvoice2_eu_torch.models.hift import init_hift

@@ -50,7 +50,7 @@ def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["warmup"]:
         raise NotImplementedError(
-            "warmup (compiling and exporting ahead of serving) is not ported yet: ROADMAP item 10")
+            "warmup (compiling and exporting ahead of serving) is not ported yet: ROADMAP item 10d")
     parser = argparse.ArgumentParser(
         description="CosyVoice2-EU inference on the PyTorch port (cross-lingual cloning)")
     parser.add_argument("--text", type=str, required=True)

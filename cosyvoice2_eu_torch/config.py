@@ -99,6 +99,29 @@ class ConformerConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AsrDecoderConfig:
+    """ASR-style attention decoder (the rescoring head, ``models/decoder.py``).
+
+    Reference: cosy_repo/cosyvoice/transformer/decoder.py:33
+    TransformerDecoder / :256 BiTransformerDecoder.
+    """
+
+    vocab_size: int = 4233
+    encoder_output_size: int = 256
+    attention_heads: int = 4
+    linear_units: int = 2048
+    num_blocks: int = 6
+    r_num_blocks: int = 0  # >0 enables the right-to-left decoder
+    input_layer: str = "embed"  # embed | no_pos
+    use_output_layer: bool = True
+    normalize_before: bool = True
+    src_attention: bool = True
+    key_bias: bool = True
+    activation_type: str = "relu"
+    max_len: int = 5000
+
+
+@dataclasses.dataclass(frozen=True)
 class EstimatorConfig:
     """Causal U-Net CFM estimator."""
 

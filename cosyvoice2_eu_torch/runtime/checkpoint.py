@@ -9,6 +9,10 @@ weight norm.  The converters work on host numpy arrays and return numpy
 trees with the JAX package's paths; ``load(model_dir=...)`` hands them to
 ``params_from_numpy`` as ``load(params=...)`` does.  A key that no
 converter maps raises ``ValueError``.
+
+``save_pytree`` / ``load_pytree`` are the native checkpoints (the JAX
+package's ``:313-327``): a directory per tree, which ``load_pytree`` also
+reads when the JAX package's orbax wrote it.
 """
 
 from __future__ import annotations
@@ -278,3 +282,56 @@ def load_reference_checkpoints(model_dir: str, cfg: TTSConfig) -> dict:
         "flow": convert_flow(load_torch_state(os.path.join(model_dir, "flow.pt")), cfg.flow),
         "hift": convert_hift(load_torch_state(os.path.join(model_dir, "hift.pt")), cfg.hift),
     }
+
+
+# ---------------------------------------------------------------------------
+# native checkpoint directories
+# ---------------------------------------------------------------------------
+
+NATIVE_TREE_FILE = "tree.pt"
+
+
+def save_pytree(path: str, tree) -> None:
+    """Write ``tree`` (dicts and lists of tensors, numpy arrays, numbers or
+    None) as the port's native checkpoint: a directory ``path`` holding one
+    ``torch.save`` file of CPU tensors (``NATIVE_TREE_FILE``)."""
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    def leaf(x):
+        if torch.is_tensor(x):
+            return x.detach().cpu()
+        if isinstance(x, np.ndarray):
+            return torch.from_numpy(np.array(x))
+        return x
+
+    os.makedirs(path, exist_ok=True)
+    tmp = os.path.join(path, NATIVE_TREE_FILE + ".tmp")
+    torch.save(tree_map(leaf, tree), tmp)
+    os.replace(tmp, os.path.join(path, NATIVE_TREE_FILE))
+
+
+def load_pytree(path: str, like=None):
+    """The tree in the checkpoint directory ``path``: the port's own
+    (``save_pytree``) or the JAX package's orbax directory
+    (``runtime/orbax_read.py``), told apart by their files; anything else
+    raises ``ValueError`` naming what the directory holds.  Leaves come back
+    as CPU tensors; with ``like`` each takes the device and dtype of the
+    matching leaf of that tree (as ``train/executor.py::_like``)."""
+    from cosyvoice2_eu_torch.runtime.orbax_read import is_orbax_dir, read_orbax
+
+    native = os.path.join(path, NATIVE_TREE_FILE)
+    if os.path.isfile(native):
+        tree = torch.load(native, map_location="cpu", weights_only=True)
+    elif is_orbax_dir(path):
+        tree = read_orbax(path)
+    else:
+        held = sorted(os.listdir(path)) if os.path.isdir(path) else None
+        raise ValueError(
+            f"{path} is neither a native checkpoint directory ({NATIVE_TREE_FILE}) nor an orbax "
+            f"one (_METADATA): it holds {held if held is not None else 'nothing (no directory)'}")
+    if like is None:
+        return tree
+    from cosyvoice2_eu_torch.utils.params import tree_map
+
+    return tree_map(lambda t, r: r.to(device=t.device, dtype=t.dtype)
+                    if isinstance(t, torch.Tensor) else r, like, tree)

@@ -1,1 +1,3 @@
-"""Diagnostic scripts of the PyTorch port, run on the card."""
+"""Command-line tools of the PyTorch port: checkpoint extraction, data
+preparation, corpus curation, checkpoint conversion and the card's
+diagnostics."""

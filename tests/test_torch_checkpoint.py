@@ -162,11 +162,13 @@ def test_resolve_checkpoint_files_rejects_a_bad_setting(tmp_path):
 
 
 def test_load_refuses_native_directories(tmp_path, params):
-    """A run id that resolves to the JAX package's training output (a
-    directory) raises and names the ROADMAP item that ports its reader."""
+    """A run id that resolves to a directory that is no checkpoint (neither
+    the port's native one nor the JAX package's orbax one) raises
+    ``ValueError`` naming what it holds; both kinds load
+    (``tests/test_torch_native_checkpoint.py``)."""
     _save_model_dir(tmp_path, params)
     (tmp_path / "llm-r1").mkdir()
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
+    with pytest.raises(ValueError, match=r"llm-r1 is neither .* holds \[\]"):
         port.load(config=PCFG, device="cpu", model_dir=str(tmp_path), final=False, setting="llm",
                   llm_run_id="r1")
 

@@ -4,7 +4,7 @@ graph padded with plumbing nodes, CAM++ with its config inferred), codes
 equal to the graph's own (JAX's numpy executor runs it), and
 ``load(model_dir=...)`` with both ONNX files driving a wav prompt.  The
 graphs come from ``tests/test_onnx_convert.py``'s builders.  Where the JAX
-package falls back to its executor, the port raises."""
+package falls back to its graph executor, so does the port."""
 
 import dataclasses
 import os
@@ -125,15 +125,25 @@ def test_campplus_conversion_equals_jax(graphs, given):
     _same(params, want_params)
 
 
-def test_unconvertible_graph_raises_where_jax_falls_back(tmp_path):
-    """A topology the converter cannot map: JAX's ``load_frontend_fns`` goes
-    on with its numpy executor; the port's raises and names the file."""
+def test_unconvertible_graph_falls_back_to_the_executor_as_jax(tmp_path, caplog):
+    """A topology the converter cannot map: the port's ``load_frontend_fns``
+    goes on with its graph executor, with a warning, as JAX's does, and
+    gives JAX's codes; ``strict=True`` raises; a missing file gives None."""
+    import logging
+
     st_path = str(tmp_path / "speech_tokenizer_v2.onnx")
     build_unconvertible_tokenizer(st_path, np.random.default_rng(4))
     jax_st_fn, _ = jax_fallback.load_frontend_fns(st_path, None)
-    assert jax_st_fn is not None
-    with pytest.raises(ValueError, match="speech_tokenizer_v2.onnx.*ROADMAP item 10"):
-        load_frontend_fns(st_path, None, device="cpu")
+    with caplog.at_level(logging.WARNING):
+        st_fn, cam_fn = load_frontend_fns(st_path, None, device="cpu")
+    assert st_fn is not None and cam_fn is None
+    assert any("falling back" in r.message for r in caplog.records)
+    wav = (np.random.default_rng(8).standard_normal(T_IN * 160) * 0.05).astype(np.float32)
+    codes = st_fn(wav)
+    assert codes.dtype == np.int32 and len(codes) > 0
+    np.testing.assert_array_equal(codes, jax_st_fn(wav))
+    with pytest.raises(Exception):
+        load_frontend_fns(st_path, None, strict=True, device="cpu")
     assert load_frontend_fns(str(tmp_path / "none.onnx"), None, device="cpu") == (None, None)
 
 
@@ -172,11 +182,21 @@ def test_load_model_dir_with_onnx_drives_a_wav_prompt(onnx_model_dir, tmp_path):
     np.testing.assert_allclose(a, b, atol=1e-3)
 
 
-def test_load_model_dir_with_an_unconvertible_graph_raises(onnx_model_dir, tmp_path):
+def test_load_model_dir_with_an_unconvertible_graph_falls_back_to_the_executor(
+        onnx_model_dir, tmp_path):
+    """``load(model_dir=...)`` with a tokenizer graph the converter cannot
+    map runs it through the executor, as the JAX package's ``load``: a wav
+    prompt gives JAX's codes and x-vector."""
     d = tmp_path / "dir"
     d.mkdir()
     for name in ("llm.pt", "flow.pt", "hift.pt", "campplus.onnx"):
         os.symlink(os.path.join(onnx_model_dir, name), d / name)
     build_unconvertible_tokenizer(str(d / "speech_tokenizer_v2.onnx"), np.random.default_rng(7))
-    with pytest.raises(ValueError, match="no graph executor"):
-        port.load(config=PCFG, seed=0, device="cpu", compute_dtype="float32", model_dir=str(d))
+    api = port.load(config=PCFG, seed=0, device="cpu", compute_dtype="float32", model_dir=str(d))
+    japi = cosy_jax.load(config=CFG, seed=0, compute_dtype="float32", model_dir=str(d))
+    wav_path = write_wav(tmp_path / "prompt.wav", T_IN * 160 / 16000, seed=12)
+    got, want = api._prepare(wav_path, "Salut."), japi._prepare(wav_path, "Salut.")
+    assert len(got["speech_tokens"]) > 0
+    np.testing.assert_array_equal(got["speech_tokens"], want["speech_tokens"])
+    np.testing.assert_allclose(got["embedding"], want["embedding"],
+                               atol=1e-5 * np.abs(want["embedding"]).max())

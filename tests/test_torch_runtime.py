@@ -15,7 +15,9 @@ from torch_parity import hift_draws_from_key, jax_tts_params, lm_draws_from_key,
 
 import cosyvoice2_eu_torch as port
 from cosyvoice2_eu_torch.config import tiny_test_config as port_tiny
+from cosyvoice2_eu_torch.runtime import checkpoint as port_ckpt
 from cosyvoice2_eu_torch.runtime import model as port_model
+from cosyvoice2_eu_torch.utils.params import tree_leaves
 from cosyvoice2_eu_tpu.config import tiny_test_config
 from cosyvoice2_eu_tpu.runtime import model as jax_model
 
@@ -122,8 +124,10 @@ def test_cuda_device_turns_tf32_off(monkeypatch):
 def test_paths_not_in_this_slice_raise(what, tmp_path, models, monkeypatch):
     """Paths of the JAX package that this slice lacks raise and name their
     ROADMAP item; they never do something else.  ``model_dir``: a model dir
-    whose checkpoints are the JAX package's native directories (its
-    training output), which the port cannot read yet.  The two cases that
+    whose checkpoints are directories is read now (native checkpoints,
+    ``tests/test_torch_native_checkpoint.py``): directories that hold no
+    checkpoint raise ``ValueError`` naming what they hold, and the port's
+    own ``save_pytree`` directories load the written parameters.  The two cases that
     were here before the prompt frontend was ported now hold it to the JAX
     package: a wav prompt on a model without a speech tokenizer raises its
     ``ValueError``, and ``mode="instruct2"`` gives JAX's audio (atol 1e-3)
@@ -165,10 +169,18 @@ def test_paths_not_in_this_slice_raise(what, tmp_path, models, monkeypatch):
         assert got.shape == want.shape == (1, pm.last_n_tokens * 960)
         np.testing.assert_allclose(got, want, atol=1e-3)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP item"):
-        for key in ("llm", "flow", "hift"):
-            (tmp_path / key).mkdir()
+    for key in ("llm", "flow", "hift"):
+        (tmp_path / key).mkdir()
+    with pytest.raises(ValueError, match=r"llm is neither .* holds \[\]"):
         port.load(config=PCFG, device="cpu", model_dir=str(tmp_path))
+    for key in ("llm", "flow", "hift"):
+        port_ckpt.save_pytree(str(tmp_path / key), model._model.params[key])
+    loaded = port.load(config=PCFG, device="cpu", compute_dtype="float32",
+                       model_dir=str(tmp_path))
+    for key in ("llm", "flow", "hift"):
+        for a, b in zip(tree_leaves(loaded._model.params[key]),
+                        tree_leaves(model._model.params[key])):
+            assert torch.equal(a, b)
 
 
 def test_fade_in_out_matches_jax():
