@@ -84,8 +84,9 @@ Phases (any failure ends the run with a non-zero exit code):
      checkpoint round trip (the seed-0 model written as reference state
      dicts and a speaker store, ``load(model_dir=...)``: equal LM and flow
      parameters, HiFT within 1e-6, the stored prompt, equal tokens and
-     audio within 1e-3 of the in-memory model); the long utterance (a
-     48-byte text, ~960 tokens past the largest flow bucket: ``Cosy2EU.tts``
+     audio within 1e-3 of the in-memory model); the long utterance (a 20 s
+     prompt and a 27-byte text, ~540 tokens: 1040 past the largest flow
+     bucket: ``Cosy2EU.tts``
      through the ``StreamSession`` fallback with a rollover and an escalated
      chunk, ``Cosy2EU.stream`` rolling over, and the recompute path over the
      same tokens; equal tokens, tokens x 960 samples); ``vc`` of the stream
@@ -234,6 +235,33 @@ Phases (any failure ends the run with a non-zero exit code):
      the int8 slices, prefill on the wgmma design and steps on the decode
      design.  The kernels are built before the ranks start; the ranks
      print nothing, and a failing or hung rank fails the run;
+  6f. (after 6e) serving a tensor-parallel model: the same 2 ranks, the
+     published-width weights of ``load(seed=0)`` with the LM in fp32 (fp32
+     K/V) split tp=2 and the bf16 flow and fp32 HiFT whole on each, behind
+     a ``TTSEngine`` (4 slots, at most 128 generated tokens) serving 2
+     concurrent requests from process 0 while process 1 follows its LM
+     calls, then the same requests through a tp=1 engine on process 0:
+     every slot's tokens equal on both ranks and at tp=1, audio within
+     1e-3 of tp=1's, the follower ended on close, K1 560 times a flow call
+     on process 0 and none on process 1; ms a 4-row step on each rank and
+     at tp=1;
+  6g. export: ``export_tts_stages`` of the published-width bf16 flow at
+     token buckets 128 and 256, each ``.pt2`` loaded back and called: K1
+     56 times a call (counts set to 0 before it, read after), the output
+     within 2^-7 x max|eager| of the eager estimator (bit-equal expected);
+     export seconds and bytes;
+  6h. the store of kernel libraries: a fresh process with
+     ``COSY_AOT_CACHE`` at a new directory under ``_build/`` runs
+     ``cosy2-eu warmup --export-store DIR --prompt-seconds 3`` (nvcc builds
+     the six libraries there); a second fresh process, nvcc hidden (not on
+     ``PATH``, ``CUDA_HOME`` at a directory that does not exist), serves
+     one ``Cosy2EU.tts`` from that store: it must build nothing, find no
+     nvcc, give tokens x 960 samples and launch K1 560 times a flow call;
+     each process's seconds from its launch to its first audio;
+  6i. ``tools/profile_stages.py`` at the published widths with a trace of
+     one decode chunk and one flow call: each stage's ms, the card's busy
+     share of each traced block and its five kernels with the most device
+     time (a measurement: its launches do not count);
   7. kernel timings at the shapes of the paths: K1 on all of them (with
      TFLOP/s on the visible pairs and the share of the bound, and its
      output at each timed shape held against the plain one; the v1 path's
@@ -253,7 +281,7 @@ The line before that prints the run's seconds.  The line before the last
 is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
 bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, native,
-engine, tts_batch6, bistream and qwen3 paths, fp32 on the training path, the
+engine, tts_batch6, bistream, qwen3, tp_serving and export paths, fp32 on the training path, the
 trainer command line's "cli", the v1 path's "v1" and the parallel
 phase's "parallel"; the eval phase's "eval" among the bf16 ones), K2's over
 the shapes of the int8 path, the int8 stream, the int8 engine, the int8
@@ -794,26 +822,30 @@ def _weighted(parts: list) -> dict:
     return out
 
 
+K1_TIMED: dict = {}  # (T, lengths, chunk) -> the bf16 timing of that shape, timed once a run
+
+
 @_uncounted
 def time_flash_attention(shapes: list, launches: int, card: str) -> tuple[dict, list]:
     """K1, its plain version and SDPA at each flow call's shape of a TTS path.
 
     ``shapes`` holds (T, valid mel frames of each of K1's batch rows, chunk)
     per flow call (the CFG halves double the rows), and each call launches
-    K1 equally often; a shape met again is timed once.  Returns the path's
+    K1 equally often; a shape met again, here or on an earlier path, is
+    timed once.  Returns the path's
     mean per launch and the kernel's ms at each call's shape.
     """
     import torch
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    rows, timed = [], {}
+    rows = []
     for t, lens, chunk in shapes:
         key = (t, tuple(lens), chunk)
-        if key in timed:
-            rows.append(timed[key])
+        if key in K1_TIMED:  # met on this path or an earlier one
+            rows.append(K1_TIMED[key])
             continue
-        r = timed[key] = _time_k1(lens, t, chunk, torch.bfloat16, False, gen)
+        r = K1_TIMED[key] = _time_k1(lens, t, chunk, torch.bfloat16, False, gen)
         print(f"K1 timing T={t} bf16 chunk={chunk} lengths={lens} [{card}]: kernel {r['ms']:.4f} ms "
               f"({r['tflops']:.1f} TFLOP/s on the visible pairs, {100 * r['share']:.1f}% of the "
               f"bound; eager from Python {r['eager_ms']:.4f} ms), plain {r['plain_ms']:.4f} ms, "
@@ -1281,9 +1313,10 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
     print(f"int8 path: load(TTSConfig(), seed=0, device='cuda', lm_quant='int8') "
           f"{time.perf_counter() - t0:.2f} s [{card}]")
     prompt = _prompt(cfg, 3.0)
-    texts = ["Bonjour, comment allez-vous ?", "Guten Morgen, wie geht es dir?"]
-    batch_texts = ["Il fait beau aujourd'hui.", "Das Wetter ist heute schön.",
-                   "Je voudrais un café, merci.", "Wo ist der Bahnhof, bitte?"]
+    # short texts (20 tokens a byte at most): this path's depth is cut to keep the
+    # script in its time limit
+    texts = ["Bonjour, Paris", "Hallo Welt!"]
+    batch_texts = ["Bonjour!", "Hallo Welt", "Guten Tag!", "Merci, Paris"]
     decodes, shapes = [], []
     torch.cuda.reset_peak_memory_stats()
     _reset_counts()
@@ -1647,9 +1680,11 @@ def checkpoint_path(card: str) -> tuple[list, int]:
 
 
 def long_path(card: str) -> tuple[list, int]:
-    """Past the largest flow bucket at the published widths: the 3 s prompt
-    and a 48-byte text (~960 tokens, so prompt + tokens pass 1024 and the
-    cached session passes ``stream_max_tokens`` = 768), each request on a
+    """Past the largest flow bucket at the published widths: a 20 s prompt
+    (500 tokens) and a 27-byte text (~540 tokens, so prompt + tokens pass
+    1024 and the cached session passes ``stream_max_tokens`` = 768, with
+    room for a rollover: 500 + a 200-token window + 2 hops fit in 768),
+    each request on a
     fresh ``load(seed=0)``: ``Cosy2EU.tts`` under the default
     ``cached_stream=True`` (the fallback through ``StreamSession``, with
     rollover and escalated chunks), ``Cosy2EU.stream`` under the default
@@ -1669,8 +1704,8 @@ def long_path(card: str) -> tuple[list, int]:
     from cosyvoice2_eu_torch.runtime.model import FLOW_TOKEN_BUCKETS, TTSModel
 
     cfg = TTSConfig()
-    prompt = _prompt(cfg, 3.0)
-    text = "Bonjour Paris, guten Morgen Berlin, hallo Welt!!"  # 48 bytes: ~960 tokens
+    prompt = _prompt(cfg, 20.0)
+    text = "Bonjour Paris, hallo Welt!!"  # 27 bytes: ~540 tokens
     n_prompt = len(prompt["speech_tokens"])
     _reset_counts()
     runs, shapes, model = {}, [], None
@@ -4272,7 +4307,7 @@ def _rank_entry(job: str, rank: int, world: int, init_file: str, out_file: str) 
         dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
                                 world_size=world)
         try:
-            out = {"dp": _rank_dp, "tp": _rank_tp}[job](rank, world)
+            out = {"dp": _rank_dp, "tp": _rank_tp, "tp_serve": _rank_tp_serve}[job](rank, world)
         finally:
             dist.destroy_process_group()
         torch.save({"ok": out}, out_file)
@@ -5238,6 +5273,378 @@ def asr_decoder_path(card: str) -> None:
     _no_launches("asr decoder phase", card)
 
 
+# ---------------------------------------------------------------------------
+# the store of kernel libraries, export, serving under tp, the profile
+# ---------------------------------------------------------------------------
+
+STORE_CHILD = r'''
+import json, os, sys, time
+t_launch = float(sys.argv[1])
+sys.path.insert(0, os.getcwd())
+import torch
+import cosyvoice2_eu_torch as cosy
+from cosyvoice2_eu_torch.ops import flash_attention as fa
+from cosyvoice2_eu_torch.runtime import aot_cache, model as rt
+first = []
+tts = rt.TTSModel.tts
+def timed(self, *args, **kwargs):
+    for chunk in tts(self, *args, **kwargs):
+        if not first:
+            torch.cuda.synchronize()
+            first.append(time.time())
+        yield chunk
+rt.TTSModel.tts = timed
+if sys.argv[2] == "warmup":
+    from cosyvoice2_eu_torch.runtime.warmup import warmup_main
+    warmup_main(sys.argv[3:])
+    out = {}
+else:
+    import chip_smoke
+    cfg = cosy.TTSConfig()
+    api = cosy.load(config=cfg, seed=0, download=False)
+    fa.flash_attention.launches = 0
+    wav, sr = api.tts("Bonjour, Paris", chip_smoke._prompt(cfg, 3.0))
+    out = {"k1": fa.flash_attention.launches, "flows": api._model.timer.counts["flow"],
+           "samples": int(wav.size), "tokens": api._model.last_n_tokens,
+           "finite": bool(abs(wav).max() > 1e-3 and (wav == wav).all()),
+           "nvcc_on_path": __import__("shutil").which("nvcc"),
+           "store_stats": aot_cache.store_stats, "store": aot_cache.cache_dir()}
+out["first_audio_s"] = first[0] - t_launch
+print(json.dumps(out))
+'''
+
+
+def _store_child(args: list, env: dict, what: str) -> tuple[dict, float]:
+    """One fresh process of ``STORE_CHILD``; its last line's JSON (with the
+    seconds from its launch to its first audio) and its wall seconds."""
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-c", STORE_CHILD, repr(t0), *args], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=900)
+    wall = time.time() - t0
+    if res.returncode != 0:
+        raise SystemExit(f"store: the {what} process failed ({res.returncode}):\n"
+                         f"{res.stdout[-3000:]}{res.stderr[-6000:]}")
+    lines = [ln for ln in res.stdout.splitlines() if ln.startswith("{")]
+    out = json.loads(lines[-1])
+    if len(lines) > 1:
+        out.update(json.loads(lines[-2]))  # warmup_main's line
+    return out, wall
+
+
+def store_path(card: str) -> None:
+    """The store of kernel libraries (``runtime/aot_cache.py``) across
+    processes, at the published widths.  A process with ``COSY_AOT_CACHE``
+    at a fresh directory under ``_build/`` runs ``cosy2-eu warmup
+    --export-store DIR --prompt-seconds 3`` (every kernel library built
+    there by nvcc, then ``tts`` once without and twice with streaming); a
+    second fresh process, with nvcc hidden (a ``PATH`` without it,
+    ``CUDA_HOME`` at a directory that does not exist), loads
+    ``load(seed=0)`` on that store and serves one ``Cosy2EU.tts``.  Gates:
+    the first process built the six libraries into the store; the second
+    built nothing, found nvcc nowhere, gave finite audio of tokens x 960
+    samples, and launched K1 560 times a flow call.  Prints each process's
+    seconds from its launch to its first audio, and each library's build or
+    load seconds."""
+    from cosyvoice2_eu_torch.ops import cuda_build
+
+    store = os.path.join(REPO, "cosyvoice2_eu_torch", "_build", f"store_{os.getpid()}")
+    shutil.rmtree(store, ignore_errors=True)
+    try:
+        env = dict(os.environ, COSY_AOT_CACHE=store)
+        cold, cold_wall = _store_child(["warmup", "--export-store", store, "--prompt-seconds",
+                                        "3"], env, "warmup")
+        built = cold["store_stats"]["built"]
+        names = sorted(n for n, _ in built)
+        ok = (cold["store"] == store and cold["aot_entries"] == len(cuda_build.SOURCES)
+              and len(names) == len(cuda_build.SOURCES)
+              and names == sorted(f for f in os.listdir(store) if f.endswith(".so")))
+        print(f"store: cosy2-eu warmup into an empty store ({cold['modes']} modes at a 3 s "
+              f"prompt): first audio {cold['first_audio_s']:.2f} s after launch, process "
+              f"{cold_wall:.2f} s; nvcc built {len(names)} libraries: "
+              + ", ".join(f"{n} {s:.2f} s" for n, s in built)
+              + f"; store entries {cold['aot_entries']} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("store: the warmup did not build every library into the store")
+        nvcc_dirs = {os.path.dirname(p) for p in [shutil.which("nvcc")] if p}
+        path = os.pathsep.join(d for d in os.environ.get("PATH", "").split(os.pathsep)
+                               if d and os.path.realpath(d) not in
+                               {os.path.realpath(x) for x in nvcc_dirs})
+        env = dict(os.environ, COSY_AOT_CACHE=store, PATH=path,
+                   CUDA_HOME=os.path.join(store, "no_cuda_here"))
+        warm, warm_wall = _store_child(["serve"], env, "shipped-store")
+        stats = warm["store_stats"]
+        want_k1 = _k1_per_flow_default() * warm["flows"]
+        ok = (not stats["built"] and warm["nvcc_on_path"] is None and warm["finite"]
+              and warm["samples"] == warm["tokens"] * 960 and warm["flows"] > 0
+              and warm["k1"] == want_k1 and warm["store"] == store)
+        print(f"store: a fresh process on the shipped store, nvcc hidden (on PATH: "
+              f"{warm['nvcc_on_path']}): one Cosy2EU.tts of {warm['tokens']} tokens, first "
+              f"audio {warm['first_audio_s']:.2f} s after launch (cold start with an empty store "
+              f"{cold['first_audio_s']:.2f} s), process {warm_wall:.2f} s; built "
+              f"{len(stats['built'])} libraries, loaded "
+              + ", ".join(f"{n} {s * 1e3:.2f} ms" for n, s in stats["loaded"])
+              + f"; K1 {warm['k1']} (expected {want_k1} = 560 x {warm['flows']} flow calls) "
+              f"[{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("store: the process on the shipped store built a library, found "
+                             "nvcc, or failed its audio or K1 checks")
+    finally:
+        shutil.rmtree(store, ignore_errors=True)
+
+
+def _k1_per_flow_default() -> int:
+    from cosyvoice2_eu_torch.config import TTSConfig
+
+    return _k1_per_flow(TTSConfig())
+
+
+EXPORT_BUCKETS = (128, 256)
+
+
+def export_path(card: str) -> tuple[list, int]:
+    """``export_tts_stages`` of the published-width bf16 flow (``load(seed=0)``)
+    at token buckets 128 and 256 (mel 256 and 512), each program saved,
+    loaded back with ``load_exported`` and called on seeded inputs (two rows
+    of 100% and 75% of the bucket, t 0.5).  Gates, with the counts set to 0
+    before the exported calls and read after: K1 56 times a call (each
+    attention of the program one K1 launch, on its bf16 design), and the
+    output within K1's bf16 tolerance (2^-7 x max|want|) of the eager
+    ``estimator_forward`` on the same inputs (bit-equal is expected).
+    Prints the export seconds and the bytes of each ``.pt2``.  Returns K1's
+    shapes and launches."""
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.models.estimator import estimator_forward
+    from cosyvoice2_eu_torch.runtime.export import export_tts_stages, load_exported
+
+    cfg = TTSConfig()
+    tm = cosy.load(config=cfg, seed=0, download=False)._model
+    est = tm.params["flow"]["estimator"]
+    per_call = _k1_per_flow(cfg) // cfg.flow.cfm.n_timesteps
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    shapes, launches = [], 0
+    with tempfile.TemporaryDirectory(prefix="cosy_export_") as d:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        paths = export_tts_stages(tm, d, EXPORT_BUCKETS)
+        export_s = time.perf_counter() - t0
+        sizes = [os.path.getsize(p) for p in paths]
+        print(f"export: export_tts_stages at token buckets {EXPORT_BUCKETS} in {export_s:.2f} s: "
+              + ", ".join(f"{os.path.basename(p)} {n} bytes" for p, n in zip(paths, sizes))
+              + f" [{card}]")
+        for path, tok in zip(paths, EXPORT_BUCKETS):
+            t = tok * cfg.token_mel_ratio
+            c = cfg.flow.output_size
+            x, mu, cond = (torch.randn((2, c, t), generator=gen, device="cuda")
+                           .to(torch.bfloat16) for _ in range(3))
+            lens = [t, 3 * t // 4]
+            mask = (torch.arange(t, device="cuda")[None, None, :]
+                    < torch.tensor(lens, device="cuda")[:, None, None]).to(torch.bfloat16)
+            tt = torch.full((2,), 0.5, device="cuda", dtype=torch.bfloat16)
+            spks = torch.randn((2, c), generator=gen, device="cuda").to(torch.bfloat16)
+            t0 = time.perf_counter()
+            program = load_exported(path)
+            load_s = time.perf_counter() - t0
+            want = _uncounted(estimator_forward)(est, cfg.flow.estimator, x, mask, mu, tt, spks,
+                                                 cond)
+            _reset_counts()
+            got = program.module()(est, x, mask, mu, tt, spks, cond)
+            torch.cuda.synchronize()
+            n = _counters()[0].launches
+            design = _k1_design()
+            err = (got.float() - want.float()).abs().max().item()
+            tol = 2.0 ** -7 * want.float().abs().max().item()
+            ok = n == per_call and err <= tol and got.shape == want.shape
+            print(f"export: {os.path.basename(path)} loaded in {load_s:.2f} s, called at "
+                  f"(2, {c}, {t}) bf16: K1 {n} launches (expected {per_call}; {design}), max "
+                  f"|exported - eager| {err:.3e} (tol 2^-7 x max|eager| = {tol:.3e}; "
+                  f"bit-equal: {bool(torch.equal(got, want))}) [{card}] "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit("export: the exported estimator disagrees with the eager one or "
+                                 "did not launch K1 once an attention")
+            shapes.append((t, lens, 0))
+            launches += n
+    del tm, est
+    gc.collect()
+    torch.cuda.empty_cache()
+    return shapes, launches
+
+
+TP_SERVE_TEXTS = ("Bonjour, Paris", "Hallo Welt")
+TP_SERVE_GEN = 128
+
+
+def _tp_serve_model(tp: int):
+    """``load(seed=0)``'s weights with the LM in fp32 (fp32 K/V: bf16's
+    last-bit drift between the split and the whole sums would split the
+    tokens), the flow in bf16 and HiFT in fp32, split over ``tp``."""
+    import torch
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.config import TTSConfig
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.models.hift import init_hift
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.utils.params import cast_floating
+
+    cfg = TTSConfig()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = {"llm": init_lm(gen, cfg.llm), "flow": init_flow(gen, cfg.flow),
+              "hift": init_hift(gen, cfg.hift)}
+    flow = cast_floating({k: v for k, v in params["flow"].items() if k != "rand_noise"},
+                         torch.bfloat16)
+    flow["rand_noise"] = params["flow"]["rand_noise"]
+    params["flow"] = flow
+    return cosy.load(config=cfg, params=params, compute_dtype=None, seed=0, tp=tp,
+                     download=False)
+
+
+def _tp_serve_run(api, follower_delay: float = 0.0) -> dict:
+    """One engine (4 slots, 128 generated tokens at most) over ``api``: on a
+    server, both requests queued before its loop runs, read until they end;
+    on a follower, ``follow`` after ``follower_delay`` s."""
+    import threading
+
+    import numpy as np
+
+    from cosyvoice2_eu_torch.serving.engine import TTSEngine
+
+    tm = api._model
+    cfg = tm.cfg
+    tm.timer.reset()
+    calls, shapes = [], []
+    _record_flow_calls(tm, calls)
+    engine = TTSEngine(tm, n_slots=4, chunk_steps=25, max_cache=1024, max_gen=TP_SERVE_GEN)
+    _first_batch_shapes(engine, shapes)
+    out = {"role": engine.role}
+    if engine.role == "follower":
+        time.sleep(follower_delay)
+        t0 = time.perf_counter()
+        out["steps"] = engine.follow()
+        out["follow_s"] = time.perf_counter() - t0
+    else:
+        if tm.tp_mesh is None:  # queue both before the loop starts, as under tp
+            start, engine._ensure_running = engine._ensure_running, lambda: None
+        prompt = _prompt(cfg, 3.0)
+        handles = [engine.submit(api._frontend.frontend_zero_shot(t, prompt))
+                   for t in TP_SERVE_TEXTS]
+        if tm.tp_mesh is None:
+            start()
+        audio = [None] * len(handles)
+
+        def read():
+            for i, h in enumerate(handles):
+                audio[i] = np.concatenate(list(h))
+
+        reader = threading.Thread(target=read, daemon=True)
+        reader.start()
+        reader.join(600)
+        engine.close()
+        if reader.is_alive() or any(a is None for a in audio):
+            raise SystemExit("tp serving: a request did not end within 600 s")
+        out.update(audio=audio, steps=engine.state.step, tokens=[h._req.harvested for h in handles])
+    st = engine.state
+    out["slots"] = (st.tokens.cpu().numpy(), st.lengths.cpu().numpy())
+    out["decode_s"] = tm.timer.totals.get("eng_decode", 0.0)
+    out["k1"] = _counters()[0].launches
+    out["flows"] = len(calls) + len(shapes)
+    out["shapes"] = shapes + [_k1_shape(cfg, *c[:3]) for c in calls]
+    return out
+
+
+def _rank_tp_serve(rank: int, world: int) -> dict:
+    """The tp serving phase on one rank: the tp=2 engine (process 0 serves,
+    process 1 follows, starting 2 s late so that process 0 finds both
+    requests queued); then, on process 0, the same requests through a
+    tp=1 engine over the same weights."""
+    import torch
+
+    _reset_counts()
+    with torch.no_grad():
+        out = {"tp2": _tp_serve_run(_tp_serve_model(world), follower_delay=2.0)}
+        gc.collect()
+        torch.cuda.empty_cache()
+        if rank == 0:
+            out["tp1"] = _uncounted(_tp_serve_run)(_tp_serve_model(0))
+    return out
+
+
+def tp_serving_path(card: str) -> tuple[list, int]:
+    """Serving a tensor-parallel model: 2 ranks share the card over gloo, as
+    the parallel phase's (c).  Qwen2-0.5B at its published widths split
+    tp=2 (fp32, so fp32 K/V), the flow bf16 and HiFT fp32 whole on each,
+    behind a ``TTSEngine`` (4 slots, at most 128 generated tokens) that
+    serves 2 concurrent requests of the 3 s prompt from process 0 while
+    process 1 follows its LM calls; then the same 2 requests through a
+    tp=1 engine on process 0.  Gates: every slot's tokens equal on both
+    ranks and at tp=1; process 0's audio within 1e-3 of tp=1's, finite, of
+    tokens x 960 samples; the follower ended when process 0 closed; K1 560
+    times a flow call on process 0 (its bf16 design), none on process 1.
+    Prints ms a 4-row decode step on each rank and at tp=1 (the ranks
+    share the card: not a multi-GPU figure).  Returns process 0's K1 shapes
+    and launches."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    r0, r1 = _run_ranks("tp_serve", PARALLEL_WORLD, 900)
+    a, f, ref = r0["tp2"], r1["tp2"], r0["tp1"]
+    (tok_a, len_a), (tok_f, len_f), (tok_r, len_r) = a["slots"], f["slots"], ref["slots"]
+    same = (np.array_equal(len_a, len_f) and np.array_equal(len_a, len_r)
+            and all(np.array_equal(tok_a[s, :n], tok_f[s, :n])
+                    and np.array_equal(tok_a[s, :n], tok_r[s, :n]) for s, n in enumerate(len_a)))
+    errs = [float(np.abs(x - y).max()) if x.shape == y.shape else float("inf")
+            for x, y in zip(a["audio"], ref["audio"])]
+    good = all(np.isfinite(x).all() and x.size == n * 960 and float(np.abs(x).max()) > 1e-3
+               for x, n in zip(a["audio"], a["tokens"]))
+    want_k1 = _k1_per_flow_default() * a["flows"]
+    ok = (same and max(errs) <= 1e-3 and good and a["role"] == "server"
+          and f["role"] == "follower" and f["steps"] == a["steps"] > 0
+          and a["k1"] == want_k1 and f["k1"] == 0)
+    ms = lambda r: r["decode_s"] * 1e3 / max(r["steps"], 1)  # noqa: E731
+    print(f"tp serving: Qwen2-0.5B fp32 at tp=2 (2 ranks sharing the card over gloo) behind a "
+          f"4-slot TTSEngine, 2 concurrent requests of {a['tokens']} tokens: tokens of every slot "
+          f"equal on both ranks and at tp=1: {same}; audio max_abs_err vs tp=1 "
+          + ", ".join(f"{e:.3e}" for e in errs)
+          + f" (tol 1e-3); the follower made {f['steps']} steps and ended on close "
+          f"({f['follow_s']:.2f} s); {ms(a):.2f} ms a 4-row step on process 0, {ms(f):.2f} on "
+          f"process 1, {ms(ref):.2f} at tp=1 ({a['steps']} steps; not a multi-GPU figure); K1 "
+          f"{a['k1']} on process 0 (expected {want_k1} = 560 x {a['flows']} flow calls), "
+          f"{f['k1']} on process 1; phase {time.perf_counter() - t0:.1f} s [{card}] "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("tp serving: the tp=2 engine disagrees with tp=1, or its follower, "
+                         "audio or K1 launches failed their checks")
+    return a["shapes"], a["k1"]
+
+
+@_uncounted
+def profile_path(card: str) -> None:
+    """``tools/profile_stages.py`` at the published widths with ``--trace``:
+    each stage's ms, and for one 100-step decode chunk and one flow call
+    (token bucket 1024) the card's busy share and the five kernels with
+    the most device time.  Gates: every stage timed, each traced block
+    with device events and a busy share in (0, 1].  Its launches are a
+    measurement's and do not count."""
+    from cosyvoice2_eu_torch.tools import profile_stages
+
+    with tempfile.TemporaryDirectory(prefix="cosy_trace_") as d:
+        t0 = time.perf_counter()
+        out = profile_stages.run(device="cuda", trace_dir=d,
+                                 log=lambda line: print(f"profile: {line} [{card}]"))
+        traces = sorted(os.listdir(d))
+    ok = (len([k for k in out if k != "trace"]) == 7 and len(traces) == 2
+          and all(s["device_events"] > 0 and s["busy_share"] is not None
+                  and 0 < s["busy_share"] <= 1 and s["top"] for s in out["trace"].values()))
+    print(f"profile: phase {time.perf_counter() - t0:.1f} s, traces {traces}; busy share decode "
+          f"{out['trace']['decode']['busy_share']}, flow {out['trace']['flow']['busy_share']} "
+          f"[{card}] {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("profile: a stage was not timed, or a trace holds no device events")
+
+
 def main() -> None:
     import torch
 
@@ -5257,8 +5664,7 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
 
     t0 = time.perf_counter()
-    sources = (fa.SM90_SOURCE, fa.SOURCE, fa.BWD_SOURCE, i8.SM90_SOURCE, i8.DECODE_SOURCE,
-               i8.SOURCE)
+    sources = cuda_build.SOURCES
     cuda_build.build(sources)  # one nvcc per source, in parallel
     for src in sources:
         cuda_build.load_library(src)
@@ -5357,6 +5763,16 @@ def main() -> None:
     # several processes: DP at world 1 on NCCL, DP and --fsdp 2 on 2 ranks,
     # tp=2 decode (the ranks share the card over gloo)
     par = parallel_path(card)
+    # serving a tp=2 model (the same 2 ranks), the exported estimator, the
+    # store of kernel libraries across fresh processes, the first trace
+    later = {"tp_serving": tp_serving_path(card), "export": export_path(card)}
+    for name, (shapes_, _) in later.items():
+        cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
+        worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
+                                                   f" {name}") for lens, t, chunk in cases]))
+    new_paths.update(later)
+    store_path(card)
+    profile_path(card)
 
     k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)

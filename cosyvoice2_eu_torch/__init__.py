@@ -202,6 +202,36 @@ class Cosy2EU:
         for chunk in self._model.tts_stream_text(chunks(), inputs, speed=speed):
             yield chunk[None]
 
+    def warmup(self, stream: bool = True, prompt_seconds: float = 6.0) -> float:
+        """Run one synthesis before serving traffic (non-streaming, then
+        twice streaming when asked) over a synthetic prompt, so that every
+        kernel library is built or loaded and the first request pays none of
+        it; returns the wall seconds spent.  The synthetic prompt's primed
+        flow state is dropped at the end."""
+        import time
+
+        rng = np.random.default_rng(0)
+        n_sp = int(prompt_seconds * self._cfg.flow.input_frame_rate)
+        prompt = {
+            "prompt_feat": (rng.standard_normal(
+                (n_sp * self._cfg.token_mel_ratio, self._cfg.flow.output_size)
+            ) * 0.5 - 4.0).astype(np.float32),
+            "speech_tokens": rng.integers(
+                0, self._cfg.llm.speech_token_size, n_sp).astype(np.int32),
+            "embedding": rng.standard_normal(
+                self._cfg.frontend.spk_embed_dim).astype(np.float32),
+            "prompt_text": "",
+        }
+        t0 = time.perf_counter()
+        self.tts("Bonjour, ceci est un échauffement du serveur.", prompt)
+        if stream:
+            # twice: the first primes the prompt's cached flow state, the second starts from it
+            for _ in range(2):
+                for _ in self.stream("Hallo, dies ist ein Aufwärmen.", prompt):
+                    pass
+        self._model._primed_cache.clear()
+        return time.perf_counter() - t0
+
     def add_zero_shot_spk(self, prompt_text: str, prompt, spk_id: str) -> bool:
         """Store a prompt's artifacts (from a wav path, a waveform or a dict)
         under ``spk_id`` in the frontend's speaker store
@@ -329,7 +359,9 @@ def load(
     and ``campplus.onnx`` become the frontend's speech tokenizer and speaker
     embedding on ``device`` (``runtime/onnx_fallback.py``; a graph the
     structural converter cannot map runs through the ONNX graph executor,
-    with a warning), so wav prompts work.
+    with a warning), so wav prompts work.  A ``model_dir`` that ships an
+    ``aot_store`` directory (``cosy2-eu warmup``) becomes the store of kernel
+    libraries (``runtime/aot_cache.py``) before anything is built.
 
     ``config`` defaults to the published widths.  ``device`` defaults to
     "cuda" and raises when there is no GPU; pass "cpu" for the plain
@@ -352,6 +384,12 @@ def load(
     dev = resolve_device(device)
     if model_dir is None and config is None and params is None and download is not False:
         model_dir = _snapshot_download(repo_id, required=download is True)
+    if model_dir is not None and os.path.isdir(os.path.join(model_dir, "aot_store")):
+        # a shipped store of kernel libraries (cosy2-eu warmup --export-store):
+        # the first audio on a fresh machine runs no nvcc
+        from cosyvoice2_eu_torch.runtime import aot_cache
+
+        aot_cache.set_cache_dir(os.path.join(model_dir, "aot_store"))
     cfg = config or TTSConfig()
     bb_cfg, bb_tokenizer_dir, use_bistream = resolve_backbone(backbone, model_dir)
     if bb_cfg is not None:

@@ -6,7 +6,9 @@ standalone_infer/src/cosyvoice2_eu/cli.py:54-123): --text --prompt --out
 --stream --speed --text-frontend --prompt-text --mode --backbone
 --clear-cache, plus --device (default cuda; "cpu" runs the plain PyTorch
 path), with one model cached in the process.  Audio is written as 16-bit
-PCM wav.
+PCM wav.  ``warmup [flags]`` runs ``runtime/warmup.py::warmup_main``: it
+builds the kernel store into ``<model_dir>/aot_store`` or ``--export-store``
+and drives the serving modes once.
 """
 
 from __future__ import annotations
@@ -49,8 +51,11 @@ def main(argv=None):
 
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv[:1] == ["warmup"]:
-        raise NotImplementedError(
-            "warmup (compiling and exporting ahead of serving) is not ported yet: ROADMAP item 10d")
+        # `cosy2-eu warmup`: build the kernel store (and drive the serving modes)
+        # ahead of serving, into <model_dir>/aot_store or --export-store
+        from cosyvoice2_eu_torch.runtime.warmup import warmup_main
+
+        return warmup_main(argv[1:])
     parser = argparse.ArgumentParser(
         description="CosyVoice2-EU inference on the PyTorch port (cross-lingual cloning)")
     parser.add_argument("--text", type=str, required=True)

@@ -481,11 +481,14 @@ class SlotState:
 
 
 def slots_init(cfg: LMConfig, n_slots: int, max_cache: int, max_gen: int,
-               dtype=torch.bfloat16, device=None) -> SlotState:
-    """Empty slots; the KV cache and hidden states in ``dtype``."""
+               dtype=torch.bfloat16, device=None, num_kv_heads: Optional[int] = None) -> SlotState:
+    """Empty slots; the KV cache and hidden states in ``dtype``; the cache
+    holds ``num_kv_heads`` heads (a tensor-parallel slice's, ``local_kv_heads``;
+    the config's by default)."""
     zeros = lambda *shape, dt=torch.long: torch.zeros(shape, dtype=dt, device=device)
     return SlotState(
-        kv=KVCache.zeros(cfg.backbone, n_slots, max_cache, device=device, dtype=dtype),
+        kv=KVCache.zeros(cfg.backbone, n_slots, max_cache, device=device, dtype=dtype,
+                         num_kv_heads=num_kv_heads),
         tokens=zeros(n_slots, max_gen),
         recent=torch.full((n_slots, cfg.win_size), -1, dtype=torch.long, device=device),
         lengths=zeros(n_slots), finished=zeros(n_slots, dt=torch.bool),

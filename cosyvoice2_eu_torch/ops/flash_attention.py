@@ -20,7 +20,11 @@ kernels do.
 
 ``flash_attention`` routes through ``FlashAttentionFunction`` (K1 with LSE,
 then K3 and K4 in the backward) when grad mode is on and q, k or v requires
-grad; otherwise it launches K1 without LSE.
+grad; otherwise it launches K1 without LSE.  Under ``torch.export`` it calls
+K1 through the operator ``cosyvoice2_eu::flash_attention_fwd`` (registered
+when this module is imported; ``runtime/export.py``), which ``torch.export``
+can trace and save: ``_launch_fwd`` passes raw pointers through ctypes.
+Eager calls launch directly, without the dispatcher.
 """
 
 from __future__ import annotations
@@ -179,6 +183,25 @@ def _launch_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse):
     return (o, lse) if return_lse else o
 
 
+@torch.library.custom_op("cosyvoice2_eu::flash_attention_fwd", mutates_args=())
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        lengths: torch.Tensor, chunk_size: int, sm_scale: float,
+                        return_lse: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K1 as a PyTorch operator, the one ``torch.export`` traces: (o, lse),
+    lse empty without ``return_lse``.  On a CUDA tensor it launches K1 (and
+    counts in ``flash_attention.launches``), on a CPU tensor it runs the
+    plain version."""
+    out = _launch_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse)
+    return out if return_lse else (out, q.new_empty((0,), dtype=torch.float32))
+
+
+@flash_attention_fwd.register_fake
+def _flash_attention_fwd_shapes(q, k, v, lengths, chunk_size, sm_scale, return_lse):
+    b, h, t, _ = q.shape
+    return torch.empty_like(q), q.new_empty((b, h, t) if return_lse else (0,),
+                                            dtype=torch.float32)
+
+
 def flash_attention_dq(q, k, v, do, lse, delta, lengths, chunk_size: int = 0,
                        sm_scale: float | None = None):
     """dQ (kernel K3): scale * sum_k [P (dP - delta)] K, in q's dtype.
@@ -292,6 +315,9 @@ def flash_attention(q, k, v, lengths, chunk_size: int = 0,
         if return_lse:
             raise ValueError("flash_attention: return_lse is for calls without autograd")
         return FlashAttentionFunction.apply(q, k, v, lengths, chunk_size, sm_scale)
+    if torch.compiler.is_exporting():  # a traced program holds K1 as one operator
+        o, lse = flash_attention_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse)
+        return (o, lse) if return_lse else o
     return _launch_fwd(q, k, v, lengths, chunk_size, sm_scale, return_lse)
 
 

@@ -36,7 +36,8 @@ it.
 holds its slices of the LM (``parallel/tp.py``) and the whole flow and
 HiFT, and every process makes the same calls with the same seed, so every
 process gets the same tokens and audio (process 0's is the answer).  The
-serving engine does not run under it (ROADMAP item 8h).
+serving engine serves from process 0 while the others follow its LM calls
+(``serving/engine.py``).
 """
 
 from __future__ import annotations
@@ -138,10 +139,12 @@ class TTSModel:
                       "hift": params["hift"]}
         if lm_quant == "int8":
             params = dict(params, llm=quantize_lm_params(params["llm"]))
+        self.tp_mesh = None  # this process's place in the LM's tensor-parallel group
         if tp and tp > 1:
             from cosyvoice2_eu_torch.parallel.tp import make_tp_mesh, shard_lm_tp
 
-            params = dict(params, llm=shard_lm_tp(params["llm"], make_tp_mesh(tp), cfg.llm))
+            self.tp_mesh = make_tp_mesh(tp)
+            params = dict(params, llm=shard_lm_tp(params["llm"], self.tp_mesh, cfg.llm))
         self.params = params
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)

@@ -16,6 +16,21 @@ call.  ``TTSModel._wav_from_token_gen`` runs a ``StreamSession`` on its own
 under ``cached_stream=True``, which is how synthesis past the largest flow
 bucket (``_finalize_full``) and ``tts_batch``'s per-row fallback vocode.
 
+Under tensor parallelism (``load(tp=N)``, one process per GPU) every process
+of the group holds slices of the LM and must make the same LM calls.  The
+engine on process 0 serves (``role == "server"``); every other process
+builds the engine with the same arguments and runs ``follow``
+(``role == "follower"``).  Before each call that changes the group's LM
+state (a request's ``prefill_row``, ``slot_insert``, ``slots_decode``, the
+reset after a loop failure, and the close) process 0 sends the call to the
+group with ``broadcast_object_list``, and each follower makes it with the
+same draws (its generator seeded alike, consumed once a decode step).  A
+request that cannot stage is refused on process 0 before anything is sent.
+Flow and HiFT are whole on every process, so only process 0 vocodes.  While
+idle, process 0 sends a heartbeat every 0.2 s, so a follower never waits
+long on a live group and the process group's timeout
+(``init_process_group(timeout=...)``) bounds each of its waits.
+
 The first emission is a recompute over prompt + the first hop; the cached
 flow state is primed behind it.  Steady chunks are one flow feed of 25, 50
 or 100 tokens (the size escalates as the stream builds lead) and one
@@ -33,6 +48,7 @@ steady chunk of the same size through one batched chunk
 
 from __future__ import annotations
 
+import itertools
 import logging
 import queue
 import threading
@@ -42,9 +58,11 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from cosyvoice2_eu_torch.models import llm as llm_mod
 from cosyvoice2_eu_torch.models.flow import flow_inference
+from cosyvoice2_eu_torch.models.qwen2 import local_kv_heads
 from cosyvoice2_eu_torch.runtime import model as rt
 
 log = logging.getLogger(__name__)
@@ -303,16 +321,41 @@ class RequestHandle:
             yield chunk
 
 
-def refuse_tensor_parallel(model) -> None:
-    """Raise for a model (a ``TTSModel`` or a ``Cosy2EU``) that decodes
-    tensor-parallel: every process of its group must make the same calls,
-    and serving would need process 0 to broadcast each request to the group
-    (ROADMAP item 8h)."""
+def check_servable(model) -> None:
+    """Raise ``ValueError`` for a tensor-parallel model (a ``TTSModel`` or a
+    ``Cosy2EU``) served outside the engine: only the engine keeps the
+    group's processes in step (``serving_api``)."""
     tm = getattr(model, "_model", model)
-    if getattr(tm, "tp", 0) > 1:
-        raise NotImplementedError(
-            f"serving a tensor-parallel model (tp={tm.tp}) needs process 0 to broadcast each "
-            "request to its group: ROADMAP item 8h")
+    if getattr(tm, "tp", 0) > 1 and not isinstance(model, (EngineAPI, TTSEngine)):
+        raise ValueError(f"a tensor-parallel model (tp={tm.tp}) is served through EngineAPI, "
+                         "which keeps every process of its group in step (serving_api)")
+
+
+def serving_api(api, n_slots: int = 0):
+    """What a server serves: ``api`` (a ``Cosy2EU``) itself when ``n_slots``
+    is 0, else ``EngineAPI(api, n_slots)``; always the engine (4 slots when
+    ``n_slots`` is 0) for a tensor-parallel model."""
+    if n_slots <= 0 and getattr(api._model, "tp", 0) <= 1:
+        return api
+    return EngineAPI(api, n_slots=n_slots if n_slots > 0 else 4)
+
+
+def follows(served) -> bool:
+    """On a follower process of a tensor-parallel group, run the follower
+    loop until process 0's engine closes and return True; elsewhere return
+    False at once (the caller then binds its server)."""
+    engine = getattr(served, "engine", None)
+    if engine is None or engine.role != "follower":
+        return False
+    engine.follow()
+    return True
+
+
+def follow(model, **engine_kwargs) -> int:
+    """Process r > 0 of ``model``'s tensor-parallel group: make the LM calls
+    of process 0's ``TTSEngine`` (built with the same ``engine_kwargs``) in
+    its order until it closes; returns the decode steps made."""
+    return TTSEngine(model, **engine_kwargs).follow()
 
 
 class TTSEngine:
@@ -330,12 +373,22 @@ class TTSEngine:
     decode steps) and ``hift_draws`` (called once per HiFT call, in order)
     inject the random draws; by default the LM draws from a generator
     seeded ``model.seed + 17`` and HiFT from the model's generator.
+
+    Under tp > 1 the engine of process 0 (``role`` "server") starts its loop
+    at once and sends each LM call to the group; the others (``role``
+    "follower") serve nothing and run ``follow``.  A closed engine of a
+    tensor-parallel group takes no more requests: its followers have ended.
     """
 
     def __init__(self, model, n_slots: int = 4, chunk_steps: int = 25, max_cache: int = 1024,
                  max_gen: int = 640, lm_draws: Optional[llm_mod.Draws] = None,
                  hift_draws: Optional[rt.HiftDraws] = None):
-        refuse_tensor_parallel(model)
+        mesh = getattr(model, "tp_mesh", None)
+        self._group = mesh.group if mesh is not None else None
+        self._src = dist.get_global_rank(self._group, 0) if self._group is not None else 0
+        self.role = "follower" if mesh is not None and mesh.rank > 0 else "server"
+        self._closed = False
+        self._ids = itertools.count()
         self.model = model
         self.cfg = model.cfg
         self.n_slots = n_slots
@@ -352,11 +405,17 @@ class TTSEngine:
         self._lock = threading.Lock()
         self._running = False
         self._thread: Optional[threading.Thread] = None
+        if self._group is not None and self.role == "server":
+            self._ensure_running()  # its heartbeats keep the followers' waits short
 
     # -- public ----------------------------------------------------------
 
     def submit(self, prompt, speed: float = 1.0) -> RequestHandle:
         """Queue one request (``PromptInputs``); its audio comes through the handle."""
+        if self.role == "follower":
+            raise RuntimeError("a follower engine serves nothing: process 0 of its group serves")
+        if self._closed and self._group is not None:
+            raise RuntimeError("engine closed: its tensor-parallel followers have ended")
         req = _Request(prompt=prompt, out=queue.Queue(), speed=speed)
         self._pending.put(req)
         self._ensure_running()
@@ -364,21 +423,80 @@ class TTSEngine:
 
     def close(self) -> None:
         """Stop the loop after its current round; requests still in the
-        engine then fail with "engine closed"."""
+        engine then fail with "engine closed".  Under tp the loop's last
+        message ends the followers."""
+        self._closed = True
         self._running = False
         if self._thread is not None:
             self._thread.join(timeout=30)
             if not self._thread.is_alive():
                 self._fail_all("engine closed")
 
+    def follow(self) -> int:
+        """A follower's loop: make each LM call process 0 sends, in its
+        order, until it closes; returns the decode steps made.  Each wait is
+        one ``broadcast_object_list``, bounded by the process group's
+        timeout."""
+        if self.role != "follower":
+            raise RuntimeError("follow() runs on processes 1.. of a tensor-parallel group")
+        rows: dict = {}
+        steps = 0
+        while True:
+            op, *args = self._hear()
+            if op == "close":
+                return steps
+            if op == "hello":
+                mine = (self.n_slots, self.chunk_steps, self.max_cache, self.max_gen)
+                if tuple(args) != mine:
+                    raise ValueError(f"process 0's engine has (n_slots, chunk_steps, max_cache, "
+                                     f"max_gen) {tuple(args)}, this follower's {mine}")
+            elif op == "prefill":
+                rid, ids, src, prompt_len = args
+                rows[rid] = self._prefill(ids, src, prompt_len)
+            elif op == "drop":
+                rows.pop(args[0], None)
+            elif op == "insert":
+                rid, slot, meta = args
+                row, last = rows.pop(rid)
+                self.state = llm_mod.slot_insert(self.state, slot, row, last, *meta)
+            elif op == "decode":
+                if args[0]:  # the slots process 0 freed since the last round
+                    self.state.active[args[0]] = False
+                before = self.state.step
+                with self.model.timer.stage("eng_decode"):
+                    self.state = llm_mod.slots_decode(self.model.params["llm"], self.cfg.llm,
+                                                      self.state, self.chunk_steps, self._draws)
+                steps += self.state.step - before
+            elif op == "reset":
+                rows.clear()
+                self._reset_state()
+
     # -- internals --------------------------------------------------------
+
+    def _tell(self, *msg) -> None:
+        """Process 0 under tp: send one LM call to the group's followers."""
+        if self._group is not None:
+            dist.broadcast_object_list([msg], src=self._src, group=self._group)
+
+    def _hear(self) -> tuple:
+        box = [None]
+        dist.broadcast_object_list(box, src=self._src, group=self._group)
+        return box[0]
+
+    def _prefill(self, ids, src, prompt_len: int):
+        model = self.model
+        return llm_mod.prefill_row(model.params["llm"], self.cfg.llm, model._tensor(ids),
+                                   model._tensor(src), prompt_len, self.max_cache,
+                                   dtype=self.state.kv.k.dtype)
 
     def _reset_state(self) -> None:
         """Empty slots, with the LM draws from their start."""
         model = self.model
         dtype = model.params["llm"]["llm_embedding"]["weight"].dtype
-        self.state = llm_mod.slots_init(self.cfg.llm, self.n_slots, self.max_cache, self.max_gen,
-                                        dtype=dtype, device=model.device)
+        self.state = llm_mod.slots_init(
+            self.cfg.llm, self.n_slots, self.max_cache, self.max_gen, dtype=dtype,
+            device=model.device,
+            num_kv_heads=local_kv_heads(model.params["llm"]["backbone"], self.cfg.llm.backbone))
         self._draws = self.lm_draws
         if self._draws is None:
             gen = torch.Generator(device=model.device)
@@ -400,24 +518,30 @@ class TTSEngine:
         if p_bucket >= self.max_cache:
             raise ValueError(f"prompt bucket {p_bucket} exceeds the engine's cache "
                              f"({self.max_cache} slots)")
-        with model.timer.stage("eng_prefill"):
-            row, last = llm_mod.prefill_row(model.params["llm"], self.cfg.llm, model._tensor(ids),
-                                            model._tensor(src), prompt_len, self.max_cache,
-                                            dtype=self.state.kv.k.dtype)
-        req.session = StreamSession(model, req.prompt, speed=req.speed,
-                                    hift_draws=self.hift_draws)
-        self._staged.append((req, row, last, (prompt_len, min_len, min(max_len, self.max_gen),
-                                              p_bucket)))
+        # everything that may refuse the request comes before the group hears of it
+        session = StreamSession(model, req.prompt, speed=req.speed, hift_draws=self.hift_draws)
+        rid = next(self._ids)
+        self._tell("prefill", rid, ids, src, prompt_len)
+        try:
+            with model.timer.stage("eng_prefill"):
+                row, last = self._prefill(ids, src, prompt_len)
+        except Exception:
+            self._tell("drop", rid)
+            raise
+        req.session = session
+        self._staged.append((req, rid, row, last,
+                             (prompt_len, min_len, min(max_len, self.max_gen), p_bucket)))
 
     def _insert(self, slot: int) -> None:
-        req, row, last, (prompt_len, min_len, max_len, p_bucket) = self._staged.popleft()
-        self.state = llm_mod.slot_insert(self.state, slot, row, last, prompt_len, min_len,
-                                         max_len, p_bucket)
+        req, rid, row, last, meta = self._staged.popleft()
+        self._tell("insert", rid, slot, meta)
+        self.state = llm_mod.slot_insert(self.state, slot, row, last, *meta)
         self._slots[slot] = req
 
     def _decode(self):
         """``chunk_steps`` decode steps of every slot; returns (tokens,
         lengths, finished) on the host, fetched in one copy."""
+        self._tell("decode", [slot for slot, r in enumerate(self._slots) if r is None])
         self.state = llm_mod.slots_decode(self.model.params["llm"], self.cfg.llm, self.state,
                                           self.chunk_steps, self._draws)
         st, b = self.state, self.n_slots
@@ -441,12 +565,15 @@ class TTSEngine:
 
     def _loop(self) -> None:
         try:
+            self._tell("hello", self.n_slots, self.chunk_steps, self.max_cache, self.max_gen)
             while self._running:
                 self._loop_once()
+            self._tell("close")
         except Exception as e:  # the card or the model failed: fail everyone, allow a restart
             log.exception("engine loop died")
             msg = f"engine loop died: {e!r}"
             try:  # the state may be half written: start a restarted loop on empty slots
+                self._tell("reset")
                 self._reset_state()
             except Exception:
                 log.exception("engine state reset failed; a restart will raise again")
@@ -570,7 +697,7 @@ class TTSEngine:
                 try:  # idle: wait briefly for a request, then let the loop check its flag
                     self._pending.put(self._pending.get(timeout=0.2))
                 except queue.Empty:
-                    pass
+                    self._tell("idle")  # the followers' heartbeat
             return
 
         with timer.stage("eng_decode"):

@@ -7,6 +7,10 @@ generic method handlers, wire-compatible with the reference's generated
 stubs.  Needs ``grpcio`` and the system ``protoc`` (``proto.py``).
 
     python -m cosyvoice2_eu_torch.serving.grpc_server --model-dir DIR --device cuda
+
+``--tp N`` under ``torchrun`` serves an LM split over N processes through
+the engine (``EngineAPI``, 4 slots): process 0 binds the port, the others
+follow its LM calls until it closes.
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ log = logging.getLogger(__name__)
 
 class CosyVoiceServicer:
     def __init__(self, model):
-        from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+        from cosyvoice2_eu_torch.serving.engine import check_servable
 
-        refuse_tensor_parallel(model)
+        check_servable(model)
         self.model = model
         self.pb2 = build_messages()
 
@@ -96,15 +100,20 @@ def make_client_stub(channel):
 def main():
     import argparse
 
-    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.serving.engine import follows, serving_api
+    from cosyvoice2_eu_torch.serving.http_server import load_for_serving
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--port", type=int, default=50000)
     parser.add_argument("--model-dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
     parser.add_argument("--max-conc", type=int, default=4)
+    parser.add_argument("--tp", type=int, default=0,
+                        help="split the LM over N processes (torchrun)")
     args = parser.parse_args()
-    model = cosy.load(model_dir=args.model_dir, device=args.device)
+    model = serving_api(load_for_serving(args))
+    if follows(model):
+        return
     server, _ = serve(model, port=args.port, max_workers=args.max_conc)
     server.wait_for_termination()
 

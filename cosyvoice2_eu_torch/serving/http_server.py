@@ -11,7 +11,11 @@ wire format, with a JSON body.
 
 ``--engine-slots N`` serves through the continuous-batching engine
 (``EngineAPI``) so that concurrent requests share the LM decode; 0 runs each
-request on its own.  ``--device`` defaults to "cuda".
+request on its own.  ``--device`` defaults to "cuda".  ``--tp N`` serves an
+LM split over N processes under ``torchrun``: process 0 binds the port and
+the others follow its engine's LM calls until it closes.
+
+    torchrun --nproc-per-node 2 -m cosyvoice2_eu_torch.serving.http_server --tp 2 --engine-slots 4
 """
 
 from __future__ import annotations
@@ -50,10 +54,11 @@ def _decode_wav_bytes(data: bytes, target_sr: int = 16000) -> np.ndarray:
 
 def _routes(model):
     """Route -> generator of PCM byte chunks, over ``model``'s ``stream``
-    (a ``Cosy2EU`` or an ``EngineAPI``; not a tensor-parallel one)."""
-    from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+    (a ``Cosy2EU`` or an ``EngineAPI``; a tensor-parallel model only behind
+    an ``EngineAPI``)."""
+    from cosyvoice2_eu_torch.serving.engine import check_servable
 
-    refuse_tensor_parallel(model)
+    check_servable(model)
 
     def inference_zero_shot(tts_text: str, prompt_text: str, prompt_wav: bytes):
         prompt = _decode_wav_bytes(prompt_wav)
@@ -164,10 +169,20 @@ def serve_stdlib(model, host: str = "0.0.0.0", port: int = 50000):
     return server
 
 
+def load_for_serving(args):
+    """``load(model_dir, device)``, joining the ``torchrun`` process group
+    first under ``args.tp`` > 1."""
+    import cosyvoice2_eu_torch as cosy
+
+    if args.tp > 1:
+        from cosyvoice2_eu_torch.parallel.distributed import init_distributed
+
+        init_distributed(device=args.device)
+    return cosy.load(model_dir=args.model_dir, device=args.device, tp=args.tp)
+
+
 def main():
     import argparse
-
-    import cosyvoice2_eu_torch as cosy
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--port", type=int, default=50000)
@@ -176,13 +191,15 @@ def main():
     parser.add_argument(
         "--engine-slots", type=int, default=0,
         help="serve through the continuous-batching engine with N LM slots "
-        "(0 = one request at a time, the reference's behavior)")
+        "(0 = one request at a time, the reference's behavior; 4 under --tp)")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="split the LM over N processes (torchrun)")
     args = parser.parse_args()
-    model = cosy.load(model_dir=args.model_dir, device=args.device)
-    if args.engine_slots > 0:
-        from cosyvoice2_eu_torch.serving.engine import EngineAPI
+    from cosyvoice2_eu_torch.serving.engine import follows, serving_api
 
-        model = EngineAPI(model, n_slots=args.engine_slots)
+    model = serving_api(load_for_serving(args), args.engine_slots)
+    if follows(model):
+        return
     try:
         import uvicorn
     except ImportError:

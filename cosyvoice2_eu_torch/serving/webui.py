@@ -103,9 +103,9 @@ def validate_request(mode: str, prompt_available: bool, prompt_text: str,
 
 
 def build_demo(model):
-    from cosyvoice2_eu_torch.serving.engine import refuse_tensor_parallel
+    from cosyvoice2_eu_torch.serving.engine import check_servable
 
-    refuse_tensor_parallel(model)
+    check_servable(model)
     import gradio as gr
 
     from cosyvoice2_eu_torch.frontend.frontend import resample
@@ -213,14 +213,19 @@ def build_demo(model):
 def main():
     import argparse
 
-    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.serving.engine import follows, serving_api
+    from cosyvoice2_eu_torch.serving.http_server import load_for_serving
 
     parser = argparse.ArgumentParser()
     parser.add_argument("--port", type=int, default=8000)
     parser.add_argument("--model-dir", type=str, default=None)
     parser.add_argument("--device", type=str, default="cuda")
+    parser.add_argument("--tp", type=int, default=0,
+                        help="split the LM over N processes (torchrun); process 0 serves")
     args = parser.parse_args()
-    model = cosy.load(model_dir=args.model_dir, device=args.device)
+    model = serving_api(load_for_serving(args))
+    if follows(model):
+        return
     demo = build_demo(model)
     demo.queue(max_size=4, default_concurrency_limit=2)
     demo.launch(server_name="0.0.0.0", server_port=args.port)

@@ -108,11 +108,32 @@ def test_save_wav_clips_to_16_bit(tmp_path):
                                   [-32767, -32767, 0, 16383, 32767, 32767])
 
 
-def test_main_paths_not_in_the_port_raise(tmp_path):
-    """``warmup`` (ROADMAP item 10).  Alternative backbones are ported now:
-    ``test_main_passes_the_backbone_to_load``."""
-    with pytest.raises(NotImplementedError, match="ROADMAP item 10"):
-        cli.main(["warmup"])
+def test_main_runs_warmup(fake_load, tmp_path, monkeypatch, capsys):
+    """``warmup --export-store DIR --prompt-seconds 1,2 --batch 3 --device
+    cpu`` reaches ``warmup_main``: the store is DIR, ``load`` gets JAX's
+    shape-only arguments (the published config, seed 0) on the CPU, the
+    model goes to ``warmup_programs`` with the parsed buckets, and one JSON
+    line reports the store (``test_torch_warmup.py`` runs the programs)."""
+    import json
+
+    from cosyvoice2_eu_torch.runtime import aot_cache, warmup
+
+    seen = []
+    monkeypatch.setattr(warmup, "warmup_programs", lambda model, prompt_seconds, batch: (
+        seen.append((model, prompt_seconds, batch)) or {"modes": 7, "seconds": 0.5,
+                                                         "store_stats": {}}))
+    monkeypatch.delenv("COSY_AOT_CACHE", raising=False)
+    monkeypatch.setattr(aot_cache, "_cache_dir_override", None)
+    store = str(tmp_path / "store")
+    assert cli.main(["warmup", "--export-store", store, "--prompt-seconds", "1,2",
+                     "--batch", "3", "--device", "cpu"]) == 0
+    assert fake_load == [dict(config=port.TTSConfig(), backbone=None, seed=0, device="cpu")]
+    assert len(seen) == 1 and seen[0][1:] == ((1.0, 2.0), 3)
+    assert isinstance(seen[0][0], port_model.TTSModel)
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert out == {"store": store, "aot_entries": 0, "modes": 7, "seconds": 0.5,
+                   "store_stats": {}}
+    assert aot_cache.cache_dir() == store
 
 
 def test_main_passes_the_backbone_to_load(fake_load, tmp_path):

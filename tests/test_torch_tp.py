@@ -246,8 +246,9 @@ def test_dense_on_a_tree_jax_sharded(tp_group):
 
 def test_ttsmodel_tp2_tts_equals_tp0(tmp_path):
     """``load(tp=2)`` on 2 processes, every process making the same call with
-    the same seed: the same tokens and audio within 1e-5 of ``tp=0``; the
-    serving engine refuses the model (ROADMAP item 8h)."""
+    the same seed: the same tokens and audio within 1e-5 of ``tp=0``; an
+    ``EngineAPI`` over the model then serves from process 0, which the other
+    follows until it closes."""
     rng = np.random.default_rng(0)
     prompt = {"prompt_feat": rng.standard_normal((12, PCFG.flow.output_size)).astype(np.float32),
               "speech_tokens": rng.integers(0, PCFG.llm.speech_token_size, 6).astype(np.int32),
@@ -261,21 +262,37 @@ def test_ttsmodel_tp2_tts_equals_tp0(tmp_path):
         assert r["wav"].shape == want.shape
         np.testing.assert_allclose(r["wav"], want, atol=1e-5)
         assert r["q_rows"] == (32, 64)
-        assert "ROADMAP item 8h" in r["refused"]
+    assert [r["role"] for r in ranks] == ["server", "follower"]
+
+
+@pytest.fixture(scope="module")
+def tp_entries(tmp_path_factory):
+    return W.run_group(W.tp_entries, 2, tmp_path_factory.mktemp("entries"), config=PCFG)
 
 
 @pytest.mark.parametrize("entry", ["engine", "http", "grpc", "webui"])
-def test_serving_refuses_a_tensor_parallel_model(entry):
-    """Serving under tp > 1 needs process 0 to broadcast each request to the
-    group (ROADMAP item 8h): the engine and every server raise first."""
+def test_serving_entries_under_tp(tp_entries, entry):
+    """The engine and each server's entry (the HTTP routes, the gRPC
+    servicer, the web UI) build under tp=2 on both processes without
+    raising: process 0 serves (its engine's loop starts at once and stops
+    on ``close``), process 1 follows until process 0 closes."""
+    if entry == "grpc":
+        pytest.importorskip("grpc")
+    (role0, alive), (role1, steps) = tp_entries[0][entry], tp_entries[1][entry]
+    assert (role0, role1) == ("server", "follower")
+    assert alive is False and steps == 0
+
+
+def test_a_tensor_parallel_model_serves_only_through_the_engine():
+    """A tp model handed to a server without ``EngineAPI`` raises
+    ``ValueError`` before anything binds: only the engine keeps the group
+    in step."""
     import types
 
-    from cosyvoice2_eu_torch.serving import engine, grpc_server, http_server, webui
+    from cosyvoice2_eu_torch.serving import engine, grpc_server, http_server
 
-    tm = types.SimpleNamespace(tp=2, cfg=PCFG)
-    api = types.SimpleNamespace(_model=tm)
-    make = {"engine": lambda: engine.TTSEngine(tm), "http": lambda: http_server._routes(api),
-            "grpc": lambda: grpc_server.CosyVoiceServicer(api),
-            "webui": lambda: webui.build_demo(api)}[entry]
-    with pytest.raises(NotImplementedError, match="ROADMAP item 8h"):
-        make()
+    api = types.SimpleNamespace(_model=types.SimpleNamespace(tp=2, cfg=PCFG))
+    for make in (http_server._routes, grpc_server.CosyVoiceServicer):
+        with pytest.raises(ValueError, match="served through EngineAPI"):
+            make(api)
+    engine.check_servable(types.SimpleNamespace(_model=types.SimpleNamespace(tp=0)))

@@ -251,16 +251,138 @@ def tp_decode(rank, world, lm_cfg, params, prompt, draws):
 
 def tp_tts(rank, world, config, prompt, text):
     import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.serving.engine import EngineAPI, follows
 
     model = cosy.load(config=config, seed=0, device="cpu", compute_dtype="float32", tp=world)
     wav, sr = model.tts(text, prompt)
-    from cosyvoice2_eu_torch.serving.engine import EngineAPI
-
-    try:
-        EngineAPI(model, n_slots=2)
-        refused = None
-    except NotImplementedError as e:
-        refused = str(e)
-    return {"wav": wav, "sr": sr, "tokens": model._model.last_n_tokens, "refused": refused,
+    served = EngineAPI(model, n_slots=2)  # process 0 serves, the other follows until it closes
+    if not follows(served):
+        served.close()
+    return {"wav": wav, "sr": sr, "tokens": model._model.last_n_tokens,
+            "role": served.engine.role,
             "q_rows": tuple(model._model.params["llm"]["backbone"]["layers"][0]["q_proj"]
                             ["weight"].shape)}
+
+
+# ---------------------------------------------------------------------------
+# serving under tensor parallelism
+# ---------------------------------------------------------------------------
+
+DRAIN_S = 120.0  # seconds a rank waits for a request's audio
+
+
+def _drain(handles):
+    """Each handle's chunks joined (or its error's text), read in a thread
+    joined with a deadline."""
+    import threading
+
+    out = [None] * len(handles)
+
+    def read():
+        for i, h in enumerate(handles):
+            try:
+                out[i] = np.concatenate(list(h))
+            except RuntimeError as e:
+                out[i] = str(e)
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    reader.join(DRAIN_S)
+    if reader.is_alive():
+        raise AssertionError(f"the engine gave no end of audio within {DRAIN_S} s")
+    return out
+
+
+def _slots(engine):
+    st = engine.state
+    return st.tokens.numpy().copy(), st.lengths.numpy().copy()
+
+
+def tp_serving(rank, world, config, prompts, refused, engine_kw, spk):
+    """``load(tp=world)`` and three engines in turn, each closed by process
+    0 and followed by the others: (1) ``prompts`` at once (the follower
+    starts 2 s late, so process 0's loop, waiting for it, finds them all
+    queued); (2) ``refused`` (its prompt past the cache) beside the first
+    prompt again; (3) ``serving_api`` behind the stdlib HTTP server, one
+    POST of a stored speaker.  Each rank returns its slots' tokens after
+    each engine and, on process 0, the audio."""
+    import http.client
+    import json
+    import threading
+    import time
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.serving import engine as E
+    from cosyvoice2_eu_torch.serving import http_server
+
+    api = cosy.load(config=config, seed=0, device="cpu", compute_dtype="float32", tp=world)
+    out = {}
+    for run, batch in (("concurrent", prompts), ("refused", [prompts[0], refused])):
+        engine = E.TTSEngine(api._model, **engine_kw)
+        out[f"{run}_role"] = engine.role
+        if rank > 0:
+            if run == "concurrent":
+                time.sleep(2.0)
+            out[f"{run}_steps"] = engine.follow()
+        else:
+            try:
+                out[f"{run}_audio"] = _drain([engine.submit(p) for p in batch])
+            finally:
+                engine.close()
+        out[f"{run}_slots"] = _slots(engine)
+
+    served = E.serving_api(api, 2)
+    out["http_role"] = served.engine.role
+    if not E.follows(served):
+        server = http_server.serve_stdlib(served, host="127.0.0.1", port=0)
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            api._frontend.add_zero_shot_spk("spk", spk)
+            conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1],
+                                              timeout=DRAIN_S)
+            try:
+                conn.request("POST", "/inference_sft",
+                             json.dumps({"tts_text": "Bonjour.", "spk_id": "spk"}))
+                resp = conn.getresponse()
+                out["http"] = (resp.status, resp.read())
+            finally:
+                conn.close()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(DRAIN_S)
+            served.close()
+    out["http_slots"] = _slots(served.engine)
+    return out
+
+
+def tp_entries(rank, world, config):
+    """Each serving entry built under ``load(tp=world)`` on every rank (the
+    web UI over a stand-in for gradio, which is not installed), its role
+    read; process 0 then closes its engine and the others follow until it
+    does."""
+    import sys
+    from unittest import mock
+
+    import cosyvoice2_eu_torch as cosy
+    from cosyvoice2_eu_torch.serving import engine as E
+    from cosyvoice2_eu_torch.serving import grpc_server, http_server, webui
+
+    sys.modules.setdefault("gradio", mock.MagicMock())
+    api = cosy.load(config=config, seed=0, device="cpu", compute_dtype="float32", tp=world)
+    out = {}
+    for entry in ("engine", "http", "grpc", "webui"):
+        if entry == "engine":
+            served = engine = E.TTSEngine(api._model)
+        else:
+            served = E.serving_api(api)
+            engine = served.engine
+            {"http": http_server._routes, "grpc": grpc_server.CosyVoiceServicer,
+             "webui": webui.build_demo}[entry](served)
+        if engine.role == "follower":
+            out[entry] = (engine.role, engine.follow())
+        else:
+            served.close()
+            out[entry] = (engine.role, engine._thread.is_alive())
+    return out
