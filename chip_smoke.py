@@ -49,9 +49,10 @@ Phases (any failure ends the run with a non-zero exit code):
      audio within 1e-3 and a streamed ``vc`` in chunks of equal count and
      length within 1e-3, K1 launched 2 x n_blocks x stages a flow call;
   4. TTS path: ``load(config=TTSConfig(), seed=0, device="cuda")`` at the
-     published widths (random weights) answers 3 requests; checks the audio
+     published widths (random weights) answers 2 requests (flow buckets
+     T 1536 and 1280); checks the audio
      and that each flow call launched K1 560 times; per-stage times;
-  5. int8 path: the same with ``lm_quant="int8"``: 2 requests, then one
+  5. int8 path: the same with ``lm_quant="int8"``: 1 request, then one
      ``tts_batch`` of 4 prompts; checks the audio, 168 + 169 x steps K2
      launches per LM decode and 560 K1 launches per flow call, and from
      the record of each K2 launch that every prefill launch took the wgmma
@@ -90,7 +91,7 @@ Phases (any failure ends the run with a non-zero exit code):
      through the ``StreamSession`` fallback with a rollover and an escalated
      chunk, ``Cosy2EU.stream`` rolling over, and the recompute path over the
      same tokens; equal tokens, tokens x 960 samples); ``vc`` of the stream
-     phase's 280 tokens with and without streaming;
+     phase's 160 tokens with and without streaming;
   5d. the prompt frontend (counts set to 0 before its requests, read after):
      16-bit PCM prompts written from a seeded signal (16 kHz mono 3 s and
      30 s, 48 kHz stereo 3 s); the FSQ speech tokenizer and CAM++ at the
@@ -139,7 +140,7 @@ Phases (any failure ends the run with a non-zero exit code):
      CosyVoice-300M's published widths (random weights; a 6-block
      1024-wide text encoder, a 14-block 1024-wide LM, the 6-block 512-wide
      flow encoder, the (256, 256) U-Net, HiFT at 22.05 kHz), all fp32:
-     2 requests, 1 streamed request (the growing hop, the mel crossfade)
+     1 request, 1 streamed request (the growing hop, the mel crossfade)
      and a ``vc`` of the first request's tokens, from a synthetic 3 s
      prompt (150 tokens, 258 mel frames).  Gates: finite, non-silent audio
      of mel frames x 256 samples, K1 640 times a flow call, every launch on
@@ -230,7 +231,7 @@ Phases (any failure ends the run with a non-zero exit code):
      K/V kept in fp32, and within 1e-3 x max|logits| through the bf16 KV
      cache ``lm_prefill`` writes (its roundings turn the sums' reordering
      into steps of 2^-8: ``cosyvoice2_eu_torch/tools/tp_fp32_drift.py``),
-     and 64 decoded tokens equal to tp=1's, bf16 and int8 ms a step beside tp=1's (the ranks
+     and 16 decoded tokens equal to tp=1's, bf16 and int8 ms a step beside tp=1's (the ranks
      share the card: not a scaling figure), K2 168 + 169 x steps a rank at
      the int8 slices, prefill on the wgmma design and steps on the decode
      design.  The kernels are built before the ranks start; the ranks
@@ -238,7 +239,7 @@ Phases (any failure ends the run with a non-zero exit code):
   6f. (after 6e) serving a tensor-parallel model: the same 2 ranks, the
      published-width weights of ``load(seed=0)`` with the LM in fp32 (fp32
      K/V) split tp=2 and the bf16 flow and fp32 HiFT whole on each, behind
-     a ``TTSEngine`` (4 slots, at most 128 generated tokens) serving 2
+     a ``TTSEngine`` (4 slots, at most 64 generated tokens) serving 2
      concurrent requests from process 0 while process 1 follows its LM
      calls, then the same requests through a tp=1 engine on process 0:
      every slot's tokens equal on both ranks and at tp=1, audio within
@@ -246,7 +247,7 @@ Phases (any failure ends the run with a non-zero exit code):
      on process 0 and none on process 1; ms a 4-row step on each rank and
      at tp=1;
   6g. export: ``export_tts_stages`` of the published-width bf16 flow at
-     token buckets 128 and 256, each ``.pt2`` loaded back and called: K1
+     token bucket 256, the ``.pt2`` loaded back and called: K1
      56 times a call (counts set to 0 before it, read after), the output
      within 2^-7 x max|eager| of the eager estimator (bit-equal expected);
      export seconds and bytes;
@@ -277,8 +278,10 @@ Phases (any failure ends the run with a non-zero exit code):
      before), K2's time summed over one prefill beside ``lm_prefill``'s,
      and summed over one decode step at M = 1 and 4 beside the FMA
      design's, ``F.linear``'s and the bound.
-The line before that prints the run's seconds.  The line before the last
-is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
+The run's seconds are printed with the LM's ms/token in ``profile_stages``
+(how fast the host was), then ``{"phase_seconds": {...}}``: each phase's
+host seconds, a phase that runs in several places summed.  The line before
+the last is the kernels JSON (K1, K2, K3, K4): K1's times are means per launch over
 the paths (each path's under ``by_path``, each design's under ``by_dtype``:
 bf16 on the TTS, int8, stream, checkpoint, long, vc, frontend, native,
 engine, tts_batch6, bistream, qwen3, tp_serving and export paths, fp32 on the training path, the
@@ -1171,7 +1174,7 @@ def _k1_design(dtype=None) -> str:
 
 
 def main_path(card: str) -> tuple[int, list, list, dict]:
-    """Three full-width requests.  Returns K1's launches, each flow call's
+    """Two full-width requests.  Returns K1's launches, each flow call's
     (mel bucket, valid mel frames per K1 row) and flow time in ms, and the
     bf16 LM's parameters."""
     import numpy as np
@@ -1189,8 +1192,7 @@ def main_path(card: str) -> tuple[int, list, list, dict]:
     print(f"main path: load(TTSConfig(), seed=0, device='cuda') {time.perf_counter() - t0:.2f} s "
           f"[{card}]")
     prompt = _prompt(cfg, 3.0)
-    texts = ["Bonjour, comment allez-vous ?", "Guten Morgen, wie geht es dir?",
-             "Il fait beau aujourd'hui."]
+    texts = ["Bonjour, comment allez-vous ?", "Il fait beau aujourd'hui."]
     n_prompt = len(prompt["speech_tokens"])
     shapes, flow_ms = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1287,7 +1289,7 @@ def time_lm_prefill(tm, prompts: list, card: str) -> dict:
 
 
 def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
-    """The int8 LM at full width: 2 zero-shot requests through ``Cosy2EU.tts``,
+    """The int8 LM at full width: one zero-shot request through ``Cosy2EU.tts``,
     then one ``tts_batch`` of 4 prompts with their own speakers.  Returns
     each LM decode's (batch, prompt bucket, steps), each flow call's (mel
     bucket, valid mel frames per K1 row), the launches of K1, K3, K4 and K2
@@ -1315,7 +1317,7 @@ def int8_path(card: str, bf16_llm: dict) -> tuple[list, list, list, dict]:
     prompt = _prompt(cfg, 3.0)
     # short texts (20 tokens a byte at most): this path's depth is cut to keep the
     # script in its time limit
-    texts = ["Bonjour, Paris", "Hallo Welt!"]
+    texts = [SHORT_TEXT]
     batch_texts = ["Bonjour!", "Hallo Welt", "Guten Tag!", "Merci, Paris"]
     decodes, shapes = [], []
     torch.cuda.reset_peak_memory_stats()
@@ -1536,9 +1538,13 @@ def _stream_request(model, text: str, prompt, stream: bool, card: str, what: str
             "launches": launched}
 
 
+# 8 bytes: ~160 tokens, 7 chunks; also the checkpoint and native phases' text
+SHORT_TEXT = "Bonjour!"
+
+
 def stream_path(card: str) -> tuple[list, int, object]:
-    """Streaming at the published widths (bf16): one request of a 14-byte
-    text through ``Cosy2EU.stream`` on the recompute path
+    """Streaming at the published widths (bf16): one request of
+    ``SHORT_TEXT`` through ``Cosy2EU.stream`` on the recompute path
     (``cached_stream=False``) and one on the chunk-cached flow (the
     default), then the same text through ``Cosy2EU.tts``, each on a fresh
     ``load(seed=0)``; all three must give the same tokens.  Returns each
@@ -1551,7 +1557,7 @@ def stream_path(card: str) -> tuple[list, int, object]:
 
     cfg = TTSConfig()
     prompt = _prompt(cfg, 3.0)
-    text = "Bonjour, Paris"  # 14 bytes: ~280 tokens, 10-12 chunks
+    text = SHORT_TEXT
     _reset_counts()
     runs = {}
     for what, stream, cached in (("stream recompute", True, False),
@@ -1614,7 +1620,7 @@ def checkpoint_path(card: str) -> tuple[list, int]:
 
     cfg = TTSConfig()
     prompt = _prompt(cfg, 3.0)
-    text = "Bonjour, Paris"
+    text = SHORT_TEXT
     gen = torch.Generator(device="cuda")  # the weights load(seed=0) draws
     gen.manual_seed(0)
     params = tree_map(lambda t: t.cpu().numpy(), {
@@ -2045,7 +2051,7 @@ def frontend_path(card: str) -> tuple[list, int]:
         for name in ("3s", "30s", "3s_48k_stereo"):
             _time_extraction(fe, *wavs[name], card)
         prompt_text = "Bonjour, je m'appelle Claire."
-        requests = (("zero_shot tts", "Il y a 3 chats.", False,
+        requests = (("zero_shot tts", "3 chats.", False,
                      dict(mode="zero_shot", text_frontend=True)),
                     ("instruct2 stream", "Bonjour !", True,
                      dict(mode="instruct2", instruct_text="Parle lentement.",
@@ -3984,7 +3990,7 @@ def cli_path(card: str) -> tuple[list, int, list]:
 # ---------------------------------------------------------------------------
 
 # 15 bytes each: the LM stops at 20 x 15 = 300 tokens, ~6 s of speech
-V1_TEXTS = ("Bonjour, Paris.", "Guten Tag, Welt", "Hello, London!!")
+V1_TEXTS = ("Bonjour, Paris.", "Hello, London!!")
 
 
 class _V1Draws:
@@ -4152,7 +4158,7 @@ def _v1_prompt(cfg, seconds: float, seed: int = 0) -> tuple:
 
 def v1_path(card: str) -> tuple[list, int]:
     """``load_v1(config=TTSV1Config(), seed=0, device="cuda")`` at
-    CosyVoice-300M's published widths (random weights): 2 requests, 1
+    CosyVoice-300M's published widths (random weights): 1 request, 1
     streamed request and a ``vc`` of the first request's tokens, from a
     synthetic 3 s prompt, each with the counts set to 0 before it and read
     after it.  Gates: finite, non-silent audio of mel frames x 256 samples,
@@ -4187,8 +4193,7 @@ def v1_path(card: str) -> tuple[list, int]:
 
     model.token2wav = recorded
     empty = np.zeros(0, np.int32)
-    requests = [("tts", V1_TEXTS[0], False), ("tts", V1_TEXTS[1], False),
-                ("tts", V1_TEXTS[2], True), ("vc", None, False)]
+    requests = [("tts", V1_TEXTS[0], False), ("tts", V1_TEXTS[1], True), ("vc", None, False)]
     launches, source = 0, None
     for i, (kind, text, stream) in enumerate(requests):
         _reset_peak()
@@ -4284,7 +4289,7 @@ def time_v1_flash_attention(flow_ts: list, card: str) -> dict:
 
 # the tp phase's decodes: fp32 tokens held to tp=1's, and the steps of each
 # timed bf16 / int8 decode
-TP_TOKENS, TP_TIMED = 64, 16
+TP_TOKENS, TP_TIMED = 16, 8
 # (b)'s and (c)'s ranks share the one card over gloo (NCCL takes one rank a GPU)
 PARALLEL_WORLD = 2
 
@@ -4810,7 +4815,7 @@ def native_path(card: str) -> tuple[list, int]:
 
     cfg = TTSConfig()
     prompt = _prompt(cfg, 3.0)
-    text = "Bonjour, Paris"
+    text = SHORT_TEXT
     run = "1500-averaged-blanken-FR"
     gen = torch.Generator(device="cuda")  # the weights load(seed=0) draws
     gen.manual_seed(0)
@@ -5294,16 +5299,21 @@ def timed(self, *args, **kwargs):
             first.append(time.time())
         yield chunk
 rt.TTSModel.tts = timed
+text = sys.argv[3]
 if sys.argv[2] == "warmup":
-    from cosyvoice2_eu_torch.runtime.warmup import warmup_main
-    warmup_main(sys.argv[3:])
+    import functools
+    from cosyvoice2_eu_torch.runtime import warmup
+    # its requests as long as the serving process's: len(text) text tokens
+    warmup.synthetic_prompt = functools.partial(warmup.synthetic_prompt,
+                                                n_text=len(text.encode()))
+    warmup.warmup_main(sys.argv[4:])
     out = {}
 else:
     import chip_smoke
     cfg = cosy.TTSConfig()
     api = cosy.load(config=cfg, seed=0, download=False)
     fa.flash_attention.launches = 0
-    wav, sr = api.tts("Bonjour, Paris", chip_smoke._prompt(cfg, 3.0))
+    wav, sr = api.tts(text, chip_smoke._prompt(cfg, 3.0))
     out = {"k1": fa.flash_attention.launches, "flows": api._model.timer.counts["flow"],
            "samples": int(wav.size), "tokens": api._model.last_n_tokens,
            "finite": bool(abs(wav).max() > 1e-3 and (wav == wav).all()),
@@ -5314,11 +5324,15 @@ print(json.dumps(out))
 '''
 
 
+STORE_TEXT = "Paris"  # 5 bytes: ~100 tokens a request in both processes
+
+
 def _store_child(args: list, env: dict, what: str) -> tuple[dict, float]:
     """One fresh process of ``STORE_CHILD``; its last line's JSON (with the
     seconds from its launch to its first audio) and its wall seconds."""
     t0 = time.time()
-    res = subprocess.run([sys.executable, "-c", STORE_CHILD, repr(t0), *args], cwd=REPO, env=env,
+    res = subprocess.run([sys.executable, "-c", STORE_CHILD, repr(t0), args[0], STORE_TEXT,
+                          *args[1:]], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=900)
     wall = time.time() - t0
     if res.returncode != 0:
@@ -5336,10 +5350,11 @@ def store_path(card: str) -> None:
     processes, at the published widths.  A process with ``COSY_AOT_CACHE``
     at a fresh directory under ``_build/`` runs ``cosy2-eu warmup
     --export-store DIR --prompt-seconds 3`` (every kernel library built
-    there by nvcc, then ``tts`` once without and twice with streaming); a
-    second fresh process, with nvcc hidden (a ``PATH`` without it,
-    ``CUDA_HOME`` at a directory that does not exist), loads
-    ``load(seed=0)`` on that store and serves one ``Cosy2EU.tts``.  Gates:
+    there by nvcc, then ``tts`` once without and twice with streaming, each
+    request of ``len(STORE_TEXT)`` text tokens); a second fresh process,
+    with nvcc hidden (a ``PATH`` without it, ``CUDA_HOME`` at a directory
+    that does not exist), loads ``load(seed=0)`` on that store and serves
+    one ``Cosy2EU.tts`` of ``STORE_TEXT``.  Gates:
     the first process built the six libraries into the store; the second
     built nothing, found nvcc nowhere, gave finite audio of tokens x 960
     samples, and launched K1 560 times a flow call.  Prints each process's
@@ -5398,14 +5413,14 @@ def _k1_per_flow_default() -> int:
     return _k1_per_flow(TTSConfig())
 
 
-EXPORT_BUCKETS = (128, 256)
+EXPORT_BUCKETS = (256,)
 
 
 def export_path(card: str) -> tuple[list, int]:
     """``export_tts_stages`` of the published-width bf16 flow (``load(seed=0)``)
-    at token buckets 128 and 256 (mel 256 and 512), each program saved,
-    loaded back with ``load_exported`` and called on seeded inputs (two rows
-    of 100% and 75% of the bucket, t 0.5).  Gates, with the counts set to 0
+    at token bucket 256 (mel 512), the program saved, loaded back with
+    ``load_exported`` and called on seeded inputs (two rows of 100% and 75%
+    of the bucket, t 0.5).  Gates, with the counts set to 0
     before the exported calls and read after: K1 56 times a call (each
     attention of the program one K1 launch, on its bf16 design), and the
     output within K1's bf16 tolerance (2^-7 x max|want|) of the eager
@@ -5474,7 +5489,7 @@ def export_path(card: str) -> tuple[list, int]:
 
 
 TP_SERVE_TEXTS = ("Bonjour, Paris", "Hallo Welt")
-TP_SERVE_GEN = 128
+TP_SERVE_GEN = 64
 
 
 def _tp_serve_model(tp: int):
@@ -5503,7 +5518,7 @@ def _tp_serve_model(tp: int):
 
 
 def _tp_serve_run(api, follower_delay: float = 0.0) -> dict:
-    """One engine (4 slots, 128 generated tokens at most) over ``api``: on a
+    """One engine (4 slots, 64 generated tokens at most) over ``api``: on a
     server, both requests queued before its loop runs, read until they end;
     on a follower, ``follow`` after ``follower_delay`` s."""
     import threading
@@ -5576,7 +5591,7 @@ def tp_serving_path(card: str) -> tuple[list, int]:
     """Serving a tensor-parallel model: 2 ranks share the card over gloo, as
     the parallel phase's (c).  Qwen2-0.5B at its published widths split
     tp=2 (fp32, so fp32 K/V), the flow bf16 and HiFT fp32 whole on each,
-    behind a ``TTSEngine`` (4 slots, at most 128 generated tokens) that
+    behind a ``TTSEngine`` (4 slots, at most 64 generated tokens) that
     serves 2 concurrent requests of the 3 s prompt from process 0 while
     process 1 follows its LM calls; then the same 2 requests through a
     tp=1 engine on process 0.  Gates: every slot's tokens equal on both
@@ -5621,13 +5636,13 @@ def tp_serving_path(card: str) -> tuple[list, int]:
 
 
 @_uncounted
-def profile_path(card: str) -> None:
+def profile_path(card: str) -> float:
     """``tools/profile_stages.py`` at the published widths with ``--trace``:
     each stage's ms, and for one 100-step decode chunk and one flow call
     (token bucket 1024) the card's busy share and the five kernels with
     the most device time.  Gates: every stage timed, each traced block
     with device events and a busy share in (0, 1].  Its launches are a
-    measurement's and do not count."""
+    measurement's and do not count.  Returns the LM's ms/token."""
     from cosyvoice2_eu_torch.tools import profile_stages
 
     with tempfile.TemporaryDirectory(prefix="cosy_trace_") as d:
@@ -5643,6 +5658,22 @@ def profile_path(card: str) -> None:
           f"[{card}] {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("profile: a stage was not timed, or a trace holds no device events")
+    return out["lm_decode 100 steps"] / 100
+
+
+PHASE_SECONDS: dict = {}
+
+
+def _run(name: str, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; its host seconds, the card synchronised at its
+    end, are added to ``PHASE_SECONDS[name]``."""
+    import torch
+
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    return out
 
 
 def main() -> None:
@@ -5662,13 +5693,10 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import cuda_build
     from cosyvoice2_eu_torch.ops import flash_attention as fa
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
+    from cosyvoice2_eu_torch.runtime.warmup import build_kernels
 
-    t0 = time.perf_counter()
-    sources = cuda_build.SOURCES
-    cuda_build.build(sources)  # one nvcc per source, in parallel
-    for src in sources:
-        cuda_build.load_library(src)
-    print(f"kernels built in {time.perf_counter() - t0:.2f} s")
+    _run("build", build_kernels)  # one nvcc per source, in parallel
+    print(f"kernels built in {PHASE_SECONDS['build']:.2f} s")
     for src, log in cuda_build.build_logs.items():
         for line in log.splitlines():
             if any(w in line for w in ("registers", "spill", "smem", "Compiling entry")):
@@ -5692,103 +5720,112 @@ def main() -> None:
               f"{'ok' if hmma else 'FAIL'}")
         if not hmma:
             raise SystemExit(f"{src} holds no mma.sync instruction")
-    tf32_occupancy()
+    _run("occupancy", tf32_occupancy)
     _record_launches(fa)
     _record_k2_launches(i8)
 
-    worst = check_flash_attention()
-    worst_dq, worst_dkv = check_flash_backward()
-    worst_k2 = check_int8_matmul()
-    check_small_reference()
-    check_small_reference(lm_quant="int8")
-    check_small_train_reference()
-    check_small_gan_reference()
-    check_small_stream()
-    check_small_session()
-    check_small_engine()
-    check_small_bistream()
-    check_small_v1()
-    tts_launches, shapes, flow_ms, bf16_llm = main_path(card)
+    worst = _run("k1_checks", check_flash_attention)
+    worst_dq, worst_dkv = _run("k3k4_checks", check_flash_backward)
+    worst_k2 = _run("k2_checks", check_int8_matmul)
+    _run("small_tts", check_small_reference)
+    _run("small_tts_int8", check_small_reference, lm_quant="int8")
+    _run("small_train", check_small_train_reference)
+    _run("small_gan", check_small_gan_reference)
+    _run("small_stream", check_small_stream)
+    _run("small_session", check_small_session)
+    _run("small_engine", check_small_engine)
+    _run("small_bistream", check_small_bistream)
+    _run("small_v1", check_small_v1)
+    tts_launches, shapes, flow_ms, bf16_llm = _run("tts", main_path, card)
     if fa.flash_attention_dq.launches or fa.flash_attention_dkv.launches or i8.int8_matmul.launches:
         raise SystemExit("the bf16 TTS path launched a backward kernel or K2")
-    decodes, int8_shapes, int8_launches, prefill_ms = int8_path(card, bf16_llm)
+    decodes, int8_shapes, int8_launches, prefill_ms = _run("int8", int8_path, card, bf16_llm)
     del bf16_llm
-    stream_shapes, stream_launches, stream_tokens = stream_path(card)
+    stream_shapes, stream_launches, stream_tokens = _run("stream", stream_path, card)
     int8_stream_shapes, int8_stream_launches, int8_stream_decode, int8_stream_k2 = \
-        int8_stream_path(card)
+        _run("int8_stream", int8_stream_path, card)
     stream_shapes += int8_stream_shapes
     stream_launches += int8_stream_launches
     # K1 checked against its plain version at every shape the stream phase gave it
     stream_cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in stream_shapes})
-    worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
-                                               " stream") for lens, t, chunk in stream_cases]))
+    worst = max(worst, _run("k1_checks", check_flash_attention,
+                            [(list(lens), t, (torch.bfloat16,), (chunk,), " stream")
+                             for lens, t, chunk in stream_cases]))
     # checkpoint loading, past the largest flow bucket, vc, the prompt
     # frontend: each path read on its own
-    new_paths = {"checkpoint": checkpoint_path(card), "long": long_path(card),
-                 "vc": vc_path(card, stream_tokens), "frontend": frontend_path(card)}
+    new_paths = {"checkpoint": _run("checkpoint", checkpoint_path, card),
+                 "long": _run("long", long_path, card),
+                 "vc": _run("vc", vc_path, card, stream_tokens),
+                 "frontend": _run("frontend", frontend_path, card)}
     # a training run's output served (native checkpoints, the orbax fixture),
     # the ONNX graph executor against the structural conversion, the ASR decoder
-    new_paths["native"] = native_path(card)
-    onnx_path(card)
-    asr_decoder_path(card)
+    new_paths["native"] = _run("native", native_path, card)
+    _run("onnx", onnx_path, card)
+    _run("asr_decoder", asr_decoder_path, card)
     # the serving engine (with the HTTP round trip), then tts_batch past 4 HiFT rows
-    engine_shapes, engine_launches, engine_decodes, engine_k2 = engine_path(card)
+    engine_shapes, engine_launches, engine_decodes, engine_k2 = _run("engine", engine_path, card)
     new_paths["engine"] = (engine_shapes, engine_launches)
-    new_paths["tts_batch6"] = batch6_path(card)
+    new_paths["tts_batch6"] = _run("tts_batch6", batch6_path, card)
     # bistream (streaming text in), on the default backbone and on Qwen3-0.6B
-    bis_shapes, bis_launches, bis_decodes, bis_k2 = bistream_path(card)
-    q3_shapes, q3_launches, q3_decodes, q3_k2 = bistream_path(card, "hf:Qwen/Qwen3-0.6B")
+    bis_shapes, bis_launches, bis_decodes, bis_k2 = _run("bistream", bistream_path, card)
+    q3_shapes, q3_launches, q3_decodes, q3_k2 = _run("qwen3", bistream_path, card,
+                                                     "hf:Qwen/Qwen3-0.6B")
     new_paths["bistream"] = (bis_shapes, bis_launches)
     new_paths["qwen3"] = (q3_shapes, q3_launches)
     # the evaluation harness over Cosy2EU.tts, SECS on the card's CAM++
-    new_paths["eval"] = eval_path(card)
+    new_paths["eval"] = _run("eval", eval_path, card)
     for name, (shapes_, _) in new_paths.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
-        worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
-                                                   f" {name}") for lens, t, chunk in cases]))
+        worst = max(worst, _run("k1_checks", check_flash_attention,
+                                [(list(lens), t, (torch.bfloat16,), (chunk,), f" {name}")
+                                 for lens, t, chunk in cases]))
     # the v1 family at CosyVoice-300M's widths (fp32: K1's fp32 design), then
     # K1 checked at each of its shapes, T and ceil(T / 2) of every flow call
-    v1_ts, v1_launches = v1_path(card)
-    worst = max(worst, check_flash_attention(
-        [([t, t], t, (torch.float32,), (0,), " v1")
-         for t in sorted({t for t_mel in v1_ts for t in (t_mel, (t_mel + 1) // 2)})]))
-    steps, train_launches = train_path(card)
-    lm_train_path(card)
-    gan_path(card)
-    cli_steps, cli_k1, cli_cv = cli_path(card)
+    v1_ts, v1_launches = _run("v1", v1_path, card)
+    worst = max(worst, _run("k1_checks", check_flash_attention,
+                            [([t, t], t, (torch.float32,), (0,), " v1")
+                             for t in sorted({t for t_mel in v1_ts
+                                              for t in (t_mel, (t_mel + 1) // 2)})]))
+    steps, train_launches = _run("train", train_path, card)
+    _run("lm_train", lm_train_path, card)
+    _run("gan", gan_path, card)
+    cli_steps, cli_k1, cli_cv = _run("cli", cli_path, card)
     # K3/K4 checked against their plain version at every shape the CLI's flow gave them
     cli_cases = sorted({(tuple(r["lens"]), r["chunk"]) for r in cli_steps})
-    cli_dq, cli_dkv = check_flash_backward([(list(lens), (torch.float32,), (chunk,))
-                                            for lens, chunk in cli_cases])
+    cli_dq, cli_dkv = _run("k3k4_checks", check_flash_backward,
+                           [(list(lens), (torch.float32,), (chunk,)) for lens, chunk in cli_cases])
     # several processes: DP at world 1 on NCCL, DP and --fsdp 2 on 2 ranks,
     # tp=2 decode (the ranks share the card over gloo)
-    par = parallel_path(card)
+    par = _run("parallel", parallel_path, card)
     # serving a tp=2 model (the same 2 ranks), the exported estimator, the
     # store of kernel libraries across fresh processes, the first trace
-    later = {"tp_serving": tp_serving_path(card), "export": export_path(card)}
+    later = {"tp_serving": _run("tp_serving", tp_serving_path, card),
+             "export": _run("export", export_path, card)}
     for name, (shapes_, _) in later.items():
         cases = sorted({(tuple(lens), t, chunk) for t, lens, chunk in shapes_})
-        worst = max(worst, check_flash_attention([(list(lens), t, (torch.bfloat16,), (chunk,),
-                                                   f" {name}") for lens, t, chunk in cases]))
+        worst = max(worst, _run("k1_checks", check_flash_attention,
+                                [(list(lens), t, (torch.bfloat16,), (chunk,), f" {name}")
+                                 for lens, t, chunk in cases]))
     new_paths.update(later)
-    store_path(card)
-    profile_path(card)
+    _run("store", store_path, card)
+    lm_ms_token = _run("profile", profile_path, card)
 
-    k1_tts, calls_ms = time_flash_attention(shapes, tts_launches, card)
+    k1_tts, calls_ms = _run("time_k1", time_flash_attention, shapes, tts_launches, card)
     per_call = tts_launches // len(shapes)
     for i, ((t, lens, _), f_ms) in enumerate(zip(shapes, flow_ms)):
         # K1's time at this call's shape, timed alone, times its launches per call
         print(f"request {i}: K1 at T={t}, {lens[0]} frames x {per_call} launches is an estimated "
               f"{per_call * calls_ms[i]:.1f} ms of {f_ms:.1f} ms flow [{card}]")
-    k1_int8, _ = time_flash_attention(int8_shapes, int8_launches[0], card)
-    k1_stream, _ = time_flash_attention(stream_shapes, stream_launches, card)
-    k1_new = {name: time_flash_attention(shapes_, launches_, card)[0]
+    k1_int8, _ = _run("time_k1", time_flash_attention, int8_shapes, int8_launches[0], card)
+    k1_stream, _ = _run("time_k1", time_flash_attention, stream_shapes, stream_launches, card)
+    k1_new = {name: _run("time_k1", time_flash_attention, shapes_, launches_, card)[0]
               for name, (shapes_, launches_) in new_paths.items()}
     # K2 at the int8 path's shapes, the int8 stream's (its prefill at M = 64),
     # the int8 engine's (each prefill_row at M = its bucket, each step at M = 4)
     # and the int8 bistream requests' (extends at M = 64, steps at M = 1; the
     # Qwen3 backbone's at its own (N, K))
-    k2_times = time_int8_matmul(
+    k2_times = _run(
+        "time_k2", time_int8_matmul,
         decodes + [int8_stream_decode] + engine_decodes + bis_decodes + q3_decodes
         + par["decodes"],
         int8_launches[3] + int8_stream_k2 + engine_k2 + bis_k2 + q3_k2 + par["k2"], card)
@@ -5798,11 +5835,12 @@ def main() -> None:
     k2["max_abs_err"] = worst_k2
     _print_prefill(k2_times["by_shape"], prefill_ms, card)
     _print_decode_step(k2_times["by_shape"], card)
-    k1_fp32, k3, k4, step_kernel_ms = time_training_kernels(
+    k1_fp32, k3, k4, step_kernel_ms = _run(
+        "time_fp32", time_training_kernels,
         {"train": (steps, train_launches[0], [CV_SHAPE]), "cli": (cli_steps, cli_k1, cli_cv),
          "parallel": (par["steps"], par["launches"][0], [])},
         card)
-    k1_fp32["v1"] = time_v1_flash_attention(v1_ts, card)
+    k1_fp32["v1"] = _run("time_fp32", time_v1_flash_attention, v1_ts, card)
     if k1_fp32["v1"]["launches"] != v1_launches:
         raise SystemExit("K1's v1 launches do not match the v1 path's flow calls")
     per_cli = cli_k1 // (len(cli_steps) + len(cli_cv))
@@ -5834,7 +5872,9 @@ def main() -> None:
         print(f"train step {r['step']}: K1+K3+K4 at lengths={r['lens']} chunk={r['chunk']} x "
               f"{per_step} launches is an estimated {per_step * kern_ms:.1f} ms "
               f"({100 * per_step * kern_ms / r['ms']:.0f}%) of {r['ms']:.1f} ms [{card}]")
-    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s [{card}]")
+    print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s; the LM took "
+          f"{lm_ms_token:.2f} ms/token in profile_stages [{card}]")
+    print(json.dumps({"phase_seconds": {k: round(v, 2) for k, v in PHASE_SECONDS.items()}}))
     print(json.dumps({"kernels": [k1, k2, k3, k4]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,7 @@ Counterpart of ``cosyvoice2_eu_tpu/serving/grpc_server.py``, after the
 reference's gRPC server: a server-streaming ``Inference`` RPC whose
 responses carry raw int16 PCM chunks.  The service is registered with
 generic method handlers, wire-compatible with the reference's generated
-stubs.  Needs ``grpcio`` and the system ``protoc`` (``proto.py``).
+stubs.  Needs ``grpcio``; the messages are built in the process (``proto.py``).
 
     python -m cosyvoice2_eu_torch.serving.grpc_server --model-dir DIR --device cuda
 

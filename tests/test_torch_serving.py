@@ -10,7 +10,6 @@ import base64
 import http.client
 import io
 import json
-import shutil
 import threading
 import wave
 
@@ -111,12 +110,10 @@ def test_decode_wav_bytes_matches_jax(sr, channels, width):
     np.testing.assert_allclose(got, want, atol=1e-7)
 
 
-def test_proto_round_trip(tmp_path):
-    if shutil.which("protoc") is None:
-        pytest.skip("needs the system protoc")
+def test_proto_round_trip():
     from cosyvoice2_eu_torch.serving.proto import build_messages
 
-    pb2 = build_messages(str(tmp_path))
+    pb2 = build_messages()
     req = pb2.Request(zero_shot_request=pb2.zeroshotRequest(
         tts_text="bonjour", prompt_text="salut", prompt_audio=b"\x01\x02"))
     back = pb2.Request.FromString(req.SerializeToString())
@@ -129,8 +126,6 @@ def test_grpc_round_trip(api):
     """A cross-lingual request through the server-streaming RPC: int16 PCM
     chunks of whole tokens."""
     grpc = pytest.importorskip("grpc")
-    if shutil.which("protoc") is None:
-        pytest.skip("needs the system protoc")
     from cosyvoice2_eu_torch.serving.grpc_server import make_client_stub, serve
 
     server, port = serve(api, host="127.0.0.1", port=0, max_workers=2)
