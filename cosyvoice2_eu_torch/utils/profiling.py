@@ -1,9 +1,10 @@
-"""Per-stage wall-clock timers and device traces.
+"""Per-stage timers and device traces.
 
-Counterpart of ``cosyvoice2_eu_tpu/utils/profiling.py``: ``StageTimer``,
-``device_trace`` (``torch.profiler`` where JAX takes ``jax.profiler``: the
-CPU's activity and, where there is a card, CUDA's, written as a Chrome
-trace) and the reference's per-yield ``log_rtf``.
+Counterpart of ``cosyvoice2_eu_tpu/utils/profiling.py``: ``StageTimer``
+and ``device_trace`` (``torch.profiler`` where JAX takes ``jax.profiler``:
+the CPU's activity and, where there is a card, CUDA's, written as a Chrome
+trace).  Each stage of a ``StageTimer`` is also an event of the profiler,
+so a trace shows the stages on the card's clock.
 """
 
 from __future__ import annotations
@@ -15,34 +16,79 @@ import time
 from collections import defaultdict
 from typing import Callable, Dict, Optional
 
+import torch
+
+try:  # a CPU event of the profiler, not a user annotation; ~0.5 us a span
+    from torch._C._profiler import _RecordFunctionFast as _Span
+except ImportError:  # a user annotation, which readers that skip annotations do not see
+    from torch.profiler import record_function as _Span
+
+
+def _allocator_counts() -> tuple:
+    """(cudaMalloc calls, allocation retries) of the caching allocator on
+    the current device since the process began; (0, 0) before CUDA is
+    initialised."""
+    if not torch.cuda.is_initialized():
+        return 0, 0
+    s = torch.cuda.memory_stats_as_nested_dict()
+    return s["segment"]["all"]["allocated"], s["num_alloc_retries"]
+
 
 class StageTimer:
     """Accumulates wall-clock per named stage; one per model, not thread-safe.
 
     ``sync`` (e.g. ``torch.cuda.synchronize``) runs at the end of each stage,
-    so a stage's time includes the device work it queued.
+    so a stage's time includes the device work it queued.  Each stage is a
+    profiler event ``stage:<name>`` for its whole span: a CPU event that is
+    not a user annotation, so a reader that labels the card's idle gaps by
+    the host events around them (``benchmark/harness/trace.py``) names the
+    stage.  On a torch without ``_RecordFunctionFast`` the span is a
+    ``record_function``, a user annotation, and those labels are lost.
+
+    ``summary()`` gives each stage ``total_s``, ``count`` and ``mean_ms``;
+    ``host_s``, the host's time in the stage up to the call of ``sync`` (all
+    of ``total_s`` without a sync); and ``mallocs`` and ``alloc_retries``,
+    the caching allocator's new segments (cudaMalloc calls) and retries over
+    the stage (0 on a process without CUDA).  Under a synced timer a stage
+    starts on an empty queue, so ``host_s`` is its enqueue, with every wait
+    of the host inside it (a device value read, a launch blocked on a full
+    queue), and ``total_s - host_s`` the wait for the card after it.  A
+    nested stage's time counts in the stage around it as well.
     """
 
     def __init__(self, sync: Optional[Callable[[], None]] = None):
         self.sync = sync
         self.totals: Dict[str, float] = defaultdict(float)
+        self.host: Dict[str, float] = defaultdict(float)
         self.counts: Dict[str, int] = defaultdict(int)
+        self.mallocs: Dict[str, int] = defaultdict(int)
+        self.retries: Dict[str, int] = defaultdict(int)
 
     @contextlib.contextmanager
     def stage(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync is not None:
-                self.sync()
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+        mallocs, retries = _allocator_counts()
+        with _Span("stage:" + name):
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                host = time.perf_counter()
+                end = host
+                if self.sync is not None:
+                    self.sync()
+                    end = time.perf_counter()
+                m, r = _allocator_counts()
+                self.totals[name] += end - t0
+                self.host[name] += host - t0
+                self.counts[name] += 1
+                self.mallocs[name] += m - mallocs
+                self.retries[name] += r - retries
 
     def summary(self) -> Dict[str, dict]:
         return {
             k: {"total_s": v, "count": self.counts[k],
-                "mean_ms": 1e3 * v / max(self.counts[k], 1)}
+                "mean_ms": 1e3 * v / max(self.counts[k], 1), "host_s": self.host[k],
+                "mallocs": self.mallocs[k], "alloc_retries": self.retries[k]}
             for k, v in self.totals.items()
         }
 
@@ -50,8 +96,8 @@ class StageTimer:
         logging.info("%s: %s", prefix, self.summary())
 
     def reset(self):
-        self.totals.clear()
-        self.counts.clear()
+        for d in (self.totals, self.host, self.counts, self.mallocs, self.retries):
+            d.clear()
 
 
 @contextlib.contextmanager
@@ -60,7 +106,6 @@ def device_trace(log_dir: str):
     where a card is present) and write a Chrome trace into ``log_dir``
     (``trace_<pid>_<n>.json``, its path then in the profiler's
     ``trace_path``); yields the profiler."""
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
@@ -78,12 +123,3 @@ def device_trace(log_dir: str):
         n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
         prof.trace_path = os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json")
         prof.export_chrome_trace(prof.trace_path)
-
-
-def log_rtf(start_time: float, audio_seconds: float, tag: str = "synthesis"):
-    """Reference-style per-yield RTF logging (cli/cosyvoice.py:88):
-    ``start_time`` from ``time.time()``; returns the RTF."""
-    elapsed = time.time() - start_time
-    rtf = elapsed / max(audio_seconds, 1e-9)
-    logging.info("%s: yield speech len %.2fs, rtf %.4f", tag, audio_seconds, rtf)
-    return rtf
