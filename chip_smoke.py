@@ -254,7 +254,7 @@ Phases (any failure ends the run with a non-zero exit code):
   6h. the store of kernel libraries: a fresh process with
      ``COSY_AOT_CACHE`` at a new directory under ``_build/`` runs
      ``cosy2-eu warmup --export-store DIR --prompt-seconds 3`` (nvcc builds
-     the six libraries there); a second fresh process, nvcc hidden (not on
+     every library there); a second fresh process, nvcc hidden (not on
      ``PATH``, ``CUDA_HOME`` at a directory that does not exist), serves
      one ``Cosy2EU.tts`` from that store: it must build nothing, find no
      nvcc, give tokens x 960 samples and launch K1 560 times a flow call;
@@ -3228,6 +3228,147 @@ def _sass_count(library, opcode: str) -> int:
 
 
 # ---------------------------------------------------------------------------
+# the optimizer's passes
+# ---------------------------------------------------------------------------
+
+def _optimizer_pass_errors(layout, grads: list, g, a, mu, nu, p, h) -> dict:
+    """Each mode of the two passes on the card against the plain version on
+    the same flat buffers (``g``: ``grads`` flat): pass A accumulating
+    (ACC), emitting (EMIT) and summing the gradient alone (NORM); pass B
+    from the flat mean with the reset, and from ``grads`` through the
+    address table (``accum_grad`` 1).  The means, mu and nu as their
+    largest error over their largest entry; the parameters' update
+    (``p_new - p``) likewise, over the largest update; the sums relative,
+    each; the reset's largest entry (0 where the mean is finite).  A
+    non-finite error reads inf."""
+    from cosyvoice2_eu_torch.ops import optim_passes as op
+
+    def finite(err) -> float:
+        return float(err) if math.isfinite(float(err)) else math.inf
+
+    rel = lambda got, ref: finite((got - ref).abs().max() / ref.abs().max())  # noqa: E731
+    table, _ = op.grad_table(layout, grads)
+    errs = {"sums": 0.0, "mean": 0.0, "mu": 0.0, "nu": 0.0, "update": 0.0}
+    for mode, a_in in ((op.EMIT, a), (op.ACC, a), (op.NORM, None)):
+        mean, sums = op.launch_accumulate(layout, table, a_in, 2, mode)
+        want_mean, want = op.accumulate_reference(g, a_in, 2, mode != op.ACC)
+        errs["sums"] = max(errs["sums"], finite(((sums - want).abs()
+                                                 / want.abs().clamp_min(1e-30)).max()))
+        if mean is not None:
+            errs["mean"] = max(errs["mean"], rel(mean, want_mean))
+        del mean, want_mean
+    mean = op.running_mean(g, a, 2)
+    for src, launch in (("mean", lambda: op.launch_update(layout, None, mean, mu, nu, p, h, True)),
+                        ("table", lambda: op.launch_update(layout, table, None, mu, nu, p, h,
+                                                           False))):
+        mu2, nu2, p2, a0 = launch()
+        mu_ref, nu_ref, p_ref = op.adam_update(mean if src == "mean" else g, mu, nu, p, h)
+        errs["mu"] = max(errs["mu"], rel(mu2, mu_ref))
+        errs["nu"] = max(errs["nu"], rel(nu2, nu_ref))
+        del mu2, nu2, mu_ref, nu_ref
+        errs["update"] = max(errs["update"], rel(p2 - p, p_ref - p))
+        del p2, p_ref
+        if src == "mean":
+            errs["reset"] = finite(a0.abs().max())
+        del a0
+    return errs
+
+
+def time_optimizer_passes(card: str) -> dict:
+    """The optimizer's fused passes (``csrc/optim_passes.cu``) at the flow's
+    tree (``TTSConfig().flow``) and the Qwen3-0.6B LM's (the trees the
+    benchmark's training cells update), on random flat state.  First every
+    mode of each pass against its plain version (``_optimizer_pass_errors``)
+    at lr 1e-2, the clip and AdamW's decay on, every 97th gradient element
+    scaled by 1e-9 (where eps shapes the update): the means, mu and nu
+    within 1e-6 of their largest entry (the plain version divides by a
+    scalar as a product with its reciprocal on the card), the sums within
+    1e-6 relative, the reset exactly 0, and the update within 1e-3 of the
+    largest update (~0.35 lr): the parameters (up to ~6) are rounded once
+    to fp32 on each side, ~4.8e-7 apart at most, ~1.4e-4 of it, while a
+    wrong lr, decay, bias correction or eps, or parameters left as they
+    were, is 10-100% of it.  Then pass A (accumulating, mode ACC) and pass
+    B (from the mean, the reset written) as CUDA-graph replay against their
+    byte bound (12 and 32 bytes a leaf element), beside the plain version
+    and ``torch._fused_adamw_`` (in place, no clip or mean) on the same
+    buffers.  The passes' launch counts are left as they were.  Returns
+    the kernels line's row: ``launches``, the passes' launches on the
+    training paths (``by_path``: each path's micro-steps and finite
+    emissions beside them); ``ms``, ``bound_ms``, pass A plus pass B, the
+    mean of the two trees (each tree's under ``by_tree``)."""
+    import torch
+
+    from cosyvoice2_eu_torch.config import qwen3_0_6b_config
+    from cosyvoice2_eu_torch.models.flow import init_flow
+    from cosyvoice2_eu_torch.models.llm import init_lm
+    from cosyvoice2_eu_torch.ops import optim_passes as op
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    saved = op.accumulate.launches, op.update.launches
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    trees = {"flow": lambda: init_flow(gen, _with_backbone().flow),
+             "lm": lambda: init_lm(gen, _with_backbone(qwen3_0_6b_config()).llm)}
+    h = op.Hyper(norm=10.0, max_norm=5.0, b1=0.9, b2=0.999, bc1=0.271, bc2=0.003996,
+                 eps=1e-8, weight_decay=0.01, lr=1e-2)
+    by_tree, worst = {}, 0.0
+    for name, make in trees.items():
+        leaves = tree_leaves(make())
+        layout = op.FlatLayout(leaves)
+        n = sum(layout.numels)
+        grads = [torch.randn(x.shape, generator=gen, device="cuda") for x in leaves]
+        for x in grads:
+            x.view(-1)[::97] *= 1e-9
+        p = layout.flatten(leaves)
+        del leaves
+        g = layout.flatten(grads)
+        a, mu = g * 0.5, g * 0.1
+        nu = g * g * 0.01
+        errs = _optimizer_pass_errors(layout, grads, g, a, mu, nu, p, h)
+        ok = (max(errs["sums"], errs["mean"], errs["mu"], errs["nu"]) <= 1e-6
+              and errs["update"] <= 1e-3 and errs["reset"] == 0.0)
+        worst = max(worst, errs["mean"], errs["mu"], errs["nu"])
+        table, _ = op.grad_table(layout, grads)
+        a_ms = _graph_ms(lambda i: op.launch_accumulate(layout, table, a, 2, op.ACC), 10)
+        b_ms = _graph_ms(lambda i: op.launch_update(layout, None, a, mu, nu, p, h, True), 10)
+        plain_ms = (_cuda_ms(lambda: op.running_mean(g, a, 2), 3)
+                    + _cuda_ms(lambda: op.adam_update(a, mu, nu, p, h), 3))
+        step = torch.ones((), device="cuda")
+        lib = [p.clone(), a, mu.clone(), nu.clone()]
+        library_ms = _cuda_ms(lambda: torch._fused_adamw_(
+            [lib[0]], [lib[1]], [lib[2]], [lib[3]], [], [step], lr=h.lr, beta1=h.b1,
+            beta2=h.b2, weight_decay=0.01, eps=h.eps, amsgrad=False, maximize=False), 3)
+        bound = {"a": 12 * n / H100_BYTES * 1e3, "b": 32 * n / H100_BYTES * 1e3}
+        by_tree[name] = {"leaves": len(layout.numels), "elements": n, "pass_a_ms": a_ms,
+                         "pass_a_bound_ms": bound["a"], "pass_b_ms": b_ms,
+                         "pass_b_bound_ms": bound["b"], "plain_ms": plain_ms,
+                         "library_ms": library_ms, "errors": errs}
+        print(f"optimizer passes, {name} tree ({len(layout.numels)} leaves, {n:,} elements): "
+              f"pass A {a_ms:.4f} ms (bound {bound['a']:.4f}, {100 * bound['a'] / a_ms:.1f}%), "
+              f"pass B {b_ms:.4f} ms (bound {bound['b']:.4f}, {100 * bound['b'] / b_ms:.1f}%); "
+              f"plain {plain_ms:.4f} ms, torch._fused_adamw_ {library_ms:.4f} ms; against the "
+              f"plain version (A: ACC, EMIT, NORM; B: from the mean, from the table): sums "
+              f"{errs['sums']:.1e}, mean {errs['mean']:.1e}, mu {errs['mu']:.1e}, nu "
+              f"{errs['nu']:.1e} (tol 1e-6), update {errs['update']:.1e} (tol 1e-3 of the "
+              f"largest), reset {errs['reset']} [{card}] {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("the optimizer's passes disagree with their plain version")
+        del p, g, a, mu, nu, table, grads, lib
+        torch.cuda.empty_cache()
+    op.accumulate.launches, op.update.launches = saved
+    mean_of = lambda key: sum(t[key] for t in by_tree.values()) / len(by_tree)  # noqa: E731
+    return {"name": "optimizer_passes", "route": "cuda",
+            "source": f"cosyvoice2_eu_torch/csrc/{op.SOURCE}", "replaces": None,
+            "launches": sum(sum(c["pass_a"] + c["pass_b"] for c in counts)
+                            for counts in OPTIMIZER_BY_PATH.values()),
+            "max_abs_err": worst,
+            "ms": mean_of("pass_a_ms") + mean_of("pass_b_ms"),
+            "plain_ms": mean_of("plain_ms"),
+            "bound_ms": mean_of("pass_a_bound_ms") + mean_of("pass_b_bound_ms"),
+            "bound_by": "bytes", "library_ms": mean_of("library_ms"), "by_tree": by_tree,
+            "by_path": {path: _summed(counts) for path, counts in OPTIMIZER_BY_PATH.items()}}
+
+
+# ---------------------------------------------------------------------------
 # bistream (streaming text in) and the speech LM's training
 # ---------------------------------------------------------------------------
 
@@ -4390,19 +4531,28 @@ def _dp_step(cfg, tc, params, batch, draws, mesh):
     """One flow step, data-parallel over ``mesh`` on this process's rows of
     ``batch`` and ``draws`` (None: the plain one-process step on all of
     them); returns (loss, the new parameters, the whole Adam first moment,
-    ms, K1/K3/K4 launches)."""
+    ms, K1/K3/K4 launches, the optimizer).  Under a mesh a second step on
+    the same rows follows, its launches uncounted, for the optimizer: that
+    step's optimizer stage (``ms``, ``host_ms``: its state adopted at the
+    first) and the passes' launches and adoptions over both steps; None
+    without a mesh."""
     import torch
 
+    from cosyvoice2_eu_torch.ops import optim_passes as op
     from cosyvoice2_eu_torch.parallel.mesh import shard_batch, shard_rows
     from cosyvoice2_eu_torch.parallel.train_step import init_train_state, make_flow_train_step
     from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.utils.profiling import StageTimer
 
     tx = make_optimizer(tc, mesh)
-    step = make_flow_train_step(cfg, tc, tx, mesh=mesh)
+    timer = StageTimer(sync=torch.cuda.synchronize)
+    step = make_flow_train_step(cfg, tc, tx, timer=timer, mesh=mesh)
     state = init_train_state(params, tx)
     mine, my_draws = ((batch, draws) if mesh is None
                       else (shard_batch(batch, mesh), shard_rows(draws, mesh)))
     _reset_counts()
+    passes = lambda: (op.accumulate.launches, op.update.launches, op.adopt.calls)  # noqa: E731
+    before = passes()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, metrics = step(state, mine, my_draws, streaming=False)
@@ -4411,26 +4561,35 @@ def _dp_step(cfg, tc, params, batch, draws, mesh):
     ms = (time.perf_counter() - t0) * 1e3
     launched = [f.launches for f in _counters()[:3]]
     mu = tx.gather_state(state.opt_state, state.params)["mu"]
-    return loss, state.params, mu, ms, launched
+    opt = None
+    if mesh is not None:
+        timer.reset()
+        _uncounted(step)(state, mine, my_draws, streaming=False)
+        stage = timer.summary()["optimizer"]
+        a, b, adopted = (x - y for x, y in zip(passes(), before))
+        opt = {"ms": stage["total_s"] * 1e3, "host_ms": stage["host_s"] * 1e3, "micro_steps": 2,
+               "pass_a": a, "pass_b": b, "adoptions": adopted}
+    return loss, state.params, mu, ms, launched, opt
 
 
 def _rank_dp(rank: int, world: int) -> dict:
     """(b) on one rank: the DP flow step (rows split 2 / 2) and the
     ``--fsdp 2`` step, each held to the one-process step on the whole batch
     (loss within 1e-5 relative, parameters and Adam's first moment within
-    1e-4 x max + 1e-7)."""
+    1e-4 x max + 1e-7); each one's optimizer over two steps."""
     from cosyvoice2_eu_torch.parallel.mesh import make_mesh, row_block
 
     cfg, tc, params, batch, draws = _flow_dp_inputs()
-    ref_loss, ref_params, ref_mu, _, _ = _uncounted(_dp_step)(cfg, tc, params, batch, draws, None)
+    ref_loss, ref_params, ref_mu, _, _, _ = _uncounted(_dp_step)(cfg, tc, params, batch, draws,
+                                                                 None)
     out = {"rows": row_block(len(TRAIN_SHAPES[0]), make_mesh(dp=world))}
     for name, fsdp in (("dp", 1), ("fsdp", world)):
         mesh = make_mesh(dp=world // fsdp, fsdp=fsdp)
-        loss, p, mu, ms, launched = _dp_step(cfg, tc, params, batch, draws, mesh)
+        loss, p, mu, ms, launched, opt = _dp_step(cfg, tc, params, batch, draws, mesh)
         out[name] = {"loss": loss, "ref_loss": ref_loss,
                      "loss_rel": abs(loss - ref_loss) / abs(ref_loss),
                      "param_err": _tree_err(p, ref_params), "mu_err": _tree_err(mu, ref_mu),
-                     "ms": ms, "launched": launched}
+                     "ms": ms, "launched": launched, "optimizer": opt}
     return out
 
 
@@ -4542,9 +4701,9 @@ def parallel_path(card: str) -> dict:
         try:
             backend = dist.get_backend()
             cfg, tc, params, batch, draws = _flow_dp_inputs()
-            ref_loss, ref_params, ref_mu, ref_ms, _ = _uncounted(_dp_step)(
+            ref_loss, ref_params, ref_mu, ref_ms, _, _ = _uncounted(_dp_step)(
                 cfg, tc, params, batch, draws, None)
-            loss, p, mu, ms, launched_a = _dp_step(cfg, tc, params, batch, draws, make_mesh())
+            loss, p, mu, ms, launched_a, _ = _dp_step(cfg, tc, params, batch, draws, make_mesh())
         finally:
             dist.destroy_process_group()
     rel, p_err, mu_err = (abs(loss - ref_loss) / abs(ref_loss), _tree_err(p, ref_params),
@@ -4580,6 +4739,23 @@ def parallel_path(card: str) -> dict:
             if not ok:
                 raise SystemExit(f"parallel (b): rank {r}'s {name} step disagrees with the "
                                  "one-process step")
+            # the optimizer over two steps (accum_grad 1): at fsdp 1 the flat
+            # path (pass A for the norm and pass B a step), at fsdp 2 the
+            # slices (pass B a step; the norm is the group's)
+            o = m["optimizer"]
+            want = (o["micro_steps"] if name == "dp" else 0, o["micro_steps"], 1)
+            ok = (o["pass_a"], o["pass_b"], o["adoptions"]) == want
+            print(f"parallel (b) rank {r} {name} optimizer: the second step's {o['ms']:.2f} ms "
+                  f"(host {o['host_ms']:.2f} ms); over {o['micro_steps']} steps pass A "
+                  f"{o['pass_a']} launches, pass B {o['pass_b']}, {o['adoptions']} adoption "
+                  f"(expected {want}) [{card}] {'ok' if ok else 'FAIL'}")
+            if not ok:
+                raise SystemExit(f"parallel (b): rank {r}'s {name} optimizer launched its "
+                                 "passes wrongly")
+            OPTIMIZER_BY_PATH.setdefault(f"parallel/{name}", []).append(
+                {"micro_steps": o["micro_steps"], "emissions": o["micro_steps"],
+                 "pass_a": o["pass_a"], "pass_b": o["pass_b"], "trees": 1,
+                 "adoptions": o["adoptions"], "ms": o["ms"], "host_ms": o["host_ms"]})
             launched = [a + b for a, b in zip(launched, m["launched"])]
             steps.append({"step": len(steps), "lens": TRAIN_SHAPES[0][start:stop], "chunk": 0,
                           "t": max(TRAIN_SHAPES[0])})
@@ -5355,7 +5531,7 @@ def store_path(card: str) -> None:
     with nvcc hidden (a ``PATH`` without it, ``CUDA_HOME`` at a directory
     that does not exist), loads ``load(seed=0)`` on that store and serves
     one ``Cosy2EU.tts`` of ``STORE_TEXT``.  Gates:
-    the first process built the six libraries into the store; the second
+    the first process built every library into the store; the second
     built nothing, found nvcc nowhere, gave finite audio of tokens x 960
     samples, and launched K1 560 times a flow call.  Prints each process's
     seconds from its launch to its first audio, and each library's build or
@@ -5664,15 +5840,83 @@ def profile_path(card: str) -> float:
 PHASE_SECONDS: dict = {}
 
 
+# each phase's optimizer on the card, one record a run of the phase: its
+# micro-steps and finite emissions (``Optimizer.step`` as counted below) and
+# the passes' launches and adoptions over it; "parallel/..." the ranks'
+OPTIMIZER_BY_PATH: dict = {}
+# the running phase's Optimizer.step calls: on the card, the micro-steps,
+# the updates applied and the pass-A launches they make (none at fsdp > 1
+# with accum_grad 1); on any device, the trees (flat layouts) first met
+_OPTIMIZER_SEEN = [0, 0, 0, 0]
+
+
+def _count_optimizer_steps() -> None:
+    """Count every ``Optimizer.step`` call of this process in
+    ``_OPTIMIZER_SEEN``: the optax count the step adds is the update it
+    applied, one pass-B launch on the card."""
+    from cosyvoice2_eu_torch.train.optim import Optimizer
+    from cosyvoice2_eu_torch.utils.params import tree_leaves
+
+    step = Optimizer.step
+
+    @functools.wraps(step)
+    def counted(self, params, grads, state):
+        trees = len(self._layouts)
+        out = step(self, params, grads, state)
+        if tree_leaves(grads)[0].is_cuda:
+            _OPTIMIZER_SEEN[0] += 1
+            _OPTIMIZER_SEEN[1] += out[1]["count"] - state["count"]
+            _OPTIMIZER_SEEN[2] += self.mesh is None or self.k > 1
+        _OPTIMIZER_SEEN[3] += len(self._layouts) - trees
+        return out
+
+    Optimizer.step = counted
+
+
+def _check_optimizer_launches(name: str) -> None:
+    """The passes' launches over phase ``name`` against its optimizer steps
+    on the card: one pass A a micro-step, one pass B a finite emission; the
+    record kept under ``OPTIMIZER_BY_PATH[name]``."""
+    from cosyvoice2_eu_torch.ops import optim_passes as op
+
+    steps, updates, want_a, trees = _OPTIMIZER_SEEN
+    got_a, got_b = op.accumulate.launches, op.update.launches
+    if not (steps or got_a or got_b):
+        return
+    OPTIMIZER_BY_PATH.setdefault(name, []).append(
+        {"micro_steps": steps, "emissions": updates, "pass_a": got_a, "pass_b": got_b,
+         "trees": trees, "adoptions": op.adopt.calls})
+    ok = (got_a, got_b) == (want_a, updates)
+    print(f"optimizer, {name}: {steps} micro-steps and {updates} finite emissions on the card; "
+          f"pass A {got_a} launches (expected {want_a}), pass B {got_b} (expected {updates}); "
+          f"{op.adopt.calls} adoptions of {trees} trees met (any device) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"{name}: the optimizer's passes launched otherwise than its steps ask")
+
+
+def _summed(records: list) -> dict:
+    """The records' counts summed; their times (the ranks'), the largest."""
+    return {k: sum(r[k] for r in records) if isinstance(records[0][k], int)
+            else max(r[k] for r in records) for k in records[0]}
+
+
 def _run(name: str, fn, *args, **kwargs):
     """``fn(*args, **kwargs)``; its host seconds, the card synchronised at its
-    end, are added to ``PHASE_SECONDS[name]``."""
+    end, are added to ``PHASE_SECONDS[name]``.  The optimizer's passes'
+    counts are set to 0 before it and checked after it
+    (``_check_optimizer_launches``)."""
     import torch
 
+    from cosyvoice2_eu_torch.ops import optim_passes as op
+
+    op.accumulate.launches = op.update.launches = op.adopt.calls = 0
+    _OPTIMIZER_SEEN[:] = [0, 0, 0, 0]
     t0 = time.perf_counter()
     out = fn(*args, **kwargs)
     torch.cuda.synchronize()
     PHASE_SECONDS[name] = PHASE_SECONDS.get(name, 0.0) + time.perf_counter() - t0
+    _check_optimizer_launches(name)
     return out
 
 
@@ -5695,6 +5939,7 @@ def main() -> None:
     from cosyvoice2_eu_torch.ops import int8_matmul as i8
     from cosyvoice2_eu_torch.runtime.warmup import build_kernels
 
+    _count_optimizer_steps()
     _run("build", build_kernels)  # one nvcc per source, in parallel
     print(f"kernels built in {PHASE_SECONDS['build']:.2f} s")
     for src, log in cuda_build.build_logs.items():
@@ -5874,8 +6119,9 @@ def main() -> None:
               f"({100 * per_step * kern_ms / r['ms']:.0f}%) of {r['ms']:.1f} ms [{card}]")
     print(f"chip_smoke.py ran {time.perf_counter() - t_start:.1f} s; the LM took "
           f"{lm_ms_token:.2f} ms/token in profile_stages [{card}]")
+    opt = _run("optimizer", time_optimizer_passes, card)
     print(json.dumps({"phase_seconds": {k: round(v, 2) for k, v in PHASE_SECONDS.items()}}))
-    print(json.dumps({"kernels": [k1, k2, k3, k4]}))
+    print(json.dumps({"kernels": [k1, k2, k3, k4, opt]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

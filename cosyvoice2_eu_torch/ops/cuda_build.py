@@ -34,7 +34,8 @@ NVCC_FLAGS = ("-gencode", f"arch=compute_{ARCH},code=sm_{ARCH}", "-std=c++17", "
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # every kernel library, in the order chip_smoke.py and warmup build them
 SOURCES = ("flash_attention_sm90.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-           "int8_matmul_sm90.cu", "int8_matmul_decode_sm90.cu", "int8_matmul.cu")
+           "int8_matmul_sm90.cu", "int8_matmul_decode_sm90.cu", "int8_matmul.cu",
+           "optim_passes.cu")
 
 _libs: dict[str, ctypes.CDLL] = {}
 build_logs: dict[str, str] = {}  # nvcc's stderr (ptxas register/spill report) per source

@@ -27,7 +27,7 @@ from cosyvoice2_eu_torch.models.llm import lm_training_hidden
 from cosyvoice2_eu_torch.ops.masks import make_non_pad_mask
 from cosyvoice2_eu_torch.parallel.distributed import in_group
 from cosyvoice2_eu_torch.train.losses import cfm_loss, label_smoothing_ce
-from cosyvoice2_eu_torch.train.optim import Optimizer, global_norm
+from cosyvoice2_eu_torch.train.optim import Optimizer
 from cosyvoice2_eu_torch.utils.params import dense, embedding, tree_leaves, tree_map
 from cosyvoice2_eu_torch.utils.profiling import StageTimer
 
@@ -316,7 +316,7 @@ def make_step(loss_fn, tx: Optimizer, timer: Optional[StageTimer] = None, mesh=N
         metrics = {k: v for k, v in metrics.items() if k not in _denom_keys(metrics)}
         with stage("optimizer"):
             params, opt_state = tx.step(state.params, grads, state.opt_state)
-            metrics = dict(metrics, grad_norm=global_norm(grads))
+            metrics = dict(metrics, grad_norm=tx.grad_norm)
         return TrainState(params, opt_state, state.step + 1), metrics
 
     return step

@@ -14,7 +14,8 @@ Adam's bias correction, the schedule read at the count before it
 increments, the skip of a non-finite update that leaves the inner state as
 it was, and MultiSteps' running mean over ``accum_grad`` micro-steps, whose
 reset multiplies the sum by zero (so a non-finite micro-step poisons it, as
-in optax).
+in optax).  The arithmetic is ``ops/optim_passes.py``'s: two fused passes
+over flat state buffers, or its plain version.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import torch
 import torch.distributed as dist
 
 from cosyvoice2_eu_torch.config import TrainConfig
+from cosyvoice2_eu_torch.ops import optim_passes as passes
 from cosyvoice2_eu_torch.parallel.mesh import param_sharding_spec
 from cosyvoice2_eu_torch.utils.params import tree_leaves, tree_map
 
@@ -193,12 +195,8 @@ def global_norm(tree) -> torch.Tensor:
     return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tree_leaves(tree))))
 
 
-def _all_finite(leaves: list) -> bool:
-    # x * 0 is 0 for a finite x and NaN for an inf or a NaN
-    return bool(torch.isfinite(_finite_sum(leaves)))
-
-
 def _finite_sum(leaves: list) -> torch.Tensor:
+    # x * 0 is 0 for a finite x and NaN for an inf or a NaN
     return torch.stack(torch._foreach_norm(torch._foreach_mul(leaves, 0.0))).sum()
 
 
@@ -220,18 +218,31 @@ class Optimizer:
     the MultiSteps sum) and integer counters, which ``torch.save`` stores as
     it is.  ``step(params, grads, state)`` returns ``(params, state)``: the
     result of optax's ``tx.update`` then ``apply_updates``.  It does not
-    modify its arguments; on a step that emits no update the parameters come
-    back as the same tensors.  Each elementwise stage is one multi-tensor
-    (``torch._foreach_*``) operation over all leaves.
+    modify its arguments: every tensor it returns is new, or one it was
+    given.
+
+    Each tree of the state lies in a flat buffer of its own
+    (``ops/optim_passes.py::FlatLayout``, found by the gradient's sizes),
+    each leaf a view of it: a step that meets a state whose trees are not
+    such views (the first step, a restored checkpoint) copies them into
+    flat buffers once (``adopt``).  Each micro-step runs pass A (the running
+    mean), each emission reads the clip's norm and the finite check and, if
+    finite, runs pass B (the update); on a step that emits no update the
+    parameters come back as they were.  Without a mesh (or at ``fsdp`` 1)
+    the parameters lie in a flat buffer too, returned as its views, and
+    pass A also gives ``grad_norm``, the clip's norm and the finite check,
+    read in the step's one sync.
 
     With a ``mesh`` of ``fsdp`` > 1 (``parallel/mesh.py``) the state is
     sharded, ZeRO-2 style: each process of an fsdp group keeps the moments
     and the MultiSteps sum only for its slice of each leaf, along
     ``param_sharding_spec``'s axis (leaves with no such axis stay whole on
-    every process).  Parameters and gradients stay whole: each process
-    updates its slices and rebuilds every parameter with one all-reduce over
-    the group.  The global norm of the clip and the finite check are taken
-    over the group, so every process clips and skips alike.
+    every process); its flat layout is that of its slices.  Parameters and
+    gradients stay whole: each process updates its slices (pass B over a
+    flat copy of its parameters' slices) and rebuilds every parameter with
+    one all-reduce over the group.  The global norm of the clip and the
+    finite check are taken over the group, so every process clips and skips
+    alike; with ``accum_grad`` 1 no pass A runs.
     ``gather_state`` / ``shard_state`` convert to and from the whole state
     that checkpoints hold, so a checkpoint restores at any fsdp size.
     """
@@ -248,6 +259,25 @@ class Optimizer:
         self.weight_decay = cfg.weight_decay if cfg.optim == "adamw" else None
         self.k = cfg.accum_grad
         self.mesh = mesh if mesh is not None and mesh.fsdp > 1 else None
+        self._layouts: list = []  # one a tree met (GAN: the generator's, the critics')
+        self.grad_norm = None  # the last step's gradient norm
+
+    def _hyper(self, norm: float, state: dict) -> passes.Hyper:
+        """The numbers of the update from ``state`` with the clip's norm ``norm``."""
+        count = state["count"] + 1
+        return passes.Hyper(norm, self.cfg.grad_clip, self.B1, self.B2,
+                            _bias_correction(self.B1, count), _bias_correction(self.B2, count),
+                            self.EPS, self.weight_decay,
+                            # lr(count) is a float32 value, exact as a float
+                            float(self.schedule(state["schedule_count"])))
+
+    def _if_finite(self, state: dict, finite: bool) -> bool:
+        """apply_if_finite's counters, in ``state``; whether the update applies
+        (a rejected one is zero and leaves the inner state as it was)."""
+        state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
+        state["last_finite"] = finite
+        state["total_notfinite"] += 0 if finite else 1
+        return finite or state["notfinite_count"] > self.MAX_CONSECUTIVE_ERRORS
 
     # -- the fsdp slices ------------------------------------------------------
 
@@ -287,8 +317,6 @@ class Optimizer:
     def _norm_and_finite(self, g: list, axes: list) -> tuple:
         """(global norm, all finite) of the gradient whose slices are ``g``:
         a leaf kept whole counts once, on the group's first process."""
-        if self.mesh is None:
-            return float(global_norm(g)), _all_finite(g)
         own = [x for x, ax in zip(g, axes) if ax is not None or self.mesh.fsdp_rank == 0]
         sq = torch.stack(torch._foreach_norm(own)).square().sum() if own \
             else torch.zeros((), device=g[0].device)
@@ -342,78 +370,89 @@ class Optimizer:
                                                    self._slices(leaves, axes)])
         return out
 
-    def _inner(self, g: list, state, params, p: list, axes: list):
-        """apply_if_finite(chain(clip_by_global_norm, adam|adamw)) then
-        apply_updates, on this process's slices ``g`` of the gradient of the
-        parameters ``p`` (whole leaves, sharded along ``axes``)."""
-        state = dict(state)
-        g_norm, finite = self._norm_and_finite(g, axes)
-        state["notfinite_count"] = 0 if finite else state["notfinite_count"] + 1
-        state["last_finite"] = finite
-        state["total_notfinite"] += 0 if finite else 1
-        if not (finite or state["notfinite_count"] > self.MAX_CONSECUTIVE_ERRORS):
-            return params, state  # rejected: zero update, inner state unchanged
-
-        # clip_by_global_norm: g * max / |g| unless |g| < max (the norm is
-        # an fp32 value, so its Python float is exact)
-        max_norm = self.cfg.grad_clip
-        if not g_norm < max_norm:
-            g = torch._foreach_div(g, g_norm)
-            torch._foreach_mul_(g, max_norm)
-
-        b1, b2 = self.B1, self.B2
-        mu = torch._foreach_mul(tree_leaves(state["mu"]), b1)   # (1 - b1) g + b1 m
-        torch._foreach_add_(mu, g, alpha=1 - b1)
-        nu = torch._foreach_mul(tree_leaves(state["nu"]), b2)   # (1 - b2) g^2 + b2 v
-        torch._foreach_addcmul_(nu, g, g, value=1 - b2)
-        count = state["count"] + 1
-        bc1, bc2 = _bias_correction(b1, count), _bias_correction(b2, count)
-        denom = torch._foreach_div(nu, bc2)                      # sqrt(v / bc2) + eps
-        torch._foreach_sqrt_(denom)
-        torch._foreach_add_(denom, self.EPS)
-        upd = torch._foreach_div(mu, bc1)                        # (m / bc1) / denom
-        torch._foreach_div_(upd, denom)
-        p_own = self._slices(p, axes)
-        if self.weight_decay is not None:
-            torch._foreach_add_(upd, p_own, alpha=self.weight_decay)
-        # scale_by_learning_rate (lr(count) is a float32 value, exact as a
-        # float), then apply_updates: p + (-lr u)
-        torch._foreach_mul_(upd, -float(self.schedule(state["schedule_count"])))
-        torch._foreach_add_(upd, p_own)
-        if self.mesh is not None:
-            upd = self._gather(p, upd, axes)
-        params_out = _unflatten(params, upd)
-        state.update(mu=_unflatten(state["mu"], mu), nu=_unflatten(state["nu"], nu),
-                     count=count, schedule_count=state["schedule_count"] + 1)
-        return params_out, state
+    # -- the step -------------------------------------------------------------
 
     def step(self, params, grads, state):
-        p = tree_leaves(params)
-        axes = self._axes(p)
-        g = self._slices(tree_leaves(grads), axes)
-        if self.k == 1:
-            return self._inner(g, state, params, p, axes)
-        n = state["mini_step"]
-        # Welford running mean, as MultiSteps(use_grad_mean=True): a + (g - a) / (n + 1)
-        a = tree_leaves(state["acc_grads"])
-        acc = torch._foreach_sub(g, a)
-        torch._foreach_div_(acc, n + 1)
-        torch._foreach_add_(acc, a)
+        """(params, state) after one micro-step; ``self.grad_norm`` is then the
+        global norm of ``grads`` (a 0-d tensor, not synced: pass A's sum
+        without a mesh)."""
+        sharded = self.mesh is not None
+        g = tree_leaves(grads)
+        if sharded:
+            self.grad_norm = global_norm(grads)
+            p = tree_leaves(params)
+            axes = self._axes(p)
+            g = self._slices(g, axes)
+        layout = self._layout(g)
+        n = state["mini_step"] if self.k > 1 else 0
+        emit = n == self.k - 1
+        trees = {} if sharded else {"params": params}
+        trees.update(mu=state["mu"], nu=state["nu"])
+        if self.k > 1:
+            trees["acc_grads"] = state["acc_grads"]
         state = dict(state)
-        if n < self.k - 1:
-            # optax also runs the inner update here and multiplies it by 0;
-            # it is zero (the inner update of a finite mean is finite, and a
-            # non-finite one is rejected), so it is skipped
-            state.update(mini_step=n + 1, acc_grads=_unflatten(state["acc_grads"], acc))
-            return params, state
-        inner = {k: v for k, v in state.items()
-                 if k not in ("mini_step", "gradient_step", "acc_grads")}
-        params, inner = self._inner(acc, inner, params, p, axes)
-        state.update(inner)
-        state.update(mini_step=0, gradient_step=state["gradient_step"] + 1,
-                     acc_grads=_unflatten(state["acc_grads"],
-                                          torch._foreach_mul(acc, 0.0)))  # (1 - emit) acc
+        # (buffer, builder) of each tree the step reads: all of them when it emits
+        flat = self._flat_trees(layout, trees, [key for key in trees
+                                                if emit or key == "acc_grads"], state)
+        params = state.pop("params", params)
+        views = lambda key, buf: layout.build(key, flat[key][1], buf)  # noqa: E731
+        mean = None
+        if self.k > 1 or not sharded:
+            # sharded, the clip's norm and the finite check are the group's, not pass A's
+            mean, sums = passes.accumulate(layout, g, flat["acc_grads"][0] if self.k > 1
+                                           else None, n, emit and not sharded)
+            if not sharded:
+                self.grad_norm = sums[0]
+            if not emit:
+                state.update(mini_step=n + 1, acc_grads=views("acc_grads", mean))
+                return params, state
+        if sharded:
+            norm, finite = self._norm_and_finite(g if mean is None else layout.views(mean), axes)
+        else:
+            norm, bad = sums[1:].tolist()  # the step's one sync
+            finite = bad == 0
+        reset = None
+        if self._if_finite(state, finite):
+            p_flat = layout.flatten(self._slices(p, axes)) if sharded else flat["params"][0]
+            mu, nu, p_new, reset = passes.update(layout, g if mean is None else mean,
+                                                 flat["mu"][0], flat["nu"][0], p_flat,
+                                                 self._hyper(norm, state), reset=mean is not None)
+            params = (_unflatten(params, self._gather(p, layout.views(p_new), axes)) if sharded
+                      else views("params", p_new))
+            state.update(mu=views("mu", mu), nu=views("nu", nu),
+                         count=state["count"] + 1, schedule_count=state["schedule_count"] + 1)
+        elif mean is not None:
+            reset = mean * 0.0  # (1 - emit) acc, also after a rejected update
+        if mean is not None:
+            state.update(mini_step=0, gradient_step=state["gradient_step"] + 1,
+                         acc_grads=views("acc_grads", reset))
         return params, state
+
+    def _layout(self, g: list) -> passes.FlatLayout:
+        for layout in self._layouts:
+            if layout.matches(g):
+                return layout
+        self._layouts.append(passes.FlatLayout(g))
+        return self._layouts[-1]
+
+    @staticmethod
+    def _flat_trees(layout: passes.FlatLayout, trees: dict, read: list, state: dict) -> dict:
+        """(flat buffer, builder) of each tree of ``trees`` named in ``read``.
+        Where one of them is not a tree of views of a flat buffer at
+        ``layout``'s offsets (the first step, a restored checkpoint), every
+        tree of ``trees`` is copied into a flat buffer of its own
+        (``adopt``), and ``state`` takes the trees of views of the copies."""
+        flat = {key: layout.flat(key, trees[key]) for key in read}
+        if None not in flat.values():
+            return flat
+        leaves = {key: tree_leaves(tree) for key, tree in trees.items()}
+        if any([x.shape for x in v] != layout.shapes for v in leaves.values()):
+            raise ValueError("the state's shapes are not those of the tree of the same sizes "
+                             "that this optimizer met first")
+        bufs = passes.adopt(layout, leaves)
+        flat = {key: (buf, layout.builder(trees[key])) for key, buf in bufs.items()}
+        state.update({key: layout.build(key, flat[key][1], buf) for key, buf in bufs.items()})
+        return flat
 
 
 def make_optimizer(cfg: TrainConfig, mesh=None) -> Optimizer:

@@ -44,9 +44,21 @@ def tree_map(fn, tree, *rest):
 
 def tree_leaves(tree) -> list:
     """The leaves of a dict/list/tuple tree, in ``tree_map``'s order."""
+    if not isinstance(tree, (dict, list, tuple)):
+        return [tree]
     out = []
-    tree_map(out.append, tree)
+    _collect(tree, out)
     return out
+
+
+def _collect(tree, out: list) -> None:
+    # tree_leaves without tree_map's new containers, one call a container:
+    # the optimizer walks trees of ~1,100 leaves every step
+    for v in tree.values() if isinstance(tree, dict) else tree:
+        if isinstance(v, (dict, list, tuple)):
+            _collect(v, out)
+        else:
+            out.append(v)
 
 
 def params_from_numpy(tree, device, dtype: torch.dtype | None = torch.float32):

@@ -367,6 +367,16 @@ def test_fsdp_accumulated_steps_equal_one_process(fsdp_group):
         _close_after_adam(r["accum"]["params"], one["params"], one["mu"], LR)
 
 
+def test_fsdp_state_is_adopted_once_into_flat_slices(fsdp_group):
+    """At fsdp=2 each process's slices of the moments and the MultiSteps
+    mean lie in one flat buffer a tree, copied there once over 3 steps of
+    accum_grad=2 (the passes' layout of the slices)."""
+    ranks, _, _, _, _ = fsdp_group
+    for r in ranks:
+        assert r["accum"]["adoptions"] == 1
+        assert r["accum"]["storages"] == {"mu": 1, "nu": 1, "acc_grads": 1}
+
+
 # ---------------------------------------------------------------------------
 # the trainer: train.run --fsdp 2, checkpoints across fsdp sizes
 # ---------------------------------------------------------------------------

@@ -132,6 +132,7 @@ def dp_flow_and_guards(rank, world, flow_cfg, params, batch, draws, train_cfg,
 
 def fsdp_lm(rank, world, lm_cfg, params, batch, dpo_batch, ref_params, train_cfg,
             accum_cfg, accum_batches):
+    from cosyvoice2_eu_torch.ops import optim_passes as passes
     from cosyvoice2_eu_torch.parallel import train_step as ts
     from cosyvoice2_eu_torch.parallel.mesh import make_mesh, shard_batch, shard_rows
     from cosyvoice2_eu_torch.train.dpo import make_dpo_train_step
@@ -162,13 +163,18 @@ def fsdp_lm(rank, world, lm_cfg, params, batch, dpo_batch, ref_params, train_cfg
     tx2 = make_optimizer(accum_cfg, mesh)
     state = ts.init_train_state(_t(params), tx2)
     step = ts.make_lm_train_step(lm_cfg, accum_cfg, tx2, mesh=mesh)
-    losses = []
+    losses, adopted = [], passes.adopt.calls
     for b in accum_batches:
         state, m = step(state, shard_batch(_t(b), mesh))
         losses.append(float(m["loss"]))
     full = tx2.gather_state(state.opt_state, state.params)
     out["accum"] = {"losses": losses, "params": _np(state.params), "mu": _np(full["mu"]),
-                    "acc_grads": _np(full["acc_grads"]), "mini_step": full["mini_step"]}
+                    "acc_grads": _np(full["acc_grads"]), "mini_step": full["mini_step"],
+                    "adoptions": passes.adopt.calls - adopted,
+                    # the storages under each sharded tree: one flat buffer each
+                    "storages": {k: len({x.untyped_storage().data_ptr()
+                                         for x in P.tree_leaves(state.opt_state[k])})
+                                 for k in ("mu", "nu", "acc_grads")}}
     return out
 
 
