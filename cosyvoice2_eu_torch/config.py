@@ -52,8 +52,53 @@ def qwen3_0_6b_config() -> Qwen2Config:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeepseekV3Config:
+    """A DeepSeek-V3 decoder backbone (``models/deepseek_v3.py``), training
+    forward only: MLA without q compression, ``first_k_dense_replace`` dense
+    layers, then MoE layers whose sigmoid router scores all
+    ``n_routed_experts`` and picks ``num_experts_per_tok`` by score plus a
+    frozen correction bias (noaux_tc, one group).  This process holds the
+    routed experts ``[held_offset, held_offset + held_experts)`` of each MoE
+    layer (expert parallelism) and computes their part of the layer for the
+    tokens routed to them, plus the ``n_shared_experts`` shared experts.
+    Defaults: Moonlight-16B-A3B's ``config.json``, every expert held;
+    ``aux_loss_alpha`` is DeepSeek-V3's sequence-wise balance factor."""
+
+    model_type: str = "deepseek_v3"
+    vocab_size: int = 163840
+    hidden_size: int = 2048
+    intermediate_size: int = 11264
+    moe_intermediate_size: int = 1408
+    num_layers: int = 27
+    first_k_dense_replace: int = 1
+    num_heads: int = 16
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    n_routed_experts: int = 64
+    num_experts_per_tok: int = 6
+    n_shared_experts: int = 2
+    routed_scaling_factor: float = 2.446
+    aux_loss_alpha: float = 1e-4
+    held_experts: int = 64
+    held_offset: int = 0
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 50_000.0
+    max_position_embeddings: int = 8192
+
+    @property
+    def q_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+
+BACKBONES = {"deepseek_v3": DeepseekV3Config}  # a backbone dict's ``model_type``; else Qwen2
+
+
+@dataclasses.dataclass(frozen=True)
 class LMConfig:
-    """Speech-token LM wrapper around the Qwen2 backbone."""
+    """Speech-token LM wrapper around the Qwen2 backbone (or a
+    ``DeepseekV3Config`` one, for training)."""
 
     backbone: Qwen2Config = dataclasses.field(default_factory=Qwen2Config)
     speech_token_size: int = 6561  # FSQ vocab = 3**8
@@ -581,8 +626,8 @@ def config_to_dict(cfg) -> dict:
 def config_from_dict(cls, data: dict):
     """A frozen dataclass from a dict: the fields ``data`` names (lists as
     tuples, a list of lists as a tuple of tuples, a dict under a dataclass
-    field as that dataclass, built the same way), the defaults for the
-    rest."""
+    field as that dataclass, built the same way, or as the ``BACKBONES``
+    class its ``model_type`` names), the defaults for the rest."""
     import typing
 
     hints = typing.get_type_hints(cls)
@@ -592,7 +637,7 @@ def config_from_dict(cls, data: dict):
             continue
         v = data[f.name]
         if isinstance(v, dict) and dataclasses.is_dataclass(hints.get(f.name)):
-            v = config_from_dict(hints[f.name], v)
+            v = config_from_dict(BACKBONES.get(v.get("model_type"), hints[f.name]), v)
         elif isinstance(v, list):
             v = tuple(tuple(x) if isinstance(x, list) else x for x in v)
         kwargs[f.name] = v

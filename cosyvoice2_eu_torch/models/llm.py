@@ -34,7 +34,8 @@ from typing import Callable, Iterable, Optional
 import numpy as np
 import torch
 
-from cosyvoice2_eu_torch.config import LMConfig
+from cosyvoice2_eu_torch.config import DeepseekV3Config, LMConfig
+from cosyvoice2_eu_torch.models.deepseek_v3 import FROZEN, deepseek_v3_forward, init_deepseek_v3
 from cosyvoice2_eu_torch.models.qwen2 import (
     KVCache,
     _layer_forward,
@@ -63,10 +64,36 @@ SRC_SPEECH = 2  # speech_embedding
 Draws = Callable[[int], "tuple[torch.Tensor, torch.Tensor]"]
 
 
+def moe_backbone(cfg: LMConfig) -> bool:
+    """Whether the backbone is a deepseek_v3 MoE (``models/deepseek_v3.py``)."""
+    return isinstance(cfg.backbone, DeepseekV3Config)
+
+
+def split_frozen(params: dict) -> tuple:
+    """(the LM's trained tree, ``thaw``): a MoE backbone's router biases
+    (``FROZEN``) are read by the forward and never trained, so they leave
+    the tree, and ``thaw(trained)`` puts them back.  A tree without them
+    comes back as it is, with the identity."""
+    bb = params["backbone"]
+    if FROZEN not in bb:
+        return params, lambda p: p
+    frozen = {FROZEN: bb[FROZEN]}
+    trained = dict(params, backbone={k: v for k, v in bb.items() if k != FROZEN})
+    return trained, lambda p: dict(p, backbone=dict(p["backbone"], **frozen))
+
+
+def _decodable(cfg: LMConfig) -> None:
+    """Raise where the backbone has no decode path (a KV cache) in the port."""
+    if moe_backbone(cfg):
+        raise ValueError("a deepseek_v3 backbone trains only: its MLA latent cache (decode, "
+                         "prefill, bistream, slots) is not ported")
+
+
 def init_lm(gen: torch.Generator, cfg: LMConfig) -> dict:
     h = cfg.backbone.hidden_size
+    init_backbone = init_deepseek_v3 if moe_backbone(cfg) else init_qwen2
     return {
-        "backbone": init_qwen2(gen, cfg.backbone),
+        "backbone": init_backbone(gen, cfg.backbone),
         "llm_embedding": init_embedding(gen, 2, h),
         "speech_embedding": init_embedding(gen, cfg.full_vocab, h),
         "llm_decoder": init_dense(gen, h, cfg.full_vocab, bias=True),
@@ -129,6 +156,7 @@ def head_logits(params, cfg: LMConfig, hidden: torch.Tensor) -> torch.Tensor:
 
 def _kv_cache(params, cfg: LMConfig, batch: int, max_len: int, device, **kw) -> KVCache:
     """A cache of the backbone's local kv heads (all of them unless sliced)."""
+    _decodable(cfg)
     return KVCache.zeros(cfg.backbone, batch, max_len, device=device,
                          num_kv_heads=local_kv_heads(params["backbone"], cfg.backbone), **kw)
 
@@ -229,10 +257,22 @@ def lm_decode(
 
 def lm_training_hidden(params, cfg: LMConfig, ids, src, valid):
     """Training-time forward over packed (ids, src) sequences: logits
-    (B, T, full_vocab).  valid: (B, T) bool."""
+    (B, T, full_vocab).  valid: (B, T) bool.  The logits alone: a MoE
+    backbone's balance loss is ``lm_training_forward``'s."""
+    return lm_training_forward(params, cfg, ids, src, valid)[0]
+
+
+def lm_training_forward(params, cfg: LMConfig, ids, src, valid, timer=None) -> tuple:
+    """``lm_training_hidden``'s logits and what the backbone adds to the
+    loss: {} for Qwen, {"balance_loss", "routes", "held_pairs"} for a
+    deepseek_v3 backbone (``models/deepseek_v3.py``; ``timer`` gets its MoE
+    stages and counters)."""
     embeds = embed_mixed(params, ids, src)
-    hidden = qwen2_forward(params["backbone"], cfg.backbone, embeds, valid)
-    return dense(params["llm_decoder"], hidden)
+    if moe_backbone(cfg):
+        hidden, aux = deepseek_v3_forward(params["backbone"], cfg.backbone, embeds, valid, timer)
+    else:
+        hidden, aux = qwen2_forward(params["backbone"], cfg.backbone, embeds, valid), {}
+    return dense(params["llm_decoder"], hidden), aux
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +325,7 @@ def bs_extend(params, cfg: LMConfig, state: BistreamState, ids, src,
     lands early, over valid slots, and its queries see their own segment's
     later tokens.  Raises ValueError when the valid rows do not fit.
     """
+    _decodable(cfg)
     bb = cfg.backbone
     s = ids.shape[1]
     max_cache = state.kv.k.shape[3]
@@ -485,6 +526,7 @@ def slots_init(cfg: LMConfig, n_slots: int, max_cache: int, max_gen: int,
     """Empty slots; the KV cache and hidden states in ``dtype``; the cache
     holds ``num_kv_heads`` heads (a tensor-parallel slice's, ``local_kv_heads``;
     the config's by default)."""
+    _decodable(cfg)
     zeros = lambda *shape, dt=torch.long: torch.zeros(shape, dtype=dt, device=device)
     return SlotState(
         kv=KVCache.zeros(cfg.backbone, n_slots, max_cache, device=device, dtype=dtype,

@@ -75,9 +75,11 @@ def init_qwen2(gen: torch.Generator, cfg: Qwen2Config) -> dict:
     }
 
 
-def rope_cos_sin(positions: torch.Tensor, cfg: Qwen2Config, dtype=torch.float32):
-    """positions: (..., T) int -> cos/sin (..., T, head_dim)."""
-    half = cfg.head_dim // 2
+def rope_cos_sin(positions: torch.Tensor, cfg: Qwen2Config, dtype=torch.float32,
+                 dim: int | None = None):
+    """positions: (..., T) int -> cos/sin (..., T, dim), ``dim`` the
+    config's ``head_dim`` unless given."""
+    half = (dim or cfg.head_dim) // 2
     exps = torch.arange(0, half, dtype=torch.float32, device=positions.device) / half
     inv_freq = 1.0 / (cfg.rope_theta ** exps)
     ang = positions.float()[..., None] * inv_freq
@@ -99,7 +101,8 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 
 def _attention(q, k, v, bias, num_groups: int):
-    """q: (B, Hq, Tq, D); k,v: (B, Hkv, Tk, D); bias: (B, 1, Tq, Tk)."""
+    """q, k: (B, Hq|Hkv, Tq|Tk, D); v: (B, Hkv, Tk, Dv); bias: (B, 1, Tq, Tk)
+    -> (B, Hq, Tq, Dv), the scores scaled by D^-0.5."""
     b, hq, tq, d = q.shape
     hkv = k.shape[1]
     q = q.reshape(b, hkv, num_groups, tq, d)
@@ -107,7 +110,7 @@ def _attention(q, k, v, bias, num_groups: int):
     scores = scores.float() + bias[:, :, None]
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bhgqk,bhkd->bhgqd", probs, v)
-    return out.reshape(b, hq, tq, d)
+    return out.reshape(b, hq, tq, v.shape[-1])
 
 
 def _layer_forward(lp, cfg: Qwen2Config, x, cos, sin, bias, kv: KVCache | None = None,

@@ -23,7 +23,7 @@ import torch.distributed as dist
 from cosyvoice2_eu_torch.config import FlowConfig, LMConfig, TrainConfig
 from cosyvoice2_eu_torch.models.encoder import upsample_conformer_forward
 from cosyvoice2_eu_torch.models.estimator import estimator_forward
-from cosyvoice2_eu_torch.models.llm import lm_training_hidden
+from cosyvoice2_eu_torch.models.llm import lm_training_forward, moe_backbone
 from cosyvoice2_eu_torch.ops.masks import make_non_pad_mask
 from cosyvoice2_eu_torch.parallel.distributed import in_group
 from cosyvoice2_eu_torch.train.losses import cfm_loss, label_smoothing_ce
@@ -46,25 +46,49 @@ def init_train_state(params, tx: Optimizer) -> TrainState:
 # speech LM
 # ---------------------------------------------------------------------------
 
-def lm_loss_fn(params, cfg: LMConfig, batch: dict, train_cfg: TrainConfig):
+def lm_loss_fn(params, cfg: LMConfig, batch: dict, train_cfg: TrainConfig,
+               timer: Optional[StageTimer] = None):
     """batch: packed ids/src/target (B, T) and lengths (B,), as
     ``train/sequences.py::build_lm_batch`` makes them (unistream or
     bistream rows).  Returns (loss, {"loss", "acc", "denom", "acc_denom"}):
     the label-smoothing CE of the logits over the valid positions, and the
-    counts the loss and the accuracy divide by."""
+    counts the loss and the accuracy divide by.  A MoE backbone
+    (deepseek_v3) adds its balance loss, a mean over rows, to the loss and
+    reports both terms (``ce``, ``balance_loss``), the balance loss's count
+    (``balance_loss_denom``: the rows), the chosen experts of each MoE
+    layer (``routes``, (layers, B, T, K), left on the device) and the pairs
+    its held experts got (``held_pairs``, a host int)."""
     valid = make_non_pad_mask(batch["lengths"], batch["ids"].shape[1])
-    logits = lm_training_hidden(params, cfg, batch["ids"], batch["src"], valid)
+    logits, aux = lm_training_forward(params, cfg, batch["ids"], batch["src"], valid, timer)
     loss, acc, denom, acc_denom = label_smoothing_ce(
         logits, batch["target"], smoothing=cfg.lsm_weight,
         normalize_length=cfg.length_normalized_loss, with_counts=True)
-    return loss, {"loss": loss, "acc": acc, "denom": denom, "acc_denom": acc_denom}
+    metrics = {"loss": loss, "acc": acc, "denom": denom, "acc_denom": acc_denom}
+    if aux:
+        rows = valid.new_full((), valid.shape[0], dtype=torch.float32)  # no host copy, no sync
+        metrics.update(ce=loss, balance_loss=aux["balance_loss"], balance_loss_denom=rows,
+                       routes=aux["routes"], held_pairs=aux["held_pairs"])
+        loss = metrics["loss"] = loss + aux["balance_loss"]
+    return loss, metrics
+
+
+def lm_terms(cfg: LMConfig) -> tuple:
+    """``make_step``'s ``terms`` for ``lm_loss_fn``: a MoE backbone's loss is
+    the CE plus the balance loss, each weighted by its own count under data
+    parallelism (tokens, rows)."""
+    return ("ce", "balance_loss") if moe_backbone(cfg) else ("loss",)
 
 
 def make_lm_train_step(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer,
-                       timer: Optional[StageTimer] = None, mesh=None):
+                       timer: Optional[StageTimer] = None, mesh=None, thaw=None):
     """step(state, batch) -> (state, {"loss", "acc", "grad_norm"});
-    data-parallel over ``mesh`` (this process's rows of the batch)."""
-    return make_step(lambda p, batch: lm_loss_fn(p, cfg, batch, train_cfg), tx, timer, mesh)
+    data-parallel over ``mesh`` (this process's rows of the batch).
+    ``timer`` also reaches the backbone's own stages.  ``thaw``, when
+    given, puts back into the state's trained tree what the loss reads and
+    never trains (``models/llm.py::split_frozen``)."""
+    thaw = thaw or (lambda p: p)
+    return make_step(lambda p, batch: lm_loss_fn(thaw(p), cfg, batch, train_cfg, timer), tx,
+                     timer, mesh, lm_terms(cfg))
 
 
 # ---------------------------------------------------------------------------
@@ -168,7 +192,8 @@ def value_and_grad(loss_fn, params, stage=_no_stage, scale=None):
             grads = iter(torch.autograd.grad(scaled, tree_leaves(p), allow_unused=True))
             grads = tree_map(lambda x: torch.zeros_like(x) if (g := next(grads)) is None
                              else g, p)
-    return (loss.detach(), {k: v.detach() for k, v in metrics.items()}), grads
+    return (loss.detach(), {k: v.detach() if torch.is_tensor(v) else v
+                            for k, v in metrics.items()}), grads
 
 
 def _denom_keys(metrics: dict) -> list:
@@ -212,10 +237,15 @@ class DataParallel:
         return sum(metrics[t] * self.share(t) for t in self.terms)
 
     def metrics(self, metrics: dict) -> dict:
-        names = [k for k in metrics if k not in self.shares]
+        """The count-weighted sum of each one-element tensor metric over
+        the processes; any other metric (a MoE backbone's ``routes`` and
+        ``held_pairs``) is this process's own, passed on as it is."""
+        own = {k: v for k, v in metrics.items()
+               if not (isinstance(v, torch.Tensor) and v.numel() == 1)}
+        names = [k for k in metrics if k not in self.shares and k not in own]
         vals = torch.stack([metrics[k].float() * self.share(k) for k in names])
         dist.all_reduce(vals)
-        out = dict(zip(names, vals.unbind()))
+        out = dict(zip(names, vals.unbind()), **own)
         if self.terms != ("loss",):
             out["loss"] = sum(out[t] for t in self.terms)
         return out

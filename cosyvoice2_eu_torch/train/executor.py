@@ -124,12 +124,18 @@ def average_checkpoints(model_dir: str, num: int = 5, metric: str = "cv_loss"):
     return tree_map(lambda a: (a / n).float(), acc), [i["tag"] for i in chosen]
 
 
+def _scalar(v) -> bool:
+    """A metric that logs as one number (a MoE backbone's ``routes`` do not)."""
+    return isinstance(v, (int, float)) or (isinstance(v, torch.Tensor) and v.numel() == 1)
+
+
 class Executor:
     """Epoch loop with periodic CV and step checkpoints.
 
     ``step_fn(state, batch) -> (state, metrics)``; ``cv_fn(params, batch) ->
     metrics`` runs under ``torch.no_grad()``; ``log_fn`` gets the metrics
-    (as floats, with step and epoch) every ``log_interval`` steps;
+    that are one number (as floats, with step and epoch) every
+    ``log_interval`` steps;
     ``on_step(step)`` runs after every step (the trainer hangs
     ``StragglerGuard.beat`` on it).
 
@@ -193,7 +199,7 @@ class Executor:
             self.step += 1
             self.on_step(self.step)
             if self.step % cfg.log_interval == 0:
-                log = {k: float(v) for k, v in metrics.items()}
+                log = {k: float(v) for k, v in metrics.items() if _scalar(v)}
                 log.update(step=self.step, epoch=self.epoch)
                 logging.info("TRAIN %s", log)
                 self.log_fn(log)

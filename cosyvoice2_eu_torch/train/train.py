@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from cosyvoice2_eu_torch.config import FlowConfig, LMConfig, TrainConfig, TTSConfig
+from cosyvoice2_eu_torch.models.llm import moe_backbone, split_frozen
 from cosyvoice2_eu_torch.parallel.train_step import (
     flow_loss_fn,
     lm_loss_fn,
@@ -55,12 +56,18 @@ def make_lm_step_fn(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, params
     """The LM branch: (trained params, step_fn(state, batch), cv_fn(params,
     batch) -> metrics).
 
-    Plain: the LM step and its loss.  ``dpo``: against ``params`` as the
-    frozen reference (the batches carry the rejected rows).  ``lora``: the
-    trained params are adapters of rank ``lora_rank`` drawn from ``gen``
-    over ``params`` as the frozen base; the CV loss runs on the adapted
-    weights.  Each step is data-parallel over ``mesh`` when given.
+    Plain: the LM step and its loss; the trained params leave out a MoE
+    backbone's router biases, which the loss reads frozen.  ``dpo``:
+    against ``params`` as the frozen reference (the batches carry the
+    rejected rows).  ``lora``: the trained params are adapters of rank
+    ``lora_rank`` drawn from ``gen`` over ``params`` as the frozen base; the
+    CV loss runs on the adapted weights.  Each step is data-parallel over
+    ``mesh`` when given.  A MoE backbone (deepseek_v3) trains by the plain
+    step only: ``dpo`` and ``lora`` raise ``ValueError`` for it.
     """
+    if (dpo or lora) and moe_backbone(cfg):
+        raise ValueError("a deepseek_v3 backbone trains by the plain LM step only: DPO and "
+                         "LoRA are not ported for its router biases and balance loss")
     if dpo:
         from cosyvoice2_eu_torch.train.dpo import dpo_loss_fn, make_dpo_train_step
 
@@ -76,8 +83,9 @@ def make_lm_step_fn(cfg: LMConfig, train_cfg: TrainConfig, tx: Optimizer, params
                                           timer=timer, mesh=mesh)
         return adapters, step_fn, lambda lo, b: lm_loss_fn(apply_lora(params, lo, lora_alpha),
                                                           cfg, b, train_cfg)[1]
-    return (params, make_lm_train_step(cfg, train_cfg, tx, timer, mesh),
-            lambda p, b: lm_loss_fn(p, cfg, b, train_cfg)[1])
+    params, thaw = split_frozen(params)  # a MoE backbone's router biases stay untrained
+    return (params, make_lm_train_step(cfg, train_cfg, tx, timer, mesh, thaw),
+            lambda p, b: lm_loss_fn(thaw(p), cfg, b, train_cfg)[1])
 
 
 def make_flow_step_fn(raw_step, cfg: FlowConfig, gen: torch.Generator,
@@ -341,8 +349,9 @@ def run(args: argparse.Namespace, open_samples: Callable[[str, int], Iterable[di
         from cosyvoice2_eu_torch.models.llm import init_lm
 
         params = init_lm(torch.Generator(device=device).manual_seed(args.seed), cfg.llm)
-        if args.init_checkpoint:
-            params = load_params(args.init_checkpoint, params)
+        if args.init_checkpoint:  # a checkpoint holds the trained tree (no router biases)
+            trained, thaw = split_frozen(params)
+            params = thaw(load_params(args.init_checkpoint, trained))
         params, step_fn, cv_fn = make_lm_step_fn(
             cfg.llm, train_cfg, tx, params, dpo=args.dpo, dpo_beta=args.dpo_beta,
             lora=args.lora, lora_rank=args.lora_rank, lora_alpha=args.lora_alpha,

@@ -54,6 +54,11 @@ class StageTimer:
     of the host inside it (a device value read, a launch blocked on a full
     queue), and ``total_s - host_s`` the wait for the card after it.  A
     nested stage's time counts in the stage around it as well.
+
+    ``count(name, value)`` adds to a counter what the program counts (a
+    number, or a tensor, kept where it is: a device tensor is added on the
+    device, with no sync); ``counters()`` reads them, tensors as lists.
+    ``reset()`` clears the counters with the stages.
     """
 
     def __init__(self, sync: Optional[Callable[[], None]] = None):
@@ -63,6 +68,14 @@ class StageTimer:
         self.counts: Dict[str, int] = defaultdict(int)
         self.mallocs: Dict[str, int] = defaultdict(int)
         self.retries: Dict[str, int] = defaultdict(int)
+        self._counters: Dict[str, object] = {}
+
+    def count(self, name: str, value) -> None:
+        self._counters[name] = value + self._counters[name] if name in self._counters else value
+
+    def counters(self) -> dict:
+        return {k: v.tolist() if isinstance(v, torch.Tensor) else v
+                for k, v in self._counters.items()}
 
     @contextlib.contextmanager
     def stage(self, name: str):
@@ -96,7 +109,8 @@ class StageTimer:
         logging.info("%s: %s", prefix, self.summary())
 
     def reset(self):
-        for d in (self.totals, self.host, self.counts, self.mallocs, self.retries):
+        for d in (self.totals, self.host, self.counts, self.mallocs, self.retries,
+                  self._counters):
             d.clear()
 
 

@@ -154,6 +154,39 @@ def test_train_main_flow_with_resume(data, tmp_path):
     assert opt["gradient_step"] * 4 + opt["mini_step"] == 2 * steps
 
 
+def test_train_main_llm_on_a_moe_backbone(data, tmp_path, monkeypatch):
+    """``--config`` with a deepseek_v3 backbone (1 dense + 2 MoE layers, 16
+    experts of which 4 held): the trainer logs every step (the routes stay
+    out of the log), its checkpoint holds the trained tree without the
+    routers' biases, and ``--init_checkpoint`` starts a second run from it."""
+    tiny = _tiny16(port_config)
+    backbone = port_config.DeepseekV3Config(
+        vocab_size=tiny.llm.backbone.vocab_size, hidden_size=64, intermediate_size=128,
+        moe_intermediate_size=24, num_layers=3, num_heads=4, kv_lora_rank=32,
+        qk_nope_head_dim=16, qk_rope_head_dim=8, v_head_dim=16, n_routed_experts=16,
+        num_experts_per_tok=3, n_shared_experts=1, held_experts=4)
+    cfg = tmp_path / "moe.json"
+    cfg.write_text(json.dumps(port_config.config_to_dict(dataclasses.replace(
+        tiny, llm=dataclasses.replace(tiny.llm, backbone=backbone)))))
+    monkeypatch.setattr(port_train, "TrainConfig",
+                        lambda **kw: port_config.TrainConfig(log_interval=1, **kw))
+    logged = []
+
+    class Logger:
+        __call__, close = logged.append, lambda self: None
+
+    monkeypatch.setattr(port_train, "make_logger", lambda *a, **k: Logger())
+    common = lambda d: _common(dict(data, config=str(cfg)), "llm", tmp_path / d, 100000)  # noqa: E731
+    first = port_train.main(common("a"))
+    assert first["executor"].step == 1 and [m["step"] for m in logged] == [1]
+    assert logged[0]["balance_loss"] > 0 and "routes" not in logged[0]
+    saved = torch.load(str(tmp_path / "a" / "epoch_0_whole"), weights_only=True)
+    assert "e_score_correction_bias" not in saved["backbone"]
+    second = port_train.main(common("b") + ["--init_checkpoint",
+                                             str(tmp_path / "a" / "epoch_0_whole")])
+    assert second["executor"].step == 1 and len(logged) == 2
+
+
 def _opener():
     from cosyvoice2_eu_torch.train import dataset as ds
 

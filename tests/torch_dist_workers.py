@@ -178,6 +178,26 @@ def fsdp_lm(rank, world, lm_cfg, params, batch, dpo_batch, ref_params, train_cfg
     return out
 
 
+def dp_moe_lm(rank, world, lm_cfg, train_cfg, params, batch):
+    """The plain LM step on a MoE backbone at dp=``world``, this process's
+    rows of ``batch`` (split unevenly): the reduced metrics, this process's
+    routes and held pairs, its rows, the updated parameters."""
+    from cosyvoice2_eu_torch.parallel import train_step as ts
+    from cosyvoice2_eu_torch.parallel.mesh import make_mesh, shard_rows
+    from cosyvoice2_eu_torch.train.optim import make_optimizer
+    from cosyvoice2_eu_torch.train.train import make_lm_step_fn
+
+    mesh = make_mesh(dp=world)
+    tx = make_optimizer(train_cfg, mesh)
+    kept, step_fn, _ = make_lm_step_fn(lm_cfg, train_cfg, tx, params, mesh=mesh)
+    rows = shard_rows(batch, mesh)
+    state, m = step_fn(ts.init_train_state(kept, tx), rows)
+    own = ("routes", "held_pairs")
+    return {"metrics": {k: float(v) for k, v in m.items() if k not in own},
+            "routes": m["routes"], "held_pairs": m["held_pairs"],
+            "rows": int(rows["ids"].shape[0]), "params": _np(state.params)}
+
+
 # ---------------------------------------------------------------------------
 # the trainer: train.run --fsdp 2
 # ---------------------------------------------------------------------------
